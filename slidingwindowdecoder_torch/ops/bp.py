@@ -1,0 +1,284 @@
+"""Batched normalized min-sum belief propagation (unmasked), in PyTorch.
+
+The counterpart of the JAX package's ``ops/bp.py`` for the BP+OSD path:
+every VN undecided, every CN active. Semantics reproduced exactly:
+
+- two-pass CN rule == masked (min1, min2, first-argmin) reduction over the
+  check-slot axis, sign seeded by the check's syndrome bit, zero counted
+  as negative (``m <= 0``), message clipping to ±clip inside the CN
+  update only, normalization factor applied after the sign;
+- VN rule: posterior = prior + sum of incoming, outgoing = posterior − own;
+- posterior LLR history ring of length 4 indexed by ``iteration % 4``
+  (the iteration counter is local to each ``bp_run`` call);
+- hard decision ``posterior <= 0``; convergence = full-PCM syndrome
+  match; per-shot freeze after convergence, whole-batch early exit.
+
+Layouts follow the JAX package: CN-major edge arrays are slot-major
+[dc, m_pad, B] (shot index fastest), the history ring is [n, 4, B]
+internally. The CN stage goes through ``ops.bp_cuda.cn_update``, which
+launches the hand-written CUDA kernel on a CUDA tensor and runs
+``_cn_update_sm`` (below, the plain version) on a CPU tensor. The rest of
+the iteration is torch ops.
+
+The masked (decimation) mode of the JAX ``bp_run`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BIG = 1e30  # stands in for the reference's 1e308 sentinel (f32-safe)
+
+# how many iterations run between two host checks of the all-done exit;
+# rows that are done never change error/done/iters/history, so checking
+# less often than every iteration changes none of those outputs
+EXIT_CHECK_EVERY = 4
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def msg_torch_dtype(msg_dtype: str) -> torch.dtype:
+    try:
+        return _DTYPES[str(msg_dtype)]
+    except KeyError:
+        raise ValueError(f"unsupported msg_dtype {msg_dtype!r}") from None
+
+
+def bp_init_messages(garr, prior_llr, batch: int):
+    """Initial VN->CN messages (batch-major CN layout [B, m, dc], f32): the
+    channel prior, 0 at degree-padding slots. ``prior_llr``: [n] or [B, n]."""
+    cn_vn = garr["cn_vn"].long()
+    n = garr["n"]
+    prior = torch.as_tensor(prior_llr, dtype=torch.float32, device=cn_vn.device)
+    if prior.ndim == 1:
+        prior = prior.expand(batch, n)
+    prior_pad = torch.nn.functional.pad(prior, (0, 1))
+    return prior_pad[:, cn_vn]  # [B, m, dc]
+
+
+def bp_init_messages_sm(garr, prior_llr, batch: int, msg_dtype="float32"):
+    """Initial VN->CN messages in slot-major [dc, m_pad, B] layout, in the
+    message dtype. ``prior_llr``: [n], shared across the batch. Invalid
+    slots carry 0. Returns a broadcast view; callers that write into it
+    materialize it first."""
+    mdt = msg_torch_dtype(msg_dtype)
+    dc, m_pad = garr["dc"], garr["m_pad"]
+    prior = torch.as_tensor(prior_llr, dtype=torch.float32,
+                            device=garr["cn_vn_clip"].device)
+    base = prior[garr["cn_vn_clip"]].reshape(dc, m_pad)
+    base = torch.where(garr["cn_valid_sm"], base, 0.0).to(mdt)
+    return base[:, :, None].expand(dc, m_pad, batch)
+
+
+def _cn_update_sm(mv, edge_valid, parity, *, alpha, clip):
+    """Check-node update, slot-major — the plain version of the CUDA kernel
+    in ``ops.bp_cuda`` and the port of the JAX ``_cn_update_sm``.
+
+    mv: [dc, m_pad, B] messages (f32 or bf16); edge_valid: bool
+    [dc, m_pad] or broadcastable to mv; parity: [m_pad, B] int32 sign
+    seed. Returns mc in mv's dtype (zero at invalid slots). All arithmetic
+    stays in the message dtype, as in the JAX version.
+    """
+    if edge_valid.ndim == 2:
+        edge_valid = edge_valid[:, :, None]
+    mdt = mv.dtype
+    big = torch.tensor(BIG, dtype=mdt, device=mv.device)
+    mvc = torch.clamp(mv, -clip, clip)
+    absx = torch.minimum(torch.where(edge_valid, mvc.abs(), big), big)
+    neg = edge_valid & (mvc <= 0)
+    min1 = absx.amin(dim=0)  # [m_pad, B]
+    arg1 = absx.argmin(dim=0)  # first occurrence == fwd-pass order
+    slot = torch.arange(mv.shape[0], device=mv.device)[:, None, None]
+    is_arg = slot == arg1[None]
+    min2 = torch.where(is_arg, big, absx).amin(dim=0)
+    total_sign = (parity + neg.sum(dim=0, dtype=torch.int32)) % 2
+    sign_flip = (total_sign[None] ^ neg.to(torch.int32)) == 1
+    mag = torch.where(is_arg, min2[None], min1[None])
+    mc = torch.tensor(alpha, dtype=mdt, device=mv.device) * torch.where(
+        sign_flip, -mag, mag
+    )
+    return torch.where(edge_valid, mc, torch.zeros((), dtype=mdt, device=mv.device))
+
+
+def bp_run(
+    garr,
+    mv,
+    prior_llr,
+    syndrome,
+    history,
+    error,
+    done,
+    iters,
+    *,
+    num_iter: int,
+    alpha: float = 1.0,
+    clip: float = 50.0,
+    msg_dtype: str = "float32",
+    freeze_messages: bool = True,
+    history_mode: str = "full",
+    posterior_matmul: bool = False,
+    io_layout: str = "batch_major",
+):
+    """Run up to ``num_iter`` unmasked BP iterations with per-shot
+    convergence freeze (the JAX ``bp_run`` with ``masked=False`` and
+    ``hist_update="masked"``).
+
+    ``syndrome`` [B, m], ``error`` [B, n] int8, ``done`` [B] bool and
+    ``iters`` [B] int32 are batch-major. With ``io_layout="batch_major"``
+    ``mv`` is [B, m, dc] f32 and ``history`` [B, n, 4]; with
+    ``"slot_major"`` they are the internal [dc, m_pad, B] (message dtype)
+    and [n, 4, B]. ``history`` is written at slot ``i % 4`` each iteration
+    for the shots still active, ``i`` local to this call.
+
+    ``freeze_messages=False`` lets converged shots' messages keep evolving
+    (valid when downstream ignores them); the all-done exit is checked on
+    the host every ``EXIT_CHECK_EVERY`` iterations, so such shots' final
+    messages may then differ from a run that checks every iteration.
+    ``history_mode="tail"`` records history only over the final 4
+    iterations. ``posterior_matmul=True`` takes the per-VN message sum as
+    a dense product with ``garr["vn_inc"]`` (the JAX bf16 form, kept for
+    comparison on the CPU only).
+
+    Returns ``(mv, history, error, done, iters)`` in the input layouts.
+    """
+    mdt = msg_torch_dtype(msg_dtype)
+    dev = syndrome.device
+    B = syndrome.shape[0]
+    n, m, dc, m_pad = garr["n"], garr["m"], garr["dc"], garr["m_pad"]
+    valid = garr["cn_valid_sm"]  # [dc, m_pad]
+    sv = valid[:, :, None]
+
+    prior = torch.as_tensor(prior_llr, dtype=torch.float32, device=dev)
+    prior_t = prior[:, None].expand(n, B) if prior.ndim == 1 else prior.T
+
+    synd_t = torch.zeros((m_pad, B), dtype=torch.int32, device=dev)
+    synd_t[:m] = syndrome.T.to(torch.int32)
+    syndrome_odd = synd_t == 1
+    parity = synd_t  # unmasked: cn_state == syndrome, pad rows 0
+
+    if io_layout == "slot_major":
+        mv_sm = mv.to(mdt)
+        hist_t = history
+    elif io_layout == "batch_major":
+        mv_sm = torch.zeros((dc, m_pad, B), dtype=mdt, device=dev)
+        mv_sm[:, :m] = mv.permute(2, 1, 0).to(mdt)
+        hist_t = history.permute(1, 2, 0)
+    else:
+        raise ValueError(f"unknown io_layout {io_layout!r}")
+    err_t = error.T
+    if history_mode != "none":
+        hist_t = hist_t.clone()  # the ring is written in place below
+
+    from .bp_cuda import cn_update  # imports this module: no top-level cycle
+
+    cn_vn_clip = garr["cn_vn_clip"]
+    vn_from_cn = garr["vn_from_cn_flat"]
+    dv = garr["dv"]
+    fill_row = torch.zeros((1, B), dtype=mdt, device=dev)
+
+    def iteration(mv_sm):
+        mc = cn_update(mv_sm, valid, parity, alpha=alpha, clip=clip)
+        mc_flat = mc.reshape(dc * m_pad, B)
+        if posterior_matmul:
+            posterior = prior_t + (garr["vn_inc"] @ mc_flat.float())
+        else:
+            # gather with a zero fill row (JAX take mode="fill"), summed in
+            # f32 slot by slot: the order of XLA's reduce on the CPU
+            mcv = torch.cat([mc_flat, fill_row])[vn_from_cn].reshape(n, dv, B)
+            acc = mcv[:, 0].float()
+            for j in range(1, dv):
+                acc = acc + mcv[:, j].float()
+            posterior = prior_t + acc
+        post_f = posterior.to(mdt)
+        post_edge = post_f[cn_vn_clip].reshape(dc, m_pad, B)
+        mv_new = post_edge - mc
+        err_new = (post_f <= 0).to(torch.int8)
+        # decoded parity per check: parity of the valid edges whose
+        # posterior is <= 0 (the JAX +/-1 product, as a count)
+        synd_odd = ((sv & (post_edge <= 0)).sum(dim=0) % 2) == 1
+        conv = (synd_odd == syndrome_odd).all(dim=0)
+        return mv_new, posterior, err_new, conv
+
+    def run_span(state, end, with_history):
+        i, mv_sm, hist_t, err_t, done, iters = state
+        start = i
+        while i < end:
+            if (i - start) % EXIT_CHECK_EVERY == 0 and bool(done.all()):
+                break
+            mv_new, posterior, err_new, conv = iteration(mv_sm)
+            active = ~done
+            mv_sm = torch.where(active, mv_new, mv_sm) if freeze_messages else mv_new
+            if with_history:
+                slot = hist_t[:, i % 4, :]
+                slot.copy_(torch.where(active, posterior, slot))
+            err_t = torch.where(active, err_new, err_t)
+            iters = iters + active.to(torch.int32)
+            done = done | conv
+            i += 1
+        return i, mv_sm, hist_t, err_t, done, iters
+
+    state = (0, mv_sm, hist_t, err_t, done, iters)
+    if history_mode == "tail" and num_iter > 4:
+        state = run_span(state, num_iter - 4, with_history=False)
+        state = run_span(state, num_iter, with_history=True)
+    elif history_mode in ("full", "tail"):
+        state = run_span(state, num_iter, with_history=True)
+    elif history_mode == "none":
+        state = run_span(state, num_iter, with_history=False)
+    else:
+        raise ValueError(f"unknown history_mode {history_mode!r}")
+    _, mv_sm, hist_t, err_t, done, iters = state
+
+    err_out = err_t.T
+    if io_layout == "slot_major":
+        return mv_sm, hist_t, err_out, done, iters
+    mv_out = mv_sm[:, :m].permute(2, 1, 0).float()
+    return mv_out, hist_t.permute(2, 0, 1), err_out, done, iters
+
+
+def fresh_bp_state(garr, batch: int):
+    """Zeroed (history, error, done, iters) for a new decode call
+    (batch-major, as the JAX ``fresh_bp_state``), on the graph's device."""
+    n = garr["n"]
+    dev = garr["cn_valid_sm"].device
+    return (
+        torch.zeros((batch, n, 4), dtype=torch.float32, device=dev),
+        torch.zeros((batch, n), dtype=torch.int8, device=dev),
+        torch.zeros((batch,), dtype=torch.bool, device=dev),
+        torch.zeros((batch,), dtype=torch.int32, device=dev),
+    )
+
+
+def decode_bp(
+    garr,
+    prior_llr,
+    syndrome,
+    *,
+    num_iter: int,
+    alpha: float = 1.0,
+    clip: float = 50.0,
+    msg_dtype: str = "float32",
+    freeze_messages: bool = True,
+    history_mode: str = "full",
+):
+    """Plain batched (unmasked) BP decode from scratch.
+
+    Returns dict with error, converged, iterations, history, posterior-sum
+    ordering key (llr_sum), and final messages.
+    """
+    B = syndrome.shape[0]
+    mv = bp_init_messages(garr, prior_llr, B)
+    history, error, done, iters = fresh_bp_state(garr, B)
+    mv, history, error, done, iters = bp_run(
+        garr, mv, prior_llr, syndrome, history, error, done, iters,
+        num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
+        freeze_messages=freeze_messages, history_mode=history_mode,
+    )
+    return {
+        "error": error,
+        "converged": done,
+        "iterations": iters,
+        "history": history,
+        "llr_sum": history.sum(dim=-1),
+        "mv": mv,
+    }
