@@ -4,25 +4,37 @@
 Run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA:
 
-    python3 chip_smoke.py            # the full run: 16384 shots
+    python3 chip_smoke.py            # the full run: 16384 shots per path
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build both hand-written kernels from ``slidingwindowdecoder_torch/csrc``
-   (one ``nvcc`` each, started together);
+1. build both hand-written kernel sources from
+   ``slidingwindowdecoder_torch/csrc`` (one ``nvcc`` each, started
+   together);
 2. kernel A (min-sum check-node update) against its plain PyTorch version
    at the flagship window shape [35, 224, B], B in {1024, 16384}, f32 and
    bf16, with forced ties, clipping and padding: bit-exact;
-3. kernel B (ordered GF(2) Gauss-Jordan) against its plain version on a
+3. the pinned kernel A (masked BP) against its plain version at [35, 224,
+   B], B in {512, 16384}, on a [[288]] W=4 window (m_pad 608) and on the
+   [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, with ~30 %
+   of the edges and whole checks pinned: bit-exact;
+4. kernel B (ordered GF(2) Gauss-Jordan) against its plain version on a
    216x1728 and the rank-deficient 216x1656 window PCM at B=256, with keys
    that hold exact ties: every output bit-exact;
-4. the main path: the [[144,12,12]] BB code, 12 rounds, p=0.004, (W,F) =
+5. the main path: the [[144,12,12]] BB code, 12 rounds, p=0.004, (W,F) =
    (3,1) sliding-window BP+OSD-CS-10 with the bench knobs and bf16
    messages over 16384 shots drawn from seed 2024, with the launch counts
-   of both kernels read around it and the failure count held to 3 sigma
-   of the JAX package's 414/16384; then a small input decoded on the card
+   of the kernels read around it and the failure count held to 3 sigma of
+   the JAX package's 414/16384; then a small input decoded on the card
    and by the plain versions on the CPU;
-5. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+6. the shortened path: the same experiment and samples decoded window by
+   window with ``OSDWindow`` (pre-BP 8, post-BP 200, OSD-CS-10, f32), the
+   decoder of ``sliding_window_decoder(shorten=True)``, with the launch
+   counts read around it and the failure count held to 3 sigma of the
+   reference's 183/10000; then the first 512 of those shots, at full
+   width, and a small input, each on the card and by the plain versions
+   on the CPU;
+7. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -41,6 +53,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 REF_FAILED, REF_SHOTS, SEED = 414, 16384, 2024  # the JAX package's flagship count
+# the shortened osd_window decode: the reference's own rate (docs/PARITY.md,
+# 183/10000 at p=0.004, W=3, 12 rounds)
+REF_SHORT_FAILED, REF_SHORT_SHOTS = 183, 10000
+# the first shots of the same samples, decoded on the shortened path on the
+# card and by the plain versions on the CPU at full width
+SLICE_SHOTS = 512
 
 
 def log(*a):
@@ -132,6 +150,70 @@ def phase_cn(plan):
     return result
 
 
+def phase_cn_pinned(plan):
+    """The pinned kernel against its plain version at the shapes of the
+    masked BP: the flagship window (pre-BP at 16384 shots, post-BP buckets
+    of 512), a [[288]] W=4 window and the [[144]] global DEM graph (the
+    shapes where the TPU kernel faulted its worker)."""
+    import torch
+
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.ops.bp import PIN, _cn_update_sm
+    from slidingwindowdecoder_torch.ops.bp_cuda import cn_update
+
+    _, _, dem144, _ = build_bb_window_experiment(144, 0.004, 12, 3, 1)
+    _, _, _, plan288 = build_bb_window_experiment(288, 0.005, 6, 4, 1)
+    cases = [(plan.windows[1].mat, 512), (plan.windows[1].mat, 16384),
+             (plan288.windows[1].mat, 1024), (dem144.chk, 1024)]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    result = {"max_abs_err": 0.0}
+    for H, B in cases:
+        g = compile_graph(H)
+        valid = graph_tensors(g, "cuda")["cn_valid_sm"]
+        dc, m_pad = g.dc, g.m_pad
+        for dtype in (torch.float32, torch.bfloat16):
+            mv = torch.randn((dc, m_pad, B), generator=gen, device="cuda") * 30
+            mv[1, ::3] = -mv[0, ::3]  # ties of |x| between slots 0 and 1
+            mv[2, ::5] = mv[3, ::5]  # equal values
+            mv[4, ::7] = 0.0  # zeros count as negative
+            mv[5, ::11] = 80.0  # beyond +clip
+            mv[6, ::13] = -75.0  # beyond -clip
+            mv = mv.to(dtype)
+            mv[torch.rand(mv.shape, generator=gen, device="cuda") < 0.3] = PIN
+            mv[:, ::9] = PIN  # every edge of these checks pinned
+            parity = torch.randint(0, 2, (m_pad, B), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+
+            def kern():
+                return cn_update(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True)
+
+            before = cn_update.pinned_launches, cn_update.launches
+            out = kern()
+            torch.cuda.synchronize()
+            if (cn_update.pinned_launches, cn_update.launches) != (before[0] + 1, before[1]):
+                raise SystemExit("the pinned kernel was not launched exactly once")
+            ref = _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True)
+            err = float((out.float() - ref.float()).abs().max())
+            same = torch.equal(out, ref)
+            ms = cuda_time_ms(kern, 50)
+            plain_ms = cuda_time_ms(
+                lambda: _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True), 5)
+            nbytes = 2 * mv.numel() * mv.element_size() + parity.numel() * 4 + valid.numel()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            shape = f"[{dc},{m_pad},{B}] {str(dtype)[6:]}"
+            log(f"[cn_pinned] {H.shape[0]}x{H.shape[1]} {shape}: bit-exact={same} "
+                f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms (bytes {nbytes})")
+            if not same:
+                raise SystemExit(f"the pinned kernel disagrees with its plain version at {shape}")
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            if m_pad == 224 and B == 512 and dtype == torch.float32:  # post-BP bucket
+                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, shape=shape)
+    cn_update.launches = cn_update.pinned_launches = 0
+    return result
+
+
 def _gj_ops(m: int, n: int, W: int, rank: int, B: int) -> int:
     """32-bit operations of the elimination that do not depend on the data:
     per step the OR over the unused rows' words, the key scan and the
@@ -195,107 +277,98 @@ def phase_gj(plan):
     return result
 
 
-def bench_factory(device, max_iter=200, osd_order=10):
-    from slidingwindowdecoder_torch.decoders import BPOSD
-    from slidingwindowdecoder_torch.windows.pipeline import CachingDecoderFactory
-
-    return CachingDecoderFactory(
-        lambda spec: BPOSD(
-            spec.mat, spec.prior, max_iter=max_iter, ms_scaling_factor=1.0,
-            osd_method="osd_cs", osd_order=osd_order, bp_bucket=1024,
-            osd_bucket=256, phase_a_iters=16, phase_b_spans=(48, 136),
-            msg_dtype="bfloat16", device=device,
-        )
-    )
+# the flagship's bench knobs (bench.py:76-136); the shortened path runs
+# ``sliding_window_decoder(shorten=True)``'s decoder at its defaults
+FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
+                      phase_b_spans=(48, 136), msg_dtype="bfloat16")
 
 
-def phase_main(plan, dem, shots: int, seed: int, num_repeat: int):
+def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, kernels):
+    """Drive one decode path on the card over all of ``det``, with the
+    launch counts set to 0 just before and read just after. The failure
+    count must lie within 3 sigma of the rate ``ref`` = (failed, shots);
+    every kernel named in ``kernels`` must have launched, every other
+    kernel and every plain version must not have run."""
     import torch
 
-    from slidingwindowdecoder_torch.circuits import sample_dem_numpy
     from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import (
         decode_sliding_window,
         evaluate_logical_errors,
     )
 
-    t0 = time.perf_counter()
-    det, obs, _ = sample_dem_numpy(dem, shots, np.random.default_rng(seed))
-    log(f"[main] sampled {shots} shots in {time.perf_counter() - t0:.1f}s")
-    factory = bench_factory("cuda")
+    shots = det.shape[0]
     for w in plan.windows:  # set-up: decoders and graph tables on the card
         factory(w)
     det_dev = torch.as_tensor(det, device="cuda")
     torch.cuda.synchronize()
 
     cn, gj = bp_cuda.cn_update, gf2_cuda.gauss_jordan_key
-    cn.launches = cn.plain_calls = gj.launches = gj.plain_calls = 0
+    cn.launches = cn.pinned_launches = cn.plain_calls = gj.launches = gj.plain_calls = 0
     t0 = time.perf_counter()
     out = decode_sliding_window(plan, det_dev, factory, device="cuda", verbose=False,
                                 collect_window_stats=False, sync_per_window=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"cn_update": cn.launches, "gauss_jordan_key": gj.launches}
+    launches = {"cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
+                "gauss_jordan_key": gj.launches}
     plain = {"cn_update": cn.plain_calls, "gauss_jordan_key": gj.plain_calls}
 
     e_hat = out["total_e_hat"]
     if tuple(e_hat.shape) != (shots, plan.chk.shape[1]) or int(e_hat.max()) > 1:
-        raise SystemExit(f"main path: bad e_hat {tuple(e_hat.shape)}")
+        raise SystemExit(f"{name}: bad e_hat {tuple(e_hat.shape)}")
     ev = evaluate_logical_errors(plan, det, obs, e_hat, device="cuda")
     nf = ev["num_failed"]
-    ler = nf / shots
-    ler_round = 1 - (1 - ler) ** (1 / num_repeat)
+    ler_round = 1 - (1 - nf / shots) ** (1 / num_repeat)
     wsec = np.asarray(out["window_seconds"])
-    nonconv = out["window_nonconverged"]
-    log(f"[main] {shots} shots in {dt:.3f}s -> {shots / dt:.1f} shots/s; window p50 "
+    log(f"[{name}] {shots} shots in {dt:.3f}s -> {shots / dt:.1f} shots/s; window p50 "
         f"{np.percentile(wsec, 50) * 1e3:.1f} ms p99 {np.percentile(wsec, 99) * 1e3:.1f} ms; "
         f"failed {nf} flagged {ev['num_flagged']} (LER/round {ler_round:.4e}); "
-        f"non-converged per window {nonconv}")
-    log(f"[main] kernel launches {launches}; plain calls {plain}")
-    p_ref = REF_FAILED / REF_SHOTS
+        f"non-converged per window {out['window_nonconverged']}")
+    for i, (c, sec) in enumerate(zip(out["window_counts"], wsec)):
+        log(f"[{name}] window {i}: post-BP {c['post_bp']}, OSD {c['osd']}, "
+            f"dead {c['dead']}, {sec * 1e3:.1f} ms")
+    log(f"[{name}] kernel launches {launches}; plain calls {plain}")
+    p_ref = ref[0] / ref[1]
     mean, sigma = p_ref * shots, math.sqrt(shots * p_ref * (1 - p_ref))
     if abs(nf - mean) > 3 * sigma:
-        raise SystemExit(f"main path: {nf} failures, outside {mean:.1f} +- 3*{sigma:.1f}")
-    if min(launches.values()) == 0 or max(plain.values()) != 0:
-        raise SystemExit(f"main path did not run on the kernels: {launches} {plain}")
+        raise SystemExit(f"{name}: {nf} failures, outside {mean:.1f} +- 3*{sigma:.1f}")
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(kernels) or any(plain.values()):
+        raise SystemExit(f"{name} did not run on its kernels {kernels}: {launches} {plain}")
     return {
         "shots": shots, "seconds": dt, "shots_per_s": shots / dt,
         "window_p50_s": float(np.percentile(wsec, 50)),
         "window_p99_s": float(np.percentile(wsec, 99)),
         "num_failed": nf, "num_flagged": ev["num_flagged"], "ler_per_round": ler_round,
-        "launches": launches,
+        "window_counts": out["window_counts"], "launches": launches,
     }
 
 
-def phase_small_reference():
-    """A small input ([[72]] x3 rounds, W=2, f32, 128 shots) decoded on the
-    card and by the plain versions on the CPU: BP and the kernels are
-    bit-exact, so only exact ties between OSD-CS candidates (broken by the
-    f32 sum order of each device) may differ."""
-    from slidingwindowdecoder_torch.circuits import sample_dem_numpy
-    from slidingwindowdecoder_torch.decoders import BPOSD
-    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+def phase_card_vs_cpu(name, plan, det, obs, make_factory, max_diff: int = 2):
+    """Decode ``det`` on the card and by the plain versions on the CPU. BP
+    and the kernels are bit-exact, so only exact ties between OSD-CS
+    candidates (broken by the f32 sum order of each device) may differ:
+    the failure counts must be equal and at most ``max_diff`` shots may
+    differ."""
     from slidingwindowdecoder_torch.windows.pipeline import (
-        CachingDecoderFactory,
         decode_sliding_window,
         evaluate_logical_errors,
     )
 
-    _, _, dem, plan = build_bb_window_experiment(72, 0.01, 3, 2, 1)
-    det, obs, _ = sample_dem_numpy(dem, 128, np.random.default_rng(2024))
     res = {}
     for dev in ("cuda", "cpu"):
-        factory = CachingDecoderFactory(lambda spec, dev=dev: BPOSD(
-            spec.mat, spec.prior, max_iter=30, osd_method="osd_cs", osd_order=2,
-            phase_a_iters=None, phase_b_spans=None, device=dev))
-        out = decode_sliding_window(plan, det, factory, device=dev, verbose=False)
+        t0 = time.perf_counter()
+        out = decode_sliding_window(plan, det, make_factory(dev), device=dev, verbose=False)
         ev = evaluate_logical_errors(plan, det, obs, out["total_e_hat"], device=dev)
-        res[dev] = (out["total_e_hat"].cpu().numpy(), ev["num_failed"])
+        res[dev] = (out["total_e_hat"].cpu().numpy(), ev["num_failed"],
+                    time.perf_counter() - t0)
     diff = int((res["cuda"][0] != res["cpu"][0]).any(axis=1).sum())
-    log(f"[small] card vs CPU plain: failed {res['cuda'][1]} vs {res['cpu'][1]}, "
-        f"shots differing {diff}/128")
-    if res["cuda"][1] != res["cpu"][1] or diff > 2:
-        raise SystemExit("small input: the card disagrees with the CPU plain path")
+    log(f"[{name}] card vs CPU plain over {det.shape[0]} shots: failed {res['cuda'][1]} vs "
+        f"{res['cpu'][1]}, shots differing {diff}; {res['cuda'][2]:.1f}s card, "
+        f"{res['cpu'][2]:.1f}s CPU")
+    if res["cuda"][1] != res["cpu"][1] or diff > max_diff:
+        raise SystemExit(f"{name}: the card disagrees with the CPU plain path")
 
 
 def main() -> int:
@@ -304,7 +377,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.circuits import sample_dem_numpy
+    from slidingwindowdecoder_torch.harness.circuit_level import (
+        build_bb_window_experiment,
+        window_decoder_factory,
+    )
 
     t_all = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -314,10 +391,30 @@ def main() -> int:
     _, _, dem, plan = build_bb_window_experiment(144, 0.004, num_repeat, 3, 1)
     log(f"[setup] DEM {dem.chk.shape}, windows {[w.mat.shape for w in plan.windows]}")
     cn = phase_cn(plan)
+    cnp = phase_cn_pinned(plan)
     gj = phase_gj(plan)
-    main_res = phase_main(plan, dem, REF_SHOTS, SEED, num_repeat)
-    phase_small_reference()
+    t0 = time.perf_counter()
+    det, obs, _ = sample_dem_numpy(dem, REF_SHOTS, np.random.default_rng(SEED))
+    log(f"[setup] sampled {REF_SHOTS} shots in {time.perf_counter() - t0:.1f}s")
+    main_res = phase_path("main", plan, det, obs,
+                          window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS),
+                          num_repeat, (REF_FAILED, REF_SHOTS),
+                          ("cn_update", "gauss_jordan_key"))
+    _, _, dem72, plan72 = build_bb_window_experiment(72, 0.01, 3, 2, 1)
+    det72, obs72, _ = sample_dem_numpy(dem72, 128, np.random.default_rng(SEED))
+    phase_card_vs_cpu("small", plan72, det72, obs72, lambda dev: window_decoder_factory(
+        False, max_iter=30, osd_order=2, phase_a_iters=None, phase_b_spans=None,
+        device=dev))
     log(json.dumps({"main_path": main_res}))
+    short_res = phase_path("osd_window", plan, det, obs,
+                           window_decoder_factory(True, device="cuda"), num_repeat, (REF_SHORT_FAILED, REF_SHORT_SHOTS),
+                           ("cn_update_pinned", "gauss_jordan_key"))
+    phase_card_vs_cpu("osd_window_slice", plan, det[:SLICE_SHOTS], obs[:SLICE_SHOTS],
+                      lambda dev: window_decoder_factory(True, device=dev))
+    phase_card_vs_cpu("osd_window_small", plan72, det72, obs72,
+                      lambda dev: window_decoder_factory(True, max_iter=30, osd_order=2,
+                                                         device=dev))
+    log(json.dumps({"osd_window_path": short_res}))
 
     kernels = [
         {
@@ -330,10 +427,21 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None, "shape": cn["shape"],
         },
         {
+            "name": "cn_update_pinned", "route": "cuda",
+            "source": "slidingwindowdecoder_torch/csrc/cn_update.cu",
+            "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package)",
+            "launches": short_res["launches"]["cn_update_pinned"],
+            "max_abs_err": cnp["max_abs_err"], "matched": True,
+            "ms": cnp["ms"], "kernel_ms": cnp["ms"], "plain_ms": cnp["plain_ms"],
+            "bound_ms": cnp["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shape": cnp["shape"],
+        },
+        {
             "name": "gauss_jordan_key", "route": "cuda",
             "source": "slidingwindowdecoder_torch/csrc/gauss_jordan.cu",
             "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package)",
-            "launches": main_res["launches"]["gauss_jordan_key"],
+            "launches": (main_res["launches"]["gauss_jordan_key"]
+                         + short_res["launches"]["gauss_jordan_key"]),
             "max_abs_err": gj["max_abs_err"], "matched": True,
             "ms": gj["ms"], "kernel_ms": gj["ms"], "plain_ms": gj["plain_ms"], "bound_ms": gj["bound_ms"],
             "bound_by": gj["bound_by"], "library_ms": None, "shape": gj["shape"],

@@ -1,8 +1,10 @@
 // Min-sum check-node update for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas kernel `ops/bp_pallas.py:_cn_kernel`
-// (unmasked mode, reached through `cn_update_pallas`). Plain version:
-// `ops/bp.py:_cn_update_sm` in this package.
+// (reached through `cn_update_pallas`) in both of its modes: unmasked
+// (`cn_update_f32` / `cn_update_bf16`) and pinned (`cn_update_pinned_f32` /
+// `cn_update_pinned_bf16`, the masked BP of the decimation decoders).
+// Plain version: `ops/bp.py:_cn_update_sm` in this package.
 //
 // Layout: messages are slot-major [dc, m_pad, B] with the shot index
 // fastest. One thread owns one (check row i, shot b) pair and walks the dc
@@ -11,6 +13,13 @@
 // else min1). Neighbouring threads hold neighbouring shots, so every read
 // of mv[s, i, b] and every write of mc[s, i, b] is coalesced; the validity
 // byte valid[s, i] is the same for a whole warp (a broadcast).
+//
+// Pinned mode (template flag PINNED): a message at or above `thresh` is a
+// pin. It skips the clip, so fminf(|x|, big) presents exactly `big` to the
+// min, and since it is positive it adds no sign. A check whose every valid
+// edge is pinned emits magnitude `big`, as the plain version does. With
+// PINNED false the test is removed at compile time and the unmasked
+// kernels compile as before (`thresh` is their last, unused, argument).
 //
 // Arithmetic runs in f32 and is rounded once at the store. bf16 -> f32 is
 // exact and monotone, the product of two bf16 values is exact in f32, so
@@ -41,13 +50,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+// The clipped value of one slot: pins (PINNED only) pass unclipped.
+template <bool PINNED>
+__device__ __forceinline__ float clipped(float x, float clip, float thresh) {
+  if (PINNED && x >= thresh) return x;
+  return fminf(fmaxf(x, -clip), clip);
+}
+
+template <typename T, bool PINNED>
 __global__ void cn_update_kernel(const T* __restrict__ mv,
                                  const uint8_t* __restrict__ valid,
                                  const int32_t* __restrict__ parity,
                                  T* __restrict__ mc, int dc, int m_pad,
                                  long long B, float alpha, float clip,
-                                 float big) {
+                                 float big, float thresh) {
   const long long plane = (long long)m_pad * B;  // one slot's [m_pad, B]
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= plane) return;
@@ -58,7 +74,7 @@ __global__ void cn_update_kernel(const T* __restrict__ mv,
   for (int s = 0; s < dc; ++s) {
     // an invalid slot presents `big`, which changes neither min
     if (!valid[s * m_pad + i]) continue;
-    const float c = fminf(fmaxf(to_f(mv[s * plane + t]), -clip), clip);
+    const float c = clipped<PINNED>(to_f(mv[s * plane + t]), clip, thresh);
     const float a = fminf(fabsf(c), big);
     if (a < min1) {
       min2 = min1;
@@ -75,7 +91,7 @@ __global__ void cn_update_kernel(const T* __restrict__ mv,
       mc[s * plane + t] = from_f<T>(0.f);
       continue;
     }
-    const float c = fminf(fmaxf(to_f(mv[s * plane + t]), -clip), clip);
+    const float c = clipped<PINNED>(to_f(mv[s * plane + t]), clip, thresh);
     const float a = fminf(fabsf(c), big);
     const float mag = (a == min1) ? min2 : min1;
     const float sgn = ((odd ^ (int)(c <= 0.f)) != 0) ? -1.f : 1.f;
@@ -83,17 +99,18 @@ __global__ void cn_update_kernel(const T* __restrict__ mv,
   }
 }
 
-template <typename T>
+template <typename T, bool PINNED>
 int launch(const void* mv, const void* valid, const void* parity, void* mc,
            int dc, int m_pad, long long B, float alpha, float clip, float big,
-           void* stream) {
+           float thresh, void* stream) {
   const long long plane = (long long)m_pad * B;
   if (plane == 0) return 0;
   const int threads = 256;
   const long long blocks = (plane + threads - 1) / threads;
-  cn_update_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)mv, (const uint8_t*)valid, (const int32_t*)parity, (T*)mc, dc,
-      m_pad, B, alpha, clip, big);
+  cn_update_kernel<T, PINNED>
+      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          (const T*)mv, (const uint8_t*)valid, (const int32_t*)parity, (T*)mc,
+          dc, m_pad, B, alpha, clip, big, thresh);
   return (int)cudaGetLastError();
 }
 
@@ -101,19 +118,35 @@ int launch(const void* mv, const void* valid, const void* parity, void* mc,
 
 extern "C" {
 
-// alpha and big arrive already rounded to the storage dtype by the caller.
+// alpha, clip, big and thresh arrive already rounded to the storage dtype
+// by the caller.
 int cn_update_f32(const void* mv, const void* valid, const void* parity,
                   void* mc, int dc, int m_pad, long long B, float alpha,
                   float clip, float big, void* stream) {
-  return launch<float>(mv, valid, parity, mc, dc, m_pad, B, alpha, clip, big,
-                       stream);
+  return launch<float, false>(mv, valid, parity, mc, dc, m_pad, B, alpha,
+                              clip, big, 0.f, stream);
 }
 
 int cn_update_bf16(const void* mv, const void* valid, const void* parity,
                    void* mc, int dc, int m_pad, long long B, float alpha,
                    float clip, float big, void* stream) {
-  return launch<__nv_bfloat16>(mv, valid, parity, mc, dc, m_pad, B, alpha,
-                               clip, big, stream);
+  return launch<__nv_bfloat16, false>(mv, valid, parity, mc, dc, m_pad, B,
+                                      alpha, clip, big, 0.f, stream);
+}
+
+int cn_update_pinned_f32(const void* mv, const void* valid, const void* parity,
+                         void* mc, int dc, int m_pad, long long B, float alpha,
+                         float clip, float big, float thresh, void* stream) {
+  return launch<float, true>(mv, valid, parity, mc, dc, m_pad, B, alpha, clip,
+                             big, thresh, stream);
+}
+
+int cn_update_pinned_bf16(const void* mv, const void* valid,
+                          const void* parity, void* mc, int dc, int m_pad,
+                          long long B, float alpha, float clip, float big,
+                          float thresh, void* stream) {
+  return launch<__nv_bfloat16, true>(mv, valid, parity, mc, dc, m_pad, B,
+                                     alpha, clip, big, thresh, stream);
 }
 
 const char* swd_error_string(int code) {

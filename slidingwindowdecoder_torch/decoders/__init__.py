@@ -1,2 +1,3 @@
 from .base import DecodeResult
 from .bposd import BPOSD
+from .osd_window import OSDWindow

@@ -41,6 +41,30 @@ def as_batch(syndrome: np.ndarray, m: int) -> tuple[np.ndarray, bool]:
     return syndrome, False
 
 
+def decode_padded(decoder, syndromes, pad_to: int) -> DecodeResult:
+    """Host batch API of a decoder with ``core``, ``m`` and ``device``:
+    pad the batch to a multiple of ``pad_to`` (awkward sizes would force
+    tiny divisor buckets; zero-syndrome pad rows converge at once and
+    never enter a bucket), decode, trim back to the input's rows."""
+    import torch
+
+    syndromes, _ = as_batch(syndromes, decoder.m)
+    B = syndromes.shape[0]
+    B_pad = -(-B // pad_to) * pad_to if B > pad_to else B
+    if B_pad != B:
+        syndromes = np.concatenate(
+            [syndromes, np.zeros((B_pad - B, decoder.m), syndromes.dtype)]
+        )
+    out = decoder.core(torch.as_tensor(syndromes, dtype=torch.uint8, device=decoder.device))
+    return DecodeResult(
+        error=out["error"][:B].cpu().numpy(),
+        converged=out["converged"][:B].cpu().numpy(),
+        iterations=out["iterations"][:B].cpu().numpy(),
+        min_pm=out["min_pm"][:B].cpu().numpy(),
+        osd_applied=out["osd_applied"][:B].cpu().numpy(),
+    )
+
+
 def pad_pow2(x: int, floor: int = 32) -> int:
     """Round a batch size up to a power-of-two bucket (jit cache friendly)."""
     b = floor

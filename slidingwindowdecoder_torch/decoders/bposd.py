@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..graphs.tanner import compile_graph, graph_tensors
-from ..ops.bp import bp_init_messages_sm, bp_run
+from ..ops.bp import bp_init_messages_sm, bp_run, history_sum
 from ..ops.gf2_solve import (
     analyze_patterns,
     gf2_rank_packed,
@@ -39,7 +39,7 @@ from ..ops.gf2_solve import (
     pack_rows_host,
 )
 from ..utils.device import resolve_device
-from .base import DecodeResult, as_batch
+from .base import DecodeResult, decode_padded
 
 
 def _divisor_bucket(B: int, want: int) -> int:
@@ -52,6 +52,23 @@ def _divisor_bucket(B: int, want: int) -> int:
     return next(d for d in range(want, 0, -1) if B % d == 0)
 
 
+def osd_tables(pcm, k: int, osd_order: int, method: str, device):
+    """The static OSD inputs of one PCM with k free columns: packed rows
+    (int32, on ``device``), the candidate patterns over the k columns and
+    their ``analyze_patterns`` structure, pair indices on ``device``."""
+    H_words = torch.as_tensor(pack_rows_host(pcm).view(np.int32), device=device)
+    patterns = (
+        osd_candidate_patterns(max(k, 1), osd_order, method)[:, :k]
+        if k > 0
+        else np.zeros((0, 0), np.uint8)
+    )
+    meta = analyze_patterns(patterns, k)
+    for key in ("pair_i", "pair_j"):
+        if key in meta:  # OSD-CS only
+            meta[key] = torch.as_tensor(meta[key], device=device)
+    return H_words, patterns, meta
+
+
 class BPOSD:
     """Batched BP+OSD-CS decoder for one parity-check matrix.
 
@@ -60,7 +77,7 @@ class BPOSD:
       channel_probs: [n] prior error probabilities.
       max_iter: total BP iterations.
       ms_scaling_factor: min-sum normalization alpha.
-      osd_method: "osd_cs", or "off" to disable OSD. (OSD-0 and OSD-E are
+      osd_method: "osd_cs", "osd_0", or "off" to disable OSD. (OSD-E is
         not ported yet.)
       osd_order: OSD-CS search depth.
       reliability: "last" orders columns by the final BP posterior;
@@ -131,13 +148,16 @@ class BPOSD:
             self.phase_b_spans = spans
 
         method = str(osd_method).lower()
-        if method in ("osd_cs", "osdcs", "cs", "combination_sweep", "2"):
+        if method in ("osd_0", "osd0", "0"):
+            method, osd_order = "osd_0", 0
+        elif method in ("osd_cs", "osdcs", "cs", "combination_sweep", "2"):
             method = "osd_cs"
         elif method in ("-1", "off", "none"):
             method = None
         else:
             raise ValueError(
-                f"osd_method {osd_method!r} is not ported (only 'osd_cs' and 'off')"
+                f"osd_method {osd_method!r} is not ported "
+                "(only 'osd_cs', 'osd_0' and 'off')"
             )
         self.osd_method = method
         self.osd_order = int(osd_order)
@@ -156,14 +176,9 @@ class BPOSD:
                 raise ValueError(
                     f"osd_order must be <= n - rank = {self.k}, got {osd_order}"
                 )
-            self.H_words = torch.as_tensor(
-                pack_rows_host(pcm).view(np.int32), device=self.device
+            self.H_words, self.patterns, self._osd_meta = osd_tables(
+                pcm, self.k, self.osd_order, method, self.device
             )
-            self.patterns = osd_candidate_patterns(self.k, self.osd_order, method)
-            meta = analyze_patterns(self.patterns, self.k)
-            for key in ("pair_i", "pair_j"):
-                meta[key] = torch.as_tensor(meta[key], device=self.device)
-            self._osd_meta = meta
         self._pcm = pcm
 
     # -- device stages -------------------------------------------------------
@@ -183,8 +198,7 @@ class BPOSD:
     def _reliability(self, history, total_iters: int):
         """[n, 4, B] history -> [B, n] OSD ordering key."""
         if self.reliability == "history_sum":
-            # slot by slot: the order of the JAX (XLA) reduce
-            return (history[:, 0] + history[:, 1] + history[:, 2] + history[:, 3]).T
+            return history_sum(history)
         return history[:, (total_iters - 1) % 4, :].T
 
     def _core_bp(self, synds):
@@ -283,25 +297,7 @@ class BPOSD:
     # -- host API ------------------------------------------------------------
 
     def decode_batch(self, syndromes) -> DecodeResult:
-        syndromes, _ = as_batch(syndromes, self.m)
-        B = syndromes.shape[0]
-        # pad to a bucket multiple so the compacted walks use full-size
-        # buckets; zero-syndrome pad rows converge on their first phase-A
-        # iteration and never enter a bucket
-        pad_to = max(self.bp_bucket, self.osd_bucket)
-        B_pad = -(-B // pad_to) * pad_to if B > pad_to else B
-        if B_pad != B:
-            syndromes = np.concatenate(
-                [syndromes, np.zeros((B_pad - B, self.m), syndromes.dtype)]
-            )
-        out = self.core(torch.as_tensor(syndromes, dtype=torch.uint8, device=self.device))
-        return DecodeResult(
-            error=out["error"][:B].cpu().numpy(),
-            converged=out["converged"][:B].cpu().numpy(),
-            iterations=out["iterations"][:B].cpu().numpy(),
-            min_pm=out["min_pm"][:B].cpu().numpy(),
-            osd_applied=out["osd_applied"][:B].cpu().numpy(),
-        )
+        return decode_padded(self, syndromes, max(self.bp_bucket, self.osd_bucket))
 
     def decode(self, syndrome) -> np.ndarray:
         """Single-shot convenience mirroring the reference ``decode`` API."""

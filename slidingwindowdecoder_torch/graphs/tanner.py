@@ -147,6 +147,8 @@ def graph_tensors(graph: TannerGraph, device=None):
     in-bounds gathers: the posterior gather (``mode="clip"``) clamps the
     pad index n to n - 1, and the message gather (``mode="fill"``) reads
     its pad index dc*m_pad from one trailing zero row of the source.
+    ``cn_valid``, ``vn_cn``, ``vn_valid`` and ``cn_degree`` are the tables
+    of the decimation ops (``ops.decimation``).
     """
     import torch
 
@@ -161,6 +163,10 @@ def graph_tensors(graph: TannerGraph, device=None):
     cn_vn_flat = graph.cn_vn_sm.reshape(-1).astype(np.int64)
     return {
         "cn_vn": t(graph.cn_vn),  # [m, dc], pad n
+        "cn_valid": t(graph.cn_valid),  # [m, dc]
+        "vn_cn": t(graph.vn_cn),  # [n, dv], pad m
+        "vn_valid": t(graph.vn_valid),  # [n, dv]
+        "cn_degree": t(graph.cn_degree),  # [m]
         "cn_valid_sm": t(graph.cn_valid_sm),  # [dc, m_pad]
         "cn_vn_clip": t(np.minimum(cn_vn_flat, n - 1)),  # [dc*m_pad]
         # message gather: index dc*m_pad is the zero fill row

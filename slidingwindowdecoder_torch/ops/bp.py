@@ -1,7 +1,8 @@
-"""Batched normalized min-sum belief propagation (unmasked), in PyTorch.
+"""Batched normalized min-sum belief propagation, in PyTorch.
 
-The counterpart of the JAX package's ``ops/bp.py`` for the BP+OSD path:
-every VN undecided, every CN active. Semantics reproduced exactly:
+The counterpart of the JAX package's ``ops/bp.py``: the unmasked mode of
+the BP+OSD path (every VN undecided, every CN active) and the masked mode
+of the decimation decoders. Semantics reproduced exactly:
 
 - two-pass CN rule == masked (min1, min2, first-argmin) reduction over the
   check-slot axis, sign seeded by the check's syndrome bit, zero counted
@@ -20,7 +21,13 @@ launches the hand-written CUDA kernel on a CUDA tensor and runs
 ``_cn_update_sm`` (below, the plain version) on a CPU tensor. The rest of
 the iteration is torch ops.
 
-The masked (decimation) mode of the JAX ``bp_run`` is not ported yet.
+Masked mode (``masked=True``): ``vn_state`` values -1/0/1 exclude decided
+variables from message passing and ``cn_state`` -1 deactivates cleared
+checks while 0/1 carries the residual parity used as the CN sign seed. As
+in the JAX package this is pinned-LLR masking: the edges of decided VNs
+and the invalid slots carry ``+PIN``, which the pinned CN update presents
+as ``BIG`` to the min and counts with no sign, and decided posteriors are
+pinned to ``-/+PIN`` by their decided value.
 """
 
 from __future__ import annotations
@@ -28,6 +35,13 @@ from __future__ import annotations
 import torch
 
 BIG = 1e30  # stands in for the reference's 1e308 sentinel (f32-safe)
+# pinned-LLR masking sentinels (the JAX package's values): pinned edges
+# carry +PIN and anything at or above PIN_THRESH is a pin. A live posterior
+# is bounded by dv*BIG + prior, below PIN_THRESH (``bp_run`` checks it).
+# Both are rounded to the message dtype where they are used: in bfloat16
+# the ordering live < PIN_THRESH <= PIN holds only after that rounding.
+PIN = 1e33
+PIN_THRESH = 1e32
 
 # how many iterations run between two host checks of the all-done exit;
 # rows that are done never change error/done/iters/history, so checking
@@ -70,7 +84,7 @@ def bp_init_messages_sm(garr, prior_llr, batch: int, msg_dtype="float32"):
     return base[:, :, None].expand(dc, m_pad, batch)
 
 
-def _cn_update_sm(mv, edge_valid, parity, *, alpha, clip):
+def _cn_update_sm(mv, edge_valid, parity, *, alpha, clip, pinned=False):
     """Check-node update, slot-major — the plain version of the CUDA kernel
     in ``ops.bp_cuda`` and the port of the JAX ``_cn_update_sm``.
 
@@ -78,12 +92,18 @@ def _cn_update_sm(mv, edge_valid, parity, *, alpha, clip):
     [dc, m_pad] or broadcastable to mv; parity: [m_pad, B] int32 sign
     seed. Returns mc in mv's dtype (zero at invalid slots). All arithmetic
     stays in the message dtype, as in the JAX version.
+
+    ``pinned``: messages >= PIN_THRESH are pins (masked mode); they skip
+    the clip, so they present exactly BIG to the min and carry no sign.
     """
     if edge_valid.ndim == 2:
         edge_valid = edge_valid[:, :, None]
     mdt = mv.dtype
     big = torch.tensor(BIG, dtype=mdt, device=mv.device)
     mvc = torch.clamp(mv, -clip, clip)
+    if pinned:
+        mvc = torch.where(mv >= torch.tensor(PIN_THRESH, dtype=mdt, device=mv.device),
+                          mv, mvc)
     absx = torch.minimum(torch.where(edge_valid, mvc.abs(), big), big)
     neg = edge_valid & (mvc <= 0)
     min1 = absx.amin(dim=0)  # [m_pad, B]
@@ -118,10 +138,12 @@ def bp_run(
     history_mode: str = "full",
     posterior_matmul: bool = False,
     io_layout: str = "batch_major",
+    vn_state=None,
+    cn_state=None,
+    masked: bool = False,
 ):
-    """Run up to ``num_iter`` unmasked BP iterations with per-shot
-    convergence freeze (the JAX ``bp_run`` with ``masked=False`` and
-    ``hist_update="masked"``).
+    """Run up to ``num_iter`` BP iterations with per-shot convergence
+    freeze (the JAX ``bp_run`` with ``hist_update="masked"``).
 
     ``syndrome`` [B, m], ``error`` [B, n] int8, ``done`` [B] bool and
     ``iters`` [B] int32 are batch-major. With ``io_layout="batch_major"``
@@ -139,6 +161,15 @@ def bp_run(
     a dense product with ``garr["vn_inc"]`` (the JAX bf16 form, kept for
     comparison on the CPU only).
 
+    ``masked=True`` is the decimation mode: ``vn_state`` [B, n] int8
+    (-1 undecided, 0/1 decided; default all undecided) and ``cn_state``
+    [B, m] (-1 inactive, 0/1 residual parity; default the syndrome). The
+    edges of decided VNs and the invalid slots are pinned to +PIN at entry,
+    the CN stage runs pinned, decided posteriors are pinned to -/+PIN, and
+    the history is written only for undecided VNs. Convergence is still
+    the full-PCM match against ``syndrome``. ``masked=False`` ignores both
+    states.
+
     Returns ``(mv, history, error, done, iters)`` in the input layouts.
     """
     mdt = msg_torch_dtype(msg_dtype)
@@ -154,7 +185,18 @@ def bp_run(
     synd_t = torch.zeros((m_pad, B), dtype=torch.int32, device=dev)
     synd_t[:m] = syndrome.T.to(torch.int32)
     syndrome_odd = synd_t == 1
-    parity = synd_t  # unmasked: cn_state == syndrome, pad rows 0
+    if masked:
+        dv = garr["dv"]
+        if dv * BIG >= PIN_THRESH:
+            raise ValueError(
+                f"max VN degree {dv} too large for pinned-LLR masking: dv*BIG "
+                f"({dv * BIG:.2e}) must stay below PIN_THRESH ({PIN_THRESH:.0e})"
+            )
+        cn_t = torch.full((m_pad, B), -1, dtype=torch.int32, device=dev)
+        cn_t[:m] = (syndrome if cn_state is None else cn_state).T.to(torch.int32)
+        parity = cn_t.clamp_min(0)  # inactive checks and pad rows seed 0
+    else:
+        parity = synd_t  # unmasked: cn_state == syndrome, pad rows 0
 
     if io_layout == "slot_major":
         mv_sm = mv.to(mdt)
@@ -176,8 +218,19 @@ def bp_run(
     dv = garr["dv"]
     fill_row = torch.zeros((1, B), dtype=mdt, device=dev)
 
+    if masked:
+        pin = torch.tensor(PIN, dtype=mdt, device=dev)
+        thresh = torch.tensor(PIN_THRESH, dtype=mdt, device=dev)
+        vn_t = (torch.full((n, B), -1, dtype=torch.int8, device=dev)
+                if vn_state is None else vn_state.T.to(torch.int8))
+        vn_undecided = vn_t == -1
+        # pin the edges of decided VNs and the invalid slots once, at entry
+        vs_edge = vn_t[cn_vn_clip].reshape(dc, m_pad, B)
+        mv_sm = torch.where((vs_edge != -1) | ~sv, pin, mv_sm)
+        vn_pin = torch.where(vn_t == 1, -pin, pin)  # read only where decided
+
     def iteration(mv_sm):
-        mc = cn_update(mv_sm, valid, parity, alpha=alpha, clip=clip)
+        mc = cn_update(mv_sm, valid, parity, alpha=alpha, clip=clip, pinned=masked)
         mc_flat = mc.reshape(dc * m_pad, B)
         if posterior_matmul:
             posterior = prior_t + (garr["vn_inc"] @ mc_flat.float())
@@ -190,8 +243,15 @@ def bp_run(
                 acc = acc + mcv[:, j].float()
             posterior = prior_t + acc
         post_f = posterior.to(mdt)
+        if masked:
+            # decided posteriors carry their decided sign into the hard
+            # decision, the parity check and the re-pinned messages
+            post_f = torch.where(vn_undecided, post_f, vn_pin)
         post_edge = post_f[cn_vn_clip].reshape(dc, m_pad, B)
-        mv_new = post_edge - mc
+        if masked:
+            mv_new = torch.where(sv & (post_edge.abs() < thresh), post_edge - mc, pin)
+        else:
+            mv_new = post_edge - mc
         err_new = (post_f <= 0).to(torch.int8)
         # decoded parity per check: parity of the valid edges whose
         # posterior is <= 0 (the JAX +/-1 product, as a count)
@@ -210,7 +270,8 @@ def bp_run(
             mv_sm = torch.where(active, mv_new, mv_sm) if freeze_messages else mv_new
             if with_history:
                 slot = hist_t[:, i % 4, :]
-                slot.copy_(torch.where(active, posterior, slot))
+                write = active & vn_undecided if masked else active
+                slot.copy_(torch.where(write, posterior, slot))
             err_t = torch.where(active, err_new, err_t)
             iters = iters + active.to(torch.int32)
             done = done | conv
@@ -236,6 +297,13 @@ def bp_run(
     return mv_out, hist_t.permute(2, 0, 1), err_out, done, iters
 
 
+def history_sum(hist):
+    """[n, 4, B] posterior history ring -> [B, n] sum of its 4 slots, taken
+    slot by slot: the order of the JAX (XLA) reduce on the CPU (a torch
+    ``.sum(dim=1)`` rounds differently)."""
+    return (hist[:, 0] + hist[:, 1] + hist[:, 2] + hist[:, 3]).T
+
+
 def fresh_bp_state(garr, batch: int):
     """Zeroed (history, error, done, iters) for a new decode call
     (batch-major, as the JAX ``fresh_bp_state``), on the graph's device."""
@@ -257,22 +325,29 @@ def decode_bp(
     num_iter: int,
     alpha: float = 1.0,
     clip: float = 50.0,
+    vn_state=None,
+    cn_state=None,
     msg_dtype: str = "float32",
+    masked: bool | None = None,
     freeze_messages: bool = True,
     history_mode: str = "full",
 ):
-    """Plain batched (unmasked) BP decode from scratch.
+    """Plain batched BP decode from scratch. ``masked=None`` means masked
+    if either state is given (as in the JAX ``decode_bp``).
 
     Returns dict with error, converged, iterations, history, posterior-sum
     ordering key (llr_sum), and final messages.
     """
     B = syndrome.shape[0]
+    if masked is None:
+        masked = vn_state is not None or cn_state is not None
     mv = bp_init_messages(garr, prior_llr, B)
     history, error, done, iters = fresh_bp_state(garr, B)
     mv, history, error, done, iters = bp_run(
         garr, mv, prior_llr, syndrome, history, error, done, iters,
         num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
         freeze_messages=freeze_messages, history_mode=history_mode,
+        vn_state=vn_state, cn_state=cn_state, masked=masked,
     )
     return {
         "error": error,

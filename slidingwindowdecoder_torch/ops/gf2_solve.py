@@ -395,22 +395,36 @@ def osd_decode(
     k: int,
     meta: dict,
 ):
-    """OSD-CS: eliminate by reliability, sweep the CS candidates.
+    """OSD-CS or OSD-0: eliminate by reliability, sweep the candidates.
 
     ``reliability``: [B, n] float — smaller = more likely in error = tried
     first. ``meta`` is the static ``analyze_patterns`` result with its
     pair indices already on the device. The elimination runs through
-    ``ops.gf2_cuda.gauss_jordan_key`` (the CUDA kernel on the card, the
-    plain version on the CPU). Only the CS branch of the JAX
-    ``osd_decode`` is ported.
+    ``ops.gf2_cuda`` (the CUDA kernel on the card, the plain version on
+    the CPU). The CS branch (float keys, sortless sweep) and the OSD-0
+    branch (``meta["kind"] == "none"`` or ``k == 0``: the elimination and
+    its OSD-0 solution) of the JAX ``osd_decode`` are ported; OSD-E is
+    not. The JAX OSD-0 branch eliminates in the order of a stable argsort
+    of the reliability; the float-keyed elimination picks the same pivots
+    (the smallest live key, ties to the lower column), so both branches
+    feed it the reliability directly.
     """
-    if meta["kind"] != "cs" or k == 0:
-        raise NotImplementedError(
-            f"only OSD-CS is ported (candidate structure {meta['kind']!r})"
-        )
     from .gf2_cuda import gauss_jordan_key
 
+    if meta["kind"] not in ("none", "cs") and k != 0:
+        raise NotImplementedError(
+            f"OSD with candidate structure {meta['kind']!r} is not ported"
+        )
     gj = gauss_jordan_key(H_words, syndrome, reliability, m=m, n=n, rank=rank)
+    if meta["kind"] == "none" or k == 0:
+        llr = torch.as_tensor(channel_llr, dtype=torch.float32, device=syndrome.device)
+        pm0 = (llr * gj["osd0"]).sum(dim=1)
+        return {
+            "solution": gj["osd0"],
+            "osd0": gj["osd0"],
+            "min_pm": pm0,
+            "inconsistent": gj["inconsistent"],
+        }
     solution, min_pm = _osd_sweep_cs_sortless(
         gj, reliability, channel_llr, meta["pair_i"], meta["pair_j"],
         order_w=int(meta["order_w"]),

@@ -47,14 +47,15 @@ def decode_sliding_window(
       plan: static window plan (windows, regrouped chk/obs/priors).
       det_data: [S, num_detectors] detector bits (numpy or tensor).
       decoder_factory: ``spec -> decoder`` exposing ``core(synds)`` on the
-        same device (``decoders.BPOSD``).
+        same device (``decoders.BPOSD``, ``decoders.OSDWindow``).
       device: torch device; None means "cuda" (raises without a card).
       sync_per_window: block on each window's result so ``window_seconds``
         measures real per-window wall time, and collect per-window
         non-converged counts.
 
     Returns dict with total_e_hat [S, C] (device), per-window flagged
-    counts, per-window non-converged counts (sync mode), and timing.
+    counts, per-window non-converged counts (sync mode), the per-window
+    ``counts`` of decoders that report them (``OSDWindow``), and timing.
     """
     dev = resolve_device(device)
     det = torch.as_tensor(det_data, device=dev).to(torch.uint8)
@@ -66,6 +67,7 @@ def decode_sliding_window(
     window_flagged: list[int] = []
     window_seconds: list[float] = []
     window_nonconverged: list[int] = []
+    window_counts: list[dict] = []
 
     for spec in plan.windows:
         t0 = time.perf_counter()
@@ -73,6 +75,8 @@ def decode_sliding_window(
         synd = new_det[:, spec.row_start : spec.row_end]
         out = decoder.core(synd)
         e_hat = out["error"]
+        if "counts" in out:
+            window_counts.append(out["counts"])
         if sync_per_window:
             window_nonconverged.append(int((~out["converged"]).sum()))
 
@@ -108,6 +112,7 @@ def decode_sliding_window(
         "window_flagged": window_flagged,
         "window_seconds": window_seconds,
         "window_nonconverged": window_nonconverged,
+        "window_counts": window_counts,
     }
 
 

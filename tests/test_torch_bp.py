@@ -12,6 +12,7 @@ import torch
 
 from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
 from slidingwindowdecoder_torch.ops import bp as tbp
+from slidingwindowdecoder_torch.ops import decimation as tdec
 from slidingwindowdecoder_torch.ops.bp_cuda import cn_update
 from slidingwindowdecoder_tpu.graphs.tanner import graph_device_arrays, vn_incidence_host
 from slidingwindowdecoder_tpu.ops import bp as jbp
@@ -187,3 +188,162 @@ def test_bp_run_slot_major_matches_batch_major(rng):
     torch.testing.assert_close(sm[1].permute(2, 0, 1), bm[1], rtol=0, atol=0)
     for a, b in zip(sm[2:], bm[2:]):
         assert torch.equal(a, b)
+
+
+def _pinned_cn_inputs(rng, g, B, dtype):
+    """CN inputs of the masked mode: ~30 % of the edges pinned at the
+    dtype-rounded PIN, whole rows pinned, ties, zeros and values beyond
+    +-clip."""
+    mv, parity = _cn_inputs(rng, g, B)
+    mv[5 % g.dc, ::11, :] = 80.0  # beyond +clip
+    mv[6 % g.dc, ::13, :] = -75.0  # beyond -clip
+    pin = float(torch.tensor(tbp.PIN, dtype=dtype).float())
+    mv[rng.random(mv.shape) < 0.3] = pin
+    mv[:, ::9, :] = pin  # every edge of these checks pinned
+    return mv, parity
+
+
+@pytest.mark.parametrize("shape", ["random", "window"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cn_pinned_plain_matches_jax_and_pallas(rng, shape, dtype):
+    """The plain pinned CN update equals the JAX ``_cn_update_sm(pinned=True)``
+    and the Pallas kernel in interpret mode, bit for bit."""
+    H = _random_graph(rng) if shape == "random" else _window_pcm()
+    g = compile_graph(H)
+    B = 128
+    tdt, jdt = DTYPES[dtype]
+    mv, parity = _pinned_cn_inputs(rng, g, B, tdt)
+    alpha = 0.625 if shape == "random" else 1.0
+
+    before = cn_update.plain_calls
+    out = cn_update(torch.from_numpy(mv).to(tdt), torch.from_numpy(g.cn_valid_sm),
+                    torch.from_numpy(parity), alpha=alpha, clip=50.0, pinned=True)
+    assert cn_update.plain_calls == before + 1
+
+    jmv = jnp.asarray(mv).astype(jdt)
+    valid = jnp.asarray(g.cn_valid_sm)
+    ref = jbp._cn_update_sm(jmv, valid[:, :, None], jnp.asarray(parity),
+                            alpha=alpha, clip=50.0, pinned=True)
+    pal = cn_update_pallas(jmv, valid, jnp.asarray(parity), alpha=alpha,
+                           clip=50.0, interpret=True, pinned=True)
+    np.testing.assert_array_equal(_as_f32(out), _as_f32(ref))
+    np.testing.assert_array_equal(_as_f32(out), _as_f32(pal))
+    if alpha == 1.0:  # a check whose every valid edge is pinned emits BIG
+        big = float(torch.tensor(tbp.BIG, dtype=tdt).float())
+        row = _as_f32(out)[:, 0, :][g.cn_valid_sm[:, 0]]
+        assert row.size and (np.abs(row) == big).all()
+
+
+def _low_degree_graph(rng):
+    """A random graph whose VN degrees are at most 6, as in a DEM window:
+    XLA's CPU reduce may sum the messages of a degree-8 VN in interleaved
+    partial sums, one f32 ulp away from the port's slot order (ROADMAP
+    section 3), and in masked mode such a ulp can flip a near-zero message."""
+    H = _random_graph(rng)
+    for j in range(H.shape[1]):
+        rows = np.nonzero(H[:, j])[0]
+        H[rows[6:], j] = 0
+    for i in np.nonzero(H.sum(axis=1) == 0)[0]:
+        H[i, rng.choice(np.nonzero(H.sum(axis=0) < 6)[0])] = 1
+    assert H.sum(axis=0).max() <= 6 and H.sum(axis=1).min() >= 1
+    return H
+
+
+def _masked_inputs(rng, H, B):
+    """Prior, syndromes and a decimation state: about a third of the VNs
+    decided to their true value, one wrong decision in a fifth of the
+    rows, and ~10 % of the rows dead."""
+    g = compile_graph(H)
+    n = H.shape[1]
+    p = 0.04 if n < 200 else 0.004
+    prior = np.log((1 - p) / p) * np.ones(n, np.float32)
+    prior[::7] *= 0.5
+    errs = (rng.random((B, n)) < p).astype(np.int8)
+    synds = ((errs @ H.T) % 2).astype(np.uint8)
+    set_mask = rng.random((B, n)) < 1 / 3
+    values = errs.copy()
+    wrong = np.nonzero(rng.random(B) < 0.2)[0]
+    values[wrong, rng.integers(0, n, wrong.size)] ^= 1
+    set_mask[wrong] |= values[wrong] != errs[wrong]
+    garr = graph_tensors(g, "cpu")
+    state = tdec.init_decimation_state(garr, torch.from_numpy(synds))
+    state = tdec.vn_set_values(garr, *state, torch.from_numpy(set_mask),
+                               torch.from_numpy(values))
+    vn, cn, _, dead = (x.numpy() for x in tdec.peel(garr, *state))
+    dead = dead | (rng.random(B) < 0.1)
+    return g, prior, synds, vn, cn, dead
+
+
+def _run_both_masked(g, prior, synds, vn, cn, dead, num_iter, msg_dtype, alpha, **kw):
+    B = synds.shape[0]
+    garr_t, garr_j = graph_tensors(g, "cpu"), graph_device_arrays(g)
+    err0 = np.where(vn != -1, vn, 0).astype(np.int8)
+    hist_t, _, _, it_t = tbp.fresh_bp_state(garr_t, B)
+    out_t = tbp.bp_run(
+        garr_t, tbp.bp_init_messages(garr_t, prior, B), prior, torch.from_numpy(synds),
+        hist_t, torch.from_numpy(err0), torch.from_numpy(dead), it_t,
+        num_iter=num_iter, alpha=alpha, clip=50.0, msg_dtype=msg_dtype,
+        vn_state=torch.from_numpy(vn), cn_state=torch.from_numpy(cn), masked=True, **kw)
+    hist_j, _, _, it_j = jbp.fresh_bp_state(garr_j, B)
+    out_j = jbp.bp_run(
+        garr_j, jbp.bp_init_messages(garr_j, prior, B), prior, jnp.asarray(synds),
+        jnp.asarray(vn), jnp.asarray(cn), hist_j, jnp.asarray(err0), jnp.asarray(dead),
+        it_j, num_iter=num_iter, alpha=alpha, clip=50.0, msg_dtype=msg_dtype,
+        masked=True, **kw)
+    return [np.asarray(x) for x in out_t], [np.asarray(x) for x in out_j]
+
+
+@pytest.mark.parametrize("shape", ["random", "window"])
+@pytest.mark.parametrize("history_mode", ["none", "tail", "full"])
+@pytest.mark.parametrize("freeze", [True, False])
+def test_bp_run_masked_f32_bit_equal(rng, shape, history_mode, freeze):
+    """Masked ``bp_run`` (f32, alpha 1.0) against the JAX masked ``bp_run``
+    at B=128: every output bit-equal, pinned messages included."""
+    H = _low_degree_graph(rng) if shape == "random" else _window_pcm()
+    g, prior, synds, vn, cn, dead = _masked_inputs(rng, H, 128)
+    (mv_t, hist_t, err_t, done_t, it_t), (mv_j, hist_j, err_j, done_j, it_j) = (
+        _run_both_masked(g, prior, synds, vn, cn, dead, 14, "float32", 1.0,
+                         freeze_messages=freeze, history_mode=history_mode))
+    assert 0 < (done_j & ~dead).sum() < (~dead).sum()  # some converge, some not
+    np.testing.assert_array_equal(err_t, err_j)
+    np.testing.assert_array_equal(done_t, done_j)
+    np.testing.assert_array_equal(it_t, it_j)
+    np.testing.assert_array_equal(hist_t, hist_j)
+    if freeze:
+        np.testing.assert_array_equal(mv_t, mv_j)
+    else:
+        np.testing.assert_array_equal(mv_t[~done_j], mv_j[~done_j])
+
+
+@pytest.mark.parametrize("shape", ["random", "window"])
+@pytest.mark.parametrize("msg_dtype,alpha", [("bfloat16", 1.0), ("float32", 0.625)])
+def test_bp_run_masked_decisions_equal(rng, shape, msg_dtype, alpha):
+    """Masked ``bp_run`` in bf16, or with alpha 0.625: decisions,
+    convergence and iteration counts equal; messages and history within
+    rtol 2**-7 (one bf16 ulp) and atol 1e-2. XLA on the CPU may contract
+    ``post_edge - alpha*mag`` into an FMA (tests/test_bp_pallas.py:109-115)
+    and keep bf16 intermediates in f32."""
+    H = _low_degree_graph(rng) if shape == "random" else _window_pcm()
+    g, prior, synds, vn, cn, dead = _masked_inputs(rng, H, 128)
+    (mv_t, hist_t, err_t, done_t, it_t), (mv_j, hist_j, err_j, done_j, it_j) = (
+        _run_both_masked(g, prior, synds, vn, cn, dead, 12, msg_dtype, alpha,
+                         history_mode="full"))
+    assert 0 < (done_j & ~dead).sum() < (~dead).sum()
+    np.testing.assert_array_equal(err_t, err_j)
+    np.testing.assert_array_equal(done_t, done_j)
+    np.testing.assert_array_equal(it_t, it_j)
+    np.testing.assert_allclose(hist_t, hist_j, rtol=2**-7, atol=1e-2)
+    np.testing.assert_allclose(mv_t, mv_j, rtol=2**-7, atol=1e-2)
+
+
+def test_decode_bp_masked_matches_jax(rng):
+    """``decode_bp`` with a vn_state runs masked (``masked=None``), as in JAX."""
+    H = _low_degree_graph(rng)
+    g, prior, synds, vn, cn, _ = _masked_inputs(rng, H, 64)
+    out_t = tbp.decode_bp(graph_tensors(g, "cpu"), prior, torch.from_numpy(synds),
+                          num_iter=10, vn_state=torch.from_numpy(vn),
+                          cn_state=torch.from_numpy(cn))
+    out_j = jbp.decode_bp(graph_device_arrays(g), prior, jnp.asarray(synds),
+                          num_iter=10, vn_state=jnp.asarray(vn), cn_state=jnp.asarray(cn))
+    for k in ("error", "converged", "iterations", "history", "llr_sum", "mv"):
+        np.testing.assert_array_equal(np.asarray(out_t[k]), np.asarray(out_j[k]), err_msg=k)

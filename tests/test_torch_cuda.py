@@ -40,6 +40,32 @@ def test_cn_kernel_bit_exact(card, dtype):
     assert torch.equal(out, _cn_update_sm(mv, valid, parity, alpha=0.625, clip=50.0))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cn_pinned_kernel_bit_exact(card, dtype):
+    """The pinned (masked-BP) kernel: pins at the dtype-rounded PIN, whole
+    checks pinned, ties, zeros and values beyond +-clip."""
+    from slidingwindowdecoder_torch.ops.bp import PIN, _cn_update_sm
+    from slidingwindowdecoder_torch.ops.bp_cuda import cn_update
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    dc, m_pad, B = 9, 64, 300
+    valid = torch.rand((dc, m_pad), generator=gen, device=card) < 0.8
+    valid[:, -1] = False
+    mv = torch.randn((dc, m_pad, B), generator=gen, device=card) * 40
+    mv[1, ::3] = -mv[0, ::3]
+    mv[2, ::4] = 0.0
+    mv = mv.to(dtype)
+    mv[torch.rand(mv.shape, generator=gen, device=card) < 0.3] = PIN
+    mv[:, ::7] = PIN
+    parity = torch.randint(0, 2, (m_pad, B), generator=gen, device=card,
+                           dtype=torch.int32)
+    before = cn_update.pinned_launches, cn_update.launches
+    out = cn_update(mv, valid, parity, alpha=0.625, clip=50.0, pinned=True)
+    assert (cn_update.pinned_launches, cn_update.launches) == (before[0] + 1, before[1])
+    ref = _cn_update_sm(mv, valid, parity, alpha=0.625, clip=50.0, pinned=True)
+    assert torch.equal(out, ref)
+
+
 def test_gj_kernel_bit_exact(card):
     from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key
     from slidingwindowdecoder_torch.ops.gf2_solve import (

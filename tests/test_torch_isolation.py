@@ -52,7 +52,8 @@ def test_sources_name_no_jax(path):
 
 
 def test_entry_points_need_a_card_by_default(monkeypatch):
-    from slidingwindowdecoder_torch.decoders import BPOSD
+    from slidingwindowdecoder_torch.decoders import BPOSD, OSDWindow
+    from slidingwindowdecoder_torch.harness.circuit_level import sliding_window_decoder
     from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
@@ -62,6 +63,10 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
         graph_tensors(compile_graph(H))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BPOSD(H, np.full(3, 0.1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OSDWindow(H, np.full(3, 0.1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sliding_window_decoder(N=72, num_repeat=2, num_shots=4, W=2, shorten=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode_sliding_window(None, np.zeros((1, 2), np.uint8), None)
     # explicit CPU is honoured
@@ -73,8 +78,10 @@ def test_wrappers_refuse_other_devices():
     from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key
 
     mv = torch.zeros((2, 32, 4), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        cn_update(mv, mv[:, :, 0].bool(), mv[0].int(), alpha=1.0, clip=50.0)
+    for pinned in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            cn_update(mv, mv[:, :, 0].bool(), mv[0].int(), alpha=1.0, clip=50.0,
+                      pinned=pinned)
     with pytest.raises(ValueError, match="unsupported device"):
         gauss_jordan_key(torch.zeros((2, 1), dtype=torch.int32, device="meta"),
                          torch.zeros((4, 2), device="meta"),

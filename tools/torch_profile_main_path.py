@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Where the time goes on the PyTorch port's main path (one CUDA card).
+"""Where the time goes on the PyTorch port's decode paths (one CUDA card).
 
 Decodes the [[144,12,12]] W=3 sliding-window experiment (p=0.004, 12
-rounds, bench knobs, bf16 messages) once to warm up, once timed, once
-with per-stage host timers (each stage ends in a synchronize) and once
-under ``torch.profiler`` for kernel times and the device's busy share.
+rounds) once to warm up, once timed, once with per-stage host timers
+(each stage ends in a synchronize) and once under ``torch.profiler`` for
+kernel times and the device's busy share.
 
-    python3 tools/torch_profile_main_path.py
+    python3 tools/torch_profile_main_path.py                  # BPOSD flagship
+    python3 tools/torch_profile_main_path.py --path osd_window
 
-Prints one JSON line with the stage seconds, the top kernels by device
-time and the busy share. 16384 shots from seed 2024, as ``chip_smoke.py``.
+``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
+phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
+(pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, peel sweeps,
+post-BP buckets, OSD. Prints one JSON line with the stage seconds, then
+one with the top kernels by device time and the busy share. 16384 shots
+from seed 2024, as ``chip_smoke.py``. The ``osd_window`` decode launches
+~1.2 million kernels, too many events for the profiler in one call, so
+its profiled run decodes the first two windows only (window 0 and the
+first interior window).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -33,26 +43,46 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("bposd", "osd_window"), default="bposd")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     from slidingwindowdecoder_torch.circuits import sample_dem_numpy
-    from slidingwindowdecoder_torch.decoders import BPOSD, bposd
-    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
-    from slidingwindowdecoder_torch.windows.pipeline import (
-        CachingDecoderFactory,
-        decode_sliding_window,
+    from slidingwindowdecoder_torch.decoders import BPOSD, bposd, osd_window
+    from slidingwindowdecoder_torch.harness.circuit_level import (
+        build_bb_window_experiment,
+        window_decoder_factory,
     )
+    from slidingwindowdecoder_torch.ops import decimation
+    from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
     _, _, dem, plan = build_bb_window_experiment(144, 0.004, 12, 3, 1)
     det, _, _ = sample_dem_numpy(dem, SHOTS, np.random.default_rng(SEED))
     det = torch.as_tensor(det, device="cuda")
-    factory = CachingDecoderFactory(lambda spec: BPOSD(
-        spec.mat, spec.prior, max_iter=200, osd_method="osd_cs", osd_order=10,
-        bp_bucket=1024, osd_bucket=256, phase_a_iters=16, phase_b_spans=(48, 136),
-        msg_dtype="bfloat16", device="cuda"))
+    # (owner, attribute, stage name from the call's arguments) to time
+    if args.path == "bposd":
+        factory = window_decoder_factory(
+            False, bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
+            phase_b_spans=(48, 136), msg_dtype="bfloat16", device="cuda")
+        patches = [
+            (BPOSD, "_run_bp", lambda self, mv, synds, *_, **__: (
+                "bp phase A (full batch)" if synds.shape[0] == SHOTS
+                else "bp phase B (buckets)")),
+            (bposd, "osd_decode", lambda *a, **k: "osd_decode (GJ kernel + CS sweep)"),
+        ]
+    else:
+        factory = window_decoder_factory(True, device="cuda")
+        patches = [
+            (osd_window, "bp_run", lambda garr, mv, prior, synds, *_, **__: (
+                "pre-BP (full batch)" if synds.shape[0] == SHOTS
+                else "post-BP (buckets)")),
+            (decimation, "_sweep", lambda *a: "peel sweeps"),
+            (osd_window, "osd_decode", lambda *a, **k: "osd_decode (GJ kernel + CS sweep)"),
+        ]
 
-    def run():
+    def run(plan=plan):
         out = decode_sliding_window(plan, det, factory, device="cuda", verbose=False,
                                     collect_window_stats=False)
         torch.cuda.synchronize()
@@ -73,30 +103,38 @@ def main() -> int:
             t0 = time.perf_counter()
             r = fn(*a, **k)
             torch.cuda.synchronize()
-            name = name_of(*a)
+            name = name_of(*a, **k)
             stages[name] += time.perf_counter() - t0
             calls[name] += 1
             return r
         return wrapper
 
-    def bp_stage(self, mv, synds, *rest):
-        return ("bp phase A (full batch)" if synds.shape[0] == SHOTS
-                else "bp phase B (buckets)")
-
-    orig_run_bp, orig_osd = BPOSD._run_bp, bposd.osd_decode
-    BPOSD._run_bp = timed(bp_stage, orig_run_bp)
-    bposd.osd_decode = timed(lambda *a: "osd_decode (GJ kernel + CS sweep)", orig_osd)
+    originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
+    for (owner, attr, name_of), (_, _, fn) in zip(patches, originals):
+        setattr(owner, attr, timed(name_of, fn))
     try:
         t0 = time.perf_counter()
         run()
         total = time.perf_counter() - t0
     finally:
-        BPOSD._run_bp, bposd.osd_decode = orig_run_bp, orig_osd
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
     stages["other (pipeline, sort, gather/scatter)"] = total - sum(stages.values())
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "path": args.path, "shots": SHOTS,
+        "wall_s": wall, "shots_per_s": SHOTS / wall, "staged_wall_s": total,
+        "stages_s": dict(stages), "stage_calls": dict(calls),
+    }), flush=True)
 
+    prof_plan = plan
+    if args.path == "osd_window":
+        prof_plan = dataclasses.replace(plan, windows=plan.windows[:2])
+        t0 = time.perf_counter()
+        run(prof_plan)
+        wall = time.perf_counter() - t0  # the unprofiled wall of the same windows
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        run(prof_plan)
         prof_wall = time.perf_counter() - t0
     events = prof.key_averages()
 
@@ -117,13 +155,8 @@ def main() -> int:
     busy_us = sum(k[1] for k in kernels)
 
     result = {
-        "device": torch.cuda.get_device_name(0),
-        "shots": SHOTS,
-        "wall_s": wall,
-        "shots_per_s": SHOTS / wall,
-        "staged_wall_s": total,
-        "stages_s": dict(stages),
-        "stage_calls": dict(calls),
+        "profiled_windows": len(prof_plan.windows),
+        "unprofiled_wall_s": wall,
         "profiled_wall_s": prof_wall,
         "device_busy_s": busy_us / 1e6,
         # share of the profiled run's wall time with no kernel running
