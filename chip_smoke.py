@@ -8,7 +8,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build both hand-written kernel sources from
+1. build the three hand-written kernel sources from
    ``slidingwindowdecoder_torch/csrc`` (one ``nvcc`` each, started
    together);
 2. kernel A (min-sum check-node update) against its plain PyTorch version
@@ -17,24 +17,36 @@ Phases (any failure exits non-zero; nothing is caught):
 3. the pinned kernel A (masked BP) against its plain version at [35, 224,
    B], B in {512, 16384}, on a [[288]] W=4 window (m_pad 608) and on the
    [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, with ~30 %
-   of the edges and whole checks pinned: bit-exact;
+   of the edges and whole checks pinned: bit-exact (kernel A now serves
+   only the graphs outside the fused kernel's gate);
 4. kernel B (ordered GF(2) Gauss-Jordan) against its plain version on a
    216x1728 and the rank-deficient 216x1656 window PCM at B=256, with keys
    that hold exact ties: every output bit-exact;
-5. the main path: the [[144,12,12]] BB code, 12 rounds, p=0.004, (W,F) =
+5. the fused BP kernel (``bp_span.cu``: a whole ``bp_run`` call in one
+   launch) on the card against the plain loop on the CPU at every shape
+   the paths give it, on window-0 syndromes of the seed-2024 samples: the
+   whole-batch pre-BP (masked f32, B=16384, 8 iterations) and phase A
+   (unmasked bf16, B=16384, 16 iterations), held on their first 512
+   shots; a post-BP bucket (masked f32, B=512, shortened as ``OSDWindow``
+   does, 200 iterations) and a phase-B bucket (unmasked bf16, B=1024, a
+   48-iteration span), both with tail history; error, done, iterations
+   and history bit-exact, and the messages of every shot not done; then
+   the two buckets' times beside the per-op loop's on the card, and with
+   the history ring written from the first iteration or never;
+6. the main path: the [[144,12,12]] BB code, 12 rounds, p=0.004, (W,F) =
    (3,1) sliding-window BP+OSD-CS-10 with the bench knobs and bf16
    messages over 16384 shots drawn from seed 2024, with the launch counts
-   of the kernels read around it and the failure count held to 3 sigma of
-   the JAX package's 414/16384; then a small input decoded on the card
-   and by the plain versions on the CPU;
-6. the shortened path: the same experiment and samples decoded window by
+   of the kernels read around it and the failure count held to exactly
+   the JAX package's 414/16384 (and to 3 sigma of its rate); then a small
+   input decoded on the card and by the plain versions on the CPU;
+7. the shortened path: the same experiment and samples decoded window by
    window with ``OSDWindow`` (pre-BP 8, post-BP 200, OSD-CS-10, f32), the
    decoder of ``sliding_window_decoder(shorten=True)``, with the launch
-   counts read around it and the failure count held to 3 sigma of the
-   reference's 183/10000; then the first 512 of those shots, at full
-   width, and a small input, each on the card and by the plain versions
-   on the CPU;
-7. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+   counts read around it and the failure count held to exactly the port's
+   309/16384 (and to 3 sigma of the reference's 183/10000); then the first
+   512 of those shots, at full width (no shot may differ), and a small
+   input, each on the card and by the plain versions on the CPU;
+8. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -54,8 +66,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 REF_FAILED, REF_SHOTS, SEED = 414, 16384, 2024  # the JAX package's flagship count
 # the shortened osd_window decode: the reference's own rate (docs/PARITY.md,
-# 183/10000 at p=0.004, W=3, 12 rounds)
+# 183/10000 at p=0.004, W=3, 12 rounds), and the port's own count at seed
+# 2024, which the per-op loop gave before the fused kernel (the kernel is
+# bit-exact, so the count must not move)
 REF_SHORT_FAILED, REF_SHORT_SHOTS = 183, 10000
+SHORT_FAILED = 309
+# operations of one fused BP iteration, counted from csrc/bp_span.cu: per
+# valid edge the CN stage's two passes (clip 2, abs and cap 2, min update
+# 3, sign count 2; clip 2, abs and cap 2, select 2, sign 2, negate 1,
+# scale 1), the VN sum's add and the edge stage (subtract 1, pin test 2,
+# sign count 2); per VN the prior add, the rounding and the pin select
+SPAN_OPS_PER_EDGE, SPAN_OPS_PER_VN = 25, 3
 # the first shots of the same samples, decoded on the shortened path on the
 # card and by the plain versions on the CPU at full width
 SLICE_SHOTS = 512
@@ -94,7 +115,7 @@ def phase_build():
     from slidingwindowdecoder_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    secs = cuda_build.build([bp_cuda.SOURCE, gf2_cuda.SOURCE])
+    secs = cuda_build.build([bp_cuda.SOURCE, bp_cuda.SPAN_SOURCE, gf2_cuda.SOURCE])
     log(f"[build] {time.perf_counter() - t0:.1f}s wall; per source {secs}")
     for src, text in cuda_build.build_log.items():
         for line in text.splitlines():
@@ -214,13 +235,14 @@ def phase_cn_pinned(plan):
     return result
 
 
-def _gj_ops(m: int, n: int, W: int, rank: int, B: int) -> int:
-    """32-bit operations of the elimination that do not depend on the data:
-    per step the OR over the unused rows' words, the key scan and the
-    pivot-column bit test (the data-dependent XOR is left out, so the
-    bound is a lower bound)."""
+def _gj_ops(m: int, n: int, W: int, rank: int, B: int, xor_rows: int) -> int:
+    """32-bit operations of the elimination on these inputs: per step the
+    OR over the unused rows' words, the key scan and the pivot-column bit
+    test, and the W+1 word XORs of every row that holds the pivot bit
+    (``xor_rows``, summed over steps and shots, counted by the plain
+    version)."""
     per_shot = sum((m - r) * W + n + m for r in range(rank))
-    return per_shot * B
+    return per_shot * B + xor_rows * (W + 1)
 
 
 def phase_gj(plan):
@@ -256,7 +278,9 @@ def phase_gj(plan):
         ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 20)
         plain_ms = cuda_time_ms(
             lambda: ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 2)
-        ops = _gj_ops(m, n, W, rank, B)
+        xor_rows = int(ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank,
+                                                count_xor=True)["xor_rows"].sum())
+        ops = _gj_ops(m, n, W, rank, B, xor_rows)
         nbytes = Hw.numel() * 4 + synd.numel() + key.numel() * 4 + B * (
             m * (W + 1) * 4 + 2 * rank * 4 + 1)
         ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -264,8 +288,8 @@ def phase_gj(plan):
         n_incons = int(out["inconsistent"].sum())
         log(f"[gj] {m}x{n} rank {rank} B={B}: bit-exact={not bad} max_abs_err={err} "
             f"inconsistent {n_incons}/{B}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms (ops {ops} -> {ops_ms:.5f} ms, bytes {nbytes} "
-            f"-> {bytes_ms:.5f} ms)")
+            f"bound {bound_ms:.5f} ms (ops {ops}, {xor_rows} rows XORed -> {ops_ms:.5f} ms, "
+            f"bytes {nbytes} -> {bytes_ms:.5f} ms)")
         if bad:
             raise SystemExit(f"kernel B disagrees with its plain version on {bad}")
         result["max_abs_err"] = max(result["max_abs_err"], err)
@@ -277,18 +301,191 @@ def phase_gj(plan):
     return result
 
 
+def _span_diff(label, out, ref):
+    """Hold the fused kernel's outputs ``out`` against the plain loop's
+    ``ref`` (CPU tensors, the same shots): error, done, iterations and
+    history bit-exact, and the messages of every shot the plain loop left
+    not done. Returns max_abs_err."""
+    import torch
+
+    live = ~ref[3]
+    pairs = {"messages": (out[0][:, :, live], ref[0][:, :, live]), "history": (out[1], ref[1]),
+             "error": (out[2], ref[2]), "done": (out[3], ref[3]), "iters": (out[4], ref[4])}
+    bad = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
+    err = max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+              for x, y in pairs.values())
+    log(f"[bp_span] {label}: bit-exact={not bad} max_abs_err={err}")
+    if bad:
+        raise SystemExit(f"[bp_span] {label}: the kernel disagrees with the plain loop on {bad}")
+    return err
+
+
+def _span_case(label, args, kw, cpu_garr, reps: int):
+    """One ``bp_span`` input on the card against the plain loop on the CPU
+    (``_span_diff``), then its time, the per-op CUDA loop's time and the
+    bound."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import bp_loop
+
+    garr, mv = args[0], args[1]
+    masked = kw["masked"]
+    counter = "pinned_launches" if masked else "launches"
+    B, n, dc, m_pad, dv = mv.shape[2], garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
+
+    def inputs(dev):  # the history ring is written in place: a copy each
+        a = [t.to(dev) if torch.is_tensor(t) else t for t in args[1:]]
+        a[5] = a[5].clone()
+        return (cpu_garr if dev == "cpu" else garr, *a)
+
+    card_args = inputs("cuda")
+    before = getattr(bp_cuda.bp_span, counter)
+    out = [x.cpu() for x in bp_cuda.bp_span(*card_args, **kw)]
+    torch.cuda.synchronize()
+    if getattr(bp_cuda.bp_span, counter) != before + 1:
+        raise SystemExit(f"[bp_span] {label}: the kernel was not launched once")
+    t0 = time.perf_counter()
+    ref = bp_cuda.bp_span(*inputs("cpu"), **kw)  # CPU tensors: the plain loop
+    cpu_s = time.perf_counter() - t0
+    err = _span_diff(label, out, ref)
+
+    ms = cuda_time_ms(lambda: bp_cuda.bp_span(*card_args, **kw), reps)
+    plain_ms = cuda_time_ms(lambda: bp_loop(*card_args, **kw), 2)  # per-op loop
+    ran = ref[4] - args[9].cpu()  # iterations each shot ran in this call
+    shot_iters, longest = int(ran.sum()), int(ran.max())
+    edges = int(garr["cn_valid_sm"].sum())
+    t = mv.element_size()
+    hist_rows = ((args[5] == -1).sum(dim=1).cpu() if masked and args[5] is not None
+                 else torch.full((B,), n))
+    hist_writes = int(((ran - kw["hist_from"]).clamp_min(0) * hist_rows).sum())
+    ops = shot_iters * (edges * SPAN_OPS_PER_EDGE + n * SPAN_OPS_PER_VN)
+    nbytes = 2 * dc * m_pad * B * t + 4 * hist_writes + B * n
+    ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    # shared-memory traffic of one shot-iteration, from the code: CN two
+    # reads and a write per edge; the VN gather with its indices, the
+    # prior and the rounded posterior; the edge stage's index, posterior,
+    # message read and write; degrees, sign seeds and syndrome per check
+    smem = shot_iters * (edges * (6 * t + 2) + n * dv * (t + 2) + n * (4 + t) + 6 * m_pad)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    S = bp_cuda.shots_per_block(garr, B, mv.dtype, sms)
+    log(f"[bp_span] {label}: {shot_iters} shot-iterations, longest {longest}; kernel "
+        f"{ms:.4f} ms ({ms / max(longest, 1):.5f} ms per iteration, {S} shots x "
+        f"{bp_cuda.MAX_THREADS // S * S} threads per block, {-(-B // S)} blocks, "
+        f"{bp_cuda.span_smem_bytes(garr, mv.dtype, S)} B shared), per-op loop {plain_ms:.4f} "
+        f"ms, bound {max(ops_ms, bytes_ms):.5f} ms (ops {ops} -> {ops_ms:.5f} ms, bytes "
+        f"{nbytes} -> {bytes_ms:.5f} ms), shared memory {smem / ms / 1e9:.1f} TB/s; CPU "
+        f"plain {cpu_s:.1f}s")
+    for hist_from in (0, kw["num_iter"]):  # the ring written always, or never
+        hist_ms = cuda_time_ms(lambda: bp_cuda.bp_span(
+            *card_args, **{**kw, "hist_from": hist_from}), reps)
+        log(f"[bp_span] {label}: history from iteration {hist_from} -> {hist_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err,
+            "shape": f"[{dc},{m_pad},{B}] {str(mv.dtype)[6:]}, {longest} iterations"}
+
+
+def phase_bp_span(plan, det):
+    """The fused kernel against the plain loop at every shape the paths
+    give it, on the window-0 syndromes of the seed-2024 samples (16384
+    shots). The two whole-batch calls (pre-BP: 8 masked f32 iterations;
+    phase A: 16 unmasked bf16 iterations) run on the card and their first
+    ``SLICE_SHOTS`` shots on the CPU (BP is per shot). Their outputs feed
+    the paths' long spans: the first 512 pre-BP survivors shortened as
+    ``OSDWindow`` does, then 200 masked f32 iterations; the first 1024
+    phase-A survivors, then a 48-iteration phase-B span, both with the
+    tail history, each timed beside the per-op loop."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import OSDWindow
+    from slidingwindowdecoder_torch.decoders.osd_window import shorten
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, bp_run, span_inputs
+
+    spec = plan.windows[0]
+    cpu_garr = graph_tensors(compile_graph(spec.mat), "cpu")
+    synd = torch.as_tensor(det[:, spec.row_start:spec.row_end], device="cuda")
+    B0, n = synd.shape[0], spec.mat.shape[1]
+    dec = OSDWindow(spec.mat, spec.prior, pre_max_iter=8, post_max_iter=200,
+                    osd_method="osd_cs", osd_order=10, device="cuda")
+    garr, llr = dec.garr, torch.as_tensor(dec.llr, device="cuda")
+
+    def state(b, dev="cuda"):
+        return (torch.zeros((n, 4, b), device=dev),
+                torch.zeros((b, n), dtype=torch.int8, device=dev),
+                torch.zeros((b,), dtype=torch.bool, device=dev),
+                torch.zeros((b,), dtype=torch.int32, device=dev))
+
+    def whole_batch(label, masked, **kw):
+        """``bp_run`` from fresh messages over all shots: one launch on the
+        card, the first ``SLICE_SHOTS`` shots by the plain loop on the CPU.
+        Returns the card's outputs and max_abs_err on the slice."""
+        counter = "pinned_launches" if masked else "launches"
+
+        def run(g, s):
+            dev, prior = s.device, llr.to(s.device)
+            mv0 = bp_init_messages_sm(g, prior, s.shape[0], kw.get("msg_dtype", "float32"))
+            return bp_run(g, mv0, prior, s, *state(s.shape[0], dev), freeze_messages=False,
+                          io_layout="slot_major", masked=masked, **kw)
+
+        before = getattr(bp_cuda.bp_span, counter)
+        out = run(garr, synd)
+        torch.cuda.synchronize()
+        if getattr(bp_cuda.bp_span, counter) != before + 1:
+            raise SystemExit(f"[bp_span] {label}: the kernel was not launched once")
+        k = SLICE_SHOTS
+        t0 = time.perf_counter()
+        ref = run(cpu_garr, synd[:k].cpu())
+        cpu_s = time.perf_counter() - t0
+        head = [out[0][:, :, :k], out[1][:, :, :k], *(x[:k] for x in out[2:])]
+        err = _span_diff(f"{label}, first {k} shots (CPU plain {cpu_s:.1f}s)",
+                         [x.cpu() for x in head], ref)
+        return out, err
+
+    res = {}
+    # a post-BP bucket: pre-BP survivors, shortened and peeled
+    (_, hist, _, done, _), pre_err = whole_batch(
+        f"pre-BP masked f32 B={B0}, 8 iterations", True, num_iter=8)
+    idx = torch.argsort(done.to(torch.int32), stable=True)[:512]
+    vn, cn, dead = shorten(garr, synd[idx], hist[:, :, idx], dec.new_n)
+    h, _, _, it = state(512)
+    args, kw = span_inputs(
+        garr, bp_init_messages_sm(garr, llr, 512), llr, synd[idx], h,
+        torch.where(vn != -1, vn, 0).to(torch.int8), dead, it, num_iter=200,
+        freeze_messages=False, history_mode="tail", io_layout="slot_major",
+        vn_state=vn, cn_state=cn, masked=True)
+    log(f"[bp_span] post-BP bucket: {float((vn != -1).float().mean()):.3f} of the VNs "
+        f"decided, {int(dead.sum())} shots dead")
+    res["bp_span_pinned"] = _span_case("masked f32 B=512", args, kw, cpu_garr, 10)
+    # a phase-B bucket: phase-A survivors
+    (mv, _, err, done, iters), a_err = whole_batch(
+        f"phase A unmasked bf16 B={B0}, 16 iterations", False, num_iter=16,
+        msg_dtype="bfloat16", history_mode="none")
+    idx = torch.argsort(done.to(torch.int32), stable=True)[:1024]
+    args, kw = span_inputs(
+        garr, mv[:, :, idx], llr, synd[idx], state(1024)[0], err[idx], done[idx], iters[idx],
+        num_iter=48, msg_dtype="bfloat16", freeze_messages=False, history_mode="tail",
+        io_layout="slot_major")
+    res["bp_span"] = _span_case("unmasked bf16 B=1024", args, kw, cpu_garr, 10)
+    for name, e in (("bp_span_pinned", pre_err), ("bp_span", a_err)):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
+    return res
+
+
 # the flagship's bench knobs (bench.py:76-136); the shortened path runs
 # ``sliding_window_decoder(shorten=True)``'s decoder at its defaults
 FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
                       phase_b_spans=(48, 136), msg_dtype="bfloat16")
 
 
-def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, kernels):
+def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, kernels):
     """Drive one decode path on the card over all of ``det``, with the
     launch counts set to 0 just before and read just after. The failure
-    count must lie within 3 sigma of the rate ``ref`` = (failed, shots);
-    every kernel named in ``kernels`` must have launched, every other
-    kernel and every plain version must not have run."""
+    count must equal ``exact`` and lie within 3 sigma of the rate ``ref``
+    = (failed, shots); every kernel named in ``kernels`` must have
+    launched, every other kernel and every plain version must not have
+    run."""
     import torch
 
     from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
@@ -303,16 +500,20 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, kernels):
     det_dev = torch.as_tensor(det, device="cuda")
     torch.cuda.synchronize()
 
-    cn, gj = bp_cuda.cn_update, gf2_cuda.gauss_jordan_key
-    cn.launches = cn.pinned_launches = cn.plain_calls = gj.launches = gj.plain_calls = 0
+    cn, span, gj = bp_cuda.cn_update, bp_cuda.bp_span, gf2_cuda.gauss_jordan_key
+    for k in (cn, span):
+        k.launches = k.pinned_launches = k.plain_calls = 0
+    gj.launches = gj.plain_calls = 0
     t0 = time.perf_counter()
     out = decode_sliding_window(plan, det_dev, factory, device="cuda", verbose=False,
                                 collect_window_stats=False, sync_per_window=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
+    launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
+                "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches}
-    plain = {"cn_update": cn.plain_calls, "gauss_jordan_key": gj.plain_calls}
+    plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
+             "gauss_jordan_key": gj.plain_calls}
 
     e_hat = out["total_e_hat"]
     if tuple(e_hat.shape) != (shots, plan.chk.shape[1]) or int(e_hat.max()) > 1:
@@ -331,8 +532,9 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, kernels):
     log(f"[{name}] kernel launches {launches}; plain calls {plain}")
     p_ref = ref[0] / ref[1]
     mean, sigma = p_ref * shots, math.sqrt(shots * p_ref * (1 - p_ref))
-    if abs(nf - mean) > 3 * sigma:
-        raise SystemExit(f"{name}: {nf} failures, outside {mean:.1f} +- 3*{sigma:.1f}")
+    if abs(nf - mean) > 3 * sigma or nf != exact:
+        raise SystemExit(f"{name}: {nf} failures, want {exact} inside "
+                         f"{mean:.1f} +- 3*{sigma:.1f}")
     ran = {k for k, v in launches.items() if v}
     if ran != set(kernels) or any(plain.values()):
         raise SystemExit(f"{name} did not run on its kernels {kernels}: {launches} {plain}")
@@ -396,10 +598,11 @@ def main() -> int:
     t0 = time.perf_counter()
     det, obs, _ = sample_dem_numpy(dem, REF_SHOTS, np.random.default_rng(SEED))
     log(f"[setup] sampled {REF_SHOTS} shots in {time.perf_counter() - t0:.1f}s")
+    span = phase_bp_span(plan, det)
     main_res = phase_path("main", plan, det, obs,
                           window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS),
-                          num_repeat, (REF_FAILED, REF_SHOTS),
-                          ("cn_update", "gauss_jordan_key"))
+                          num_repeat, (REF_FAILED, REF_SHOTS), REF_FAILED,
+                          ("bp_span", "gauss_jordan_key"))
     _, _, dem72, plan72 = build_bb_window_experiment(72, 0.01, 3, 2, 1)
     det72, obs72, _ = sample_dem_numpy(dem72, 128, np.random.default_rng(SEED))
     phase_card_vs_cpu("small", plan72, det72, obs72, lambda dev: window_decoder_factory(
@@ -407,46 +610,41 @@ def main() -> int:
         device=dev))
     log(json.dumps({"main_path": main_res}))
     short_res = phase_path("osd_window", plan, det, obs,
-                           window_decoder_factory(True, device="cuda"), num_repeat, (REF_SHORT_FAILED, REF_SHORT_SHOTS),
-                           ("cn_update_pinned", "gauss_jordan_key"))
+                           window_decoder_factory(True, device="cuda"), num_repeat,
+                           (REF_SHORT_FAILED, REF_SHORT_SHOTS), SHORT_FAILED,
+                           ("bp_span_pinned", "gauss_jordan_key"))
     phase_card_vs_cpu("osd_window_slice", plan, det[:SLICE_SHOTS], obs[:SLICE_SHOTS],
-                      lambda dev: window_decoder_factory(True, device=dev))
+                      lambda dev: window_decoder_factory(True, device=dev), max_diff=0)
     phase_card_vs_cpu("osd_window_small", plan72, det72, obs72,
                       lambda dev: window_decoder_factory(True, max_iter=30, osd_order=2,
                                                          device=dev))
     log(json.dumps({"osd_window_path": short_res}))
 
+    span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
+    cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
     kernels = [
-        {
-            "name": "cn_update", "route": "cuda",
-            "source": "slidingwindowdecoder_torch/csrc/cn_update.cu",
-            "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package)",
-            "launches": main_res["launches"]["cn_update"],
-            "max_abs_err": cn["max_abs_err"], "matched": True,
-            "ms": cn["ms"], "kernel_ms": cn["ms"], "plain_ms": cn["plain_ms"], "bound_ms": cn["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "shape": cn["shape"],
-        },
-        {
-            "name": "cn_update_pinned", "route": "cuda",
-            "source": "slidingwindowdecoder_torch/csrc/cn_update.cu",
-            "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package)",
-            "launches": short_res["launches"]["cn_update_pinned"],
-            "max_abs_err": cnp["max_abs_err"], "matched": True,
-            "ms": cnp["ms"], "kernel_ms": cnp["ms"], "plain_ms": cnp["plain_ms"],
-            "bound_ms": cnp["bound_ms"], "bound_by": "bytes", "library_ms": None,
-            "shape": cnp["shape"],
-        },
-        {
-            "name": "gauss_jordan_key", "route": "cuda",
-            "source": "slidingwindowdecoder_torch/csrc/gauss_jordan.cu",
-            "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package)",
-            "launches": (main_res["launches"]["gauss_jordan_key"]
-                         + short_res["launches"]["gauss_jordan_key"]),
-            "max_abs_err": gj["max_abs_err"], "matched": True,
-            "ms": gj["ms"], "kernel_ms": gj["ms"], "plain_ms": gj["plain_ms"], "bound_ms": gj["bound_ms"],
-            "bound_by": gj["bound_by"], "library_ms": None, "shape": gj["shape"],
-        },
+        {"name": "bp_span", "route": "cuda", "source": span_src,
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package) with the XLA ops "
+                     "of ops/bp.py:172 (bp_run's iteration)",
+         "launches": main_res["launches"]["bp_span"], **span["bp_span"]},
+        {"name": "bp_span_pinned", "route": "cuda", "source": span_src,
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package) with "
+                     "the XLA ops of ops/bp.py:172 (masked bp_run's iteration)",
+         "launches": short_res["launches"]["bp_span_pinned"], **span["bp_span_pinned"]},
+        {"name": "cn_update", "route": "cuda", "source": cn_src,
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package)",
+         "launches": main_res["launches"]["cn_update"], "bound_by": "bytes", **cn},
+        {"name": "cn_update_pinned", "route": "cuda", "source": cn_src,
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package)",
+         "launches": short_res["launches"]["cn_update_pinned"], "bound_by": "bytes", **cnp},
+        {"name": "gauss_jordan_key", "route": "cuda",
+         "source": "slidingwindowdecoder_torch/csrc/gauss_jordan.cu",
+         "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package)",
+         "launches": (main_res["launches"]["gauss_jordan_key"]
+                      + short_res["launches"]["gauss_jordan_key"]), **gj},
     ]
+    for k in kernels:
+        k.setdefault("library_ms", None)  # no single PyTorch call computes these
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -31,6 +31,22 @@ from .bposd import _divisor_bucket, osd_tables
 PIN = 1000.0  # reliability pin for decided columns (osd_window.pyx:205-213)
 
 
+def shorten(garr, synd, hist, new_n: int):
+    """(2) Shorten a compacted bucket of ``b`` shots: decide all but the
+    ``new_n`` least reliable columns (by the pre-BP history sum ``hist``
+    [n, 4, b]) to zero, then peel. ``synd``: [b, m] syndromes. Returns
+    (vn_state, cn_state, dead), the inputs of the masked post-BP."""
+    b, n, dev = synd.shape[0], garr["n"], synd.device
+    order = torch.argsort(history_sum(hist), dim=1, stable=True)
+    drop = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    drop.scatter_(1, order[:, new_n:], True)
+    state = init_decimation_state(garr, synd)
+    state = vn_set_values(garr, *state, drop, torch.zeros((b, n), dtype=torch.int8,
+                                                           device=dev))
+    vn, cn, _, dead = peel(garr, *state)
+    return vn, cn, dead
+
+
 class OSDWindow:
     """Batched shortened BP+OSD decoder for one (window) PCM.
 
@@ -110,15 +126,7 @@ class OSDWindow:
         """
         b = synd_c.shape[0]
         n, garr, dev = self.n, self.garr, self.device
-        # (2) shorten: decide all but the new_n least reliable columns to
-        # zero, then peel
-        order = torch.argsort(history_sum(hist_c), dim=1, stable=True)
-        drop = torch.zeros((b, n), dtype=torch.bool, device=dev)
-        drop.scatter_(1, order[:, self.new_n:], True)
-        state = init_decimation_state(garr, synd_c)
-        state = vn_set_values(garr, *state, drop, torch.zeros((b, n), dtype=torch.int8,
-                                                               device=dev))
-        vn_c, cn_c, _, dead_c = peel(garr, *state)
+        vn_c, cn_c, dead_c = shorten(garr, synd_c, hist_c, self.new_n)
 
         # (3) post-BP on the masked graph, fresh messages and history.
         # Messages are discarded and only non-converged shots' histories

@@ -16,10 +16,13 @@ of the decimation decoders. Semantics reproduced exactly:
 
 Layouts follow the JAX package: CN-major edge arrays are slot-major
 [dc, m_pad, B] (shot index fastest), the history ring is [n, 4, B]
-internally. The CN stage goes through ``ops.bp_cuda.cn_update``, which
-launches the hand-written CUDA kernel on a CUDA tensor and runs
-``_cn_update_sm`` (below, the plain version) on a CPU tensor. The rest of
-the iteration is torch ops.
+internally. On the card a ``bp_run`` call is one launch of the fused
+kernel ``csrc/bp_span.cu`` (``ops.bp_cuda.bp_span``) wherever its shape
+gate admits the graph; its plain version is ``bp_loop`` (below), torch ops
+around the CN stage ``ops.bp_cuda.cn_update``, which launches
+``csrc/cn_update.cu`` on a CUDA tensor and runs ``_cn_update_sm`` (the
+plain version) on a CPU tensor. CPU tensors always take ``bp_loop``; on
+the card it serves the graphs outside the fused kernel's gate.
 
 Masked mode (``masked=True``): ``vn_state`` values -1/0/1 exclude decided
 variables from message passing and ``cn_state`` -1 deactivates cleared
@@ -120,6 +123,110 @@ def _cn_update_sm(mv, edge_valid, parity, *, alpha, clip, pinned=False):
     return torch.where(edge_valid, mc, torch.zeros((), dtype=mdt, device=mv.device))
 
 
+def bp_loop(
+    garr,
+    mv_sm,
+    prior,
+    parity,
+    synd_t,
+    vn_state,
+    hist_t,
+    error,
+    done,
+    iters,
+    *,
+    num_iter: int,
+    hist_from: int,
+    alpha: float,
+    clip: float,
+    masked: bool,
+    freeze_messages: bool = True,
+    posterior_matmul: bool = False,
+):
+    """Up to ``num_iter`` BP iterations as torch ops around the CN stage
+    ``ops.bp_cuda.cn_update``: the plain version of the fused kernel
+    ``csrc/bp_span.cu`` (``ops.bp_cuda.bp_span``), and the per-op loop that
+    ``bp_run`` runs on the card for graphs outside that kernel's gate.
+
+    ``mv_sm`` [dc, m_pad, B] in the message dtype (a broadcast view is
+    fine); ``prior`` [n] or [B, n] f32; ``parity`` (the CN sign seed) and
+    ``synd_t`` [m_pad, B] int32; ``vn_state`` [B, n] int8 or None (all
+    undecided; masked mode only); ``hist_t`` [n, 4, B] f32, written in
+    place at slot ``i % 4`` from iteration ``hist_from`` on; ``error``
+    [B, n] int8, ``done`` [B] bool, ``iters`` [B] int32. Returns
+    ``(mv_sm, hist_t, error, done, iters)``.
+    """
+    from .bp_cuda import cn_update  # imports this module: no top-level cycle
+
+    mdt = mv_sm.dtype
+    dev = synd_t.device
+    B = synd_t.shape[1]
+    n, dc, m_pad, dv = garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
+    valid = garr["cn_valid_sm"]  # [dc, m_pad]
+    sv = valid[:, :, None]
+    cn_vn_clip = garr["cn_vn_clip"]
+    vn_from_cn = garr["vn_from_cn_flat"]
+    prior_t = prior[:, None].expand(n, B) if prior.ndim == 1 else prior.T
+    syndrome_odd = synd_t == 1
+    fill_row = torch.zeros((1, B), dtype=mdt, device=dev)
+    err_t = error.T
+
+    if masked:
+        pin = torch.tensor(PIN, dtype=mdt, device=dev)
+        thresh = torch.tensor(PIN_THRESH, dtype=mdt, device=dev)
+        vn_t = (torch.full((n, B), -1, dtype=torch.int8, device=dev)
+                if vn_state is None else vn_state.T)
+        vn_undecided = vn_t == -1
+        # pin the edges of decided VNs and the invalid slots once, at entry
+        vs_edge = vn_t[cn_vn_clip].reshape(dc, m_pad, B)
+        mv_sm = torch.where((vs_edge != -1) | ~sv, pin, mv_sm)
+        vn_pin = torch.where(vn_t == 1, -pin, pin)  # read only where decided
+
+    i = 0
+    while i < num_iter:
+        if i % EXIT_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        mc = cn_update(mv_sm, valid, parity, alpha=alpha, clip=clip, pinned=masked)
+        mc_flat = mc.reshape(dc * m_pad, B)
+        if posterior_matmul:
+            posterior = prior_t + (garr["vn_inc"] @ mc_flat.float())
+        else:
+            # gather with a zero fill row (JAX take mode="fill"), summed in
+            # f32 slot by slot: the order of XLA's reduce on the CPU
+            mcv = torch.cat([mc_flat, fill_row])[vn_from_cn].reshape(n, dv, B)
+            acc = mcv[:, 0].float()
+            for j in range(1, dv):
+                acc = acc + mcv[:, j].float()
+            posterior = prior_t + acc
+        post_f = posterior.to(mdt)
+        if masked:
+            # decided posteriors carry their decided sign into the hard
+            # decision, the parity check and the re-pinned messages
+            post_f = torch.where(vn_undecided, post_f, vn_pin)
+        post_edge = post_f[cn_vn_clip].reshape(dc, m_pad, B)
+        if masked:
+            mv_new = torch.where(sv & (post_edge.abs() < thresh), post_edge - mc, pin)
+        else:
+            mv_new = post_edge - mc
+        err_new = (post_f <= 0).to(torch.int8)
+        # decoded parity per check: parity of the valid edges whose
+        # posterior is <= 0 (the JAX +/-1 product, as a count)
+        synd_odd = ((sv & (post_edge <= 0)).sum(dim=0) % 2) == 1
+        conv = (synd_odd == syndrome_odd).all(dim=0)
+
+        active = ~done
+        mv_sm = torch.where(active, mv_new, mv_sm) if freeze_messages else mv_new
+        if i >= hist_from:
+            slot = hist_t[:, i % 4, :]
+            write = active & vn_undecided if masked else active
+            slot.copy_(torch.where(write, posterior, slot))
+        err_t = torch.where(active, err_new, err_t)
+        iters = iters + active.to(torch.int32)
+        done = done | conv
+        i += 1
+    return mv_sm, hist_t, err_t.T, done, iters
+
+
 def bp_run(
     garr,
     mv,
@@ -153,9 +260,10 @@ def bp_run(
     for the shots still active, ``i`` local to this call.
 
     ``freeze_messages=False`` lets converged shots' messages keep evolving
-    (valid when downstream ignores them); the all-done exit is checked on
-    the host every ``EXIT_CHECK_EVERY`` iterations, so such shots' final
-    messages may then differ from a run that checks every iteration.
+    (valid when downstream ignores them): their final messages may differ
+    from a frozen run's, and no other output does. The plain loop checks
+    the all-done exit on the host every ``EXIT_CHECK_EVERY`` iterations;
+    the fused kernel freezes every done shot and exits per block.
     ``history_mode="tail"`` records history only over the final 4
     iterations. ``posterior_matmul=True`` takes the per-VN message sum as
     a dense product with ``garr["vn_inc"]`` (the JAX bf16 form, kept for
@@ -170,21 +278,73 @@ def bp_run(
     the full-PCM match against ``syndrome``. ``masked=False`` ignores both
     states.
 
+    Where it runs: on CPU tensors, ``ops.bp_cuda.bp_span`` runs the plain
+    loop ``bp_loop``. On the card, a 1-D prior on a graph that
+    ``bp_span_supported`` admits goes through the fused kernel
+    ``csrc/bp_span.cu`` (one launch per call); any other call runs
+    ``bp_loop`` there, with the CN kernel ``csrc/cn_update.cu``.
+
     Returns ``(mv, history, error, done, iters)`` in the input layouts.
     """
+    from .bp_cuda import bp_span, bp_span_supported  # no top-level cycle
+
+    args, kw = span_inputs(
+        garr, mv, prior_llr, syndrome, history, error, done, iters,
+        num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
+        freeze_messages=freeze_messages, history_mode=history_mode,
+        posterior_matmul=posterior_matmul, io_layout=io_layout,
+        vn_state=vn_state, cn_state=cn_state, masked=masked,
+    )
+    mv_sm, prior = args[1], args[2]
+    fused = mv_sm.device.type == "cpu" or (
+        prior.ndim == 1 and not posterior_matmul
+        and bp_span_supported(garr, mv_sm.shape[2], mv_sm.dtype))
+    mv_sm, hist_t, err_out, done, iters = (bp_span if fused else bp_loop)(*args, **kw)
+    if io_layout == "slot_major":
+        return mv_sm, hist_t, err_out, done, iters
+    mv_out = mv_sm[:, :garr["m"]].permute(2, 1, 0).float()
+    return mv_out, hist_t.permute(2, 0, 1), err_out, done, iters
+
+
+def span_inputs(
+    garr,
+    mv,
+    prior_llr,
+    syndrome,
+    history,
+    error,
+    done,
+    iters,
+    *,
+    num_iter: int,
+    alpha: float = 1.0,
+    clip: float = 50.0,
+    msg_dtype: str = "float32",
+    freeze_messages: bool = True,
+    history_mode: str = "full",
+    posterior_matmul: bool = False,
+    io_layout: str = "batch_major",
+    vn_state=None,
+    cn_state=None,
+    masked: bool = False,
+):
+    """``bp_run``'s arguments as the positional and keyword arguments of
+    ``bp_loop`` and ``ops.bp_cuda.bp_span``: slot-major messages in the
+    message dtype, the CN sign seed and the syndrome as [m_pad, B] int32,
+    a private contiguous copy of the history ring (unless
+    ``history_mode="none"``) and ``hist_from``."""
     mdt = msg_torch_dtype(msg_dtype)
     dev = syndrome.device
     B = syndrome.shape[0]
-    n, m, dc, m_pad = garr["n"], garr["m"], garr["dc"], garr["m_pad"]
-    valid = garr["cn_valid_sm"]  # [dc, m_pad]
-    sv = valid[:, :, None]
+    m, dc, m_pad = garr["m"], garr["dc"], garr["m_pad"]
+    hist_from = {"full": 0, "tail": max(num_iter - 4, 0), "none": num_iter}.get(history_mode)
+    if hist_from is None:
+        raise ValueError(f"unknown history_mode {history_mode!r}")
 
     prior = torch.as_tensor(prior_llr, dtype=torch.float32, device=dev)
-    prior_t = prior[:, None].expand(n, B) if prior.ndim == 1 else prior.T
-
     synd_t = torch.zeros((m_pad, B), dtype=torch.int32, device=dev)
     synd_t[:m] = syndrome.T.to(torch.int32)
-    syndrome_odd = synd_t == 1
+    vn = None
     if masked:
         dv = garr["dv"]
         if dv * BIG >= PIN_THRESH:
@@ -195,6 +355,8 @@ def bp_run(
         cn_t = torch.full((m_pad, B), -1, dtype=torch.int32, device=dev)
         cn_t[:m] = (syndrome if cn_state is None else cn_state).T.to(torch.int32)
         parity = cn_t.clamp_min(0)  # inactive checks and pad rows seed 0
+        if vn_state is not None:
+            vn = vn_state.to(torch.int8)
     else:
         parity = synd_t  # unmasked: cn_state == syndrome, pad rows 0
 
@@ -207,94 +369,14 @@ def bp_run(
         hist_t = history.permute(1, 2, 0)
     else:
         raise ValueError(f"unknown io_layout {io_layout!r}")
-    err_t = error.T
-    if history_mode != "none":
-        hist_t = hist_t.clone()  # the ring is written in place below
+    if history_mode != "none":  # the ring is written in place
+        hist_t = hist_t.clone(memory_format=torch.contiguous_format)
 
-    from .bp_cuda import cn_update  # imports this module: no top-level cycle
-
-    cn_vn_clip = garr["cn_vn_clip"]
-    vn_from_cn = garr["vn_from_cn_flat"]
-    dv = garr["dv"]
-    fill_row = torch.zeros((1, B), dtype=mdt, device=dev)
-
-    if masked:
-        pin = torch.tensor(PIN, dtype=mdt, device=dev)
-        thresh = torch.tensor(PIN_THRESH, dtype=mdt, device=dev)
-        vn_t = (torch.full((n, B), -1, dtype=torch.int8, device=dev)
-                if vn_state is None else vn_state.T.to(torch.int8))
-        vn_undecided = vn_t == -1
-        # pin the edges of decided VNs and the invalid slots once, at entry
-        vs_edge = vn_t[cn_vn_clip].reshape(dc, m_pad, B)
-        mv_sm = torch.where((vs_edge != -1) | ~sv, pin, mv_sm)
-        vn_pin = torch.where(vn_t == 1, -pin, pin)  # read only where decided
-
-    def iteration(mv_sm):
-        mc = cn_update(mv_sm, valid, parity, alpha=alpha, clip=clip, pinned=masked)
-        mc_flat = mc.reshape(dc * m_pad, B)
-        if posterior_matmul:
-            posterior = prior_t + (garr["vn_inc"] @ mc_flat.float())
-        else:
-            # gather with a zero fill row (JAX take mode="fill"), summed in
-            # f32 slot by slot: the order of XLA's reduce on the CPU
-            mcv = torch.cat([mc_flat, fill_row])[vn_from_cn].reshape(n, dv, B)
-            acc = mcv[:, 0].float()
-            for j in range(1, dv):
-                acc = acc + mcv[:, j].float()
-            posterior = prior_t + acc
-        post_f = posterior.to(mdt)
-        if masked:
-            # decided posteriors carry their decided sign into the hard
-            # decision, the parity check and the re-pinned messages
-            post_f = torch.where(vn_undecided, post_f, vn_pin)
-        post_edge = post_f[cn_vn_clip].reshape(dc, m_pad, B)
-        if masked:
-            mv_new = torch.where(sv & (post_edge.abs() < thresh), post_edge - mc, pin)
-        else:
-            mv_new = post_edge - mc
-        err_new = (post_f <= 0).to(torch.int8)
-        # decoded parity per check: parity of the valid edges whose
-        # posterior is <= 0 (the JAX +/-1 product, as a count)
-        synd_odd = ((sv & (post_edge <= 0)).sum(dim=0) % 2) == 1
-        conv = (synd_odd == syndrome_odd).all(dim=0)
-        return mv_new, posterior, err_new, conv
-
-    def run_span(state, end, with_history):
-        i, mv_sm, hist_t, err_t, done, iters = state
-        start = i
-        while i < end:
-            if (i - start) % EXIT_CHECK_EVERY == 0 and bool(done.all()):
-                break
-            mv_new, posterior, err_new, conv = iteration(mv_sm)
-            active = ~done
-            mv_sm = torch.where(active, mv_new, mv_sm) if freeze_messages else mv_new
-            if with_history:
-                slot = hist_t[:, i % 4, :]
-                write = active & vn_undecided if masked else active
-                slot.copy_(torch.where(write, posterior, slot))
-            err_t = torch.where(active, err_new, err_t)
-            iters = iters + active.to(torch.int32)
-            done = done | conv
-            i += 1
-        return i, mv_sm, hist_t, err_t, done, iters
-
-    state = (0, mv_sm, hist_t, err_t, done, iters)
-    if history_mode == "tail" and num_iter > 4:
-        state = run_span(state, num_iter - 4, with_history=False)
-        state = run_span(state, num_iter, with_history=True)
-    elif history_mode in ("full", "tail"):
-        state = run_span(state, num_iter, with_history=True)
-    elif history_mode == "none":
-        state = run_span(state, num_iter, with_history=False)
-    else:
-        raise ValueError(f"unknown history_mode {history_mode!r}")
-    _, mv_sm, hist_t, err_t, done, iters = state
-
-    err_out = err_t.T
-    if io_layout == "slot_major":
-        return mv_sm, hist_t, err_out, done, iters
-    mv_out = mv_sm[:, :m].permute(2, 1, 0).float()
-    return mv_out, hist_t.permute(2, 0, 1), err_out, done, iters
+    args = (garr, mv_sm, prior, parity, synd_t, vn, hist_t, error, done, iters)
+    kw = dict(num_iter=num_iter, hist_from=hist_from, alpha=alpha, clip=clip,
+              masked=masked, freeze_messages=freeze_messages,
+              posterior_matmul=posterior_matmul)
+    return args, kw
 
 
 def history_sum(hist):

@@ -196,7 +196,8 @@ def gj_outputs(state, piv_col, piv_row, inconsistent, *, n: int):
     }
 
 
-def ordered_gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: int):
+def ordered_gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: int,
+                             count_xor: bool = False):
     """Reliability-ordered Gauss-Jordan with FLOAT keys (batch-minor).
 
     ``H_words`` [m, W] int32 tensor of packed PCM rows;
@@ -205,7 +206,9 @@ def ordered_gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: in
     columns, ties to the lower column id. Returns the dict of
     ``gj_outputs``: osd0 [B, n] uint8, piv_col / piv_row [B, rank] int32,
     reduced_wm [W, m, B] int32, synd_bits [B, m], sol_bits [B, rank]
-    uint8, inconsistent [B] bool.
+    uint8, inconsistent [B] bool. ``count_xor=True`` adds ``xor_rows`` [B]
+    int64: the rows these inputs XOR with a pivot row, summed over the
+    steps (each such row costs W+1 word XORs), for the kernel's bound.
     """
     dev = syndrome.device
     B = syndrome.shape[0]
@@ -222,6 +225,7 @@ def ordered_gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: in
     inf = torch.tensor(float("inf"), device=dev)
     iota_m = torch.arange(m, device=dev)[:, None]
     shifts = torch.arange(_W, dtype=torch.int32, device=dev)[None, :, None]
+    xor_rows = torch.zeros((B,), dtype=torch.int64, device=dev)
 
     for r in range(rank):
         mat = state[:, :W, :]
@@ -236,13 +240,18 @@ def ordered_gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: in
         prow = torch.gather(state, 0, istar.view(1, 1, B).expand(1, W + 1, B))
         sel = colbits & (iota_m != istar[None, :])
         state = torch.where(sel[:, None, :], state ^ prow, state)
+        if count_xor:
+            xor_rows += sel.sum(dim=0)
 
         unused = unused & (iota_m != istar[None, :])
         piv_col[r] = jstar.to(torch.int32)
         piv_row[r] = istar.to(torch.int32)
 
     inconsistent = ((state[:, W, :] & 1).bool() & unused).any(dim=0)
-    return gj_outputs(state, piv_col, piv_row, inconsistent, n=n)
+    out = gj_outputs(state, piv_col, piv_row, inconsistent, n=n)
+    if count_xor:
+        out["xor_rows"] = xor_rows
+    return out
 
 
 # ---------------------------------------------------------------------------

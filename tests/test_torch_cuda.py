@@ -89,3 +89,97 @@ def test_gj_kernel_bit_exact(card):
     for k in ref:
         assert torch.equal(out[k], ref[k]), k
     assert bool(out["inconsistent"].any())
+
+
+def _bp_span_case(masked, dtype, B, seed):
+    """bp_run inputs on the [[72]] x3 W=2 window graph (72x468 in the first
+    window), with real-looking syndromes and, masked, a peeled decimation
+    state that decides about a third of the VNs."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.ops import decimation
+
+    _, _, _, plan = build_bb_window_experiment(72, 0.01, 3, 2, 1)
+    H = plan.windows[1].mat
+    rng = np.random.default_rng(seed)
+    n = H.shape[1]
+    p = np.asarray(plan.windows[1].prior, np.float64)
+    prior = np.log((1 - p) / p).astype(np.float32)
+    errs = (rng.random((B, n)) < p).astype(np.int8)
+    synds = torch.as_tensor((errs @ H.T) % 2, dtype=torch.uint8)
+    garr = graph_tensors(compile_graph(H), "cpu")
+    kw = dict(num_iter=30, msg_dtype=dtype, freeze_messages=False, history_mode="tail",
+              io_layout="slot_major")
+    vn = cn = None
+    err0 = torch.zeros((B, n), dtype=torch.int8)
+    if masked:
+        state = decimation.init_decimation_state(garr, synds)
+        state = decimation.vn_set_values(
+            garr, *state, torch.as_tensor(rng.random((B, n)) < 1 / 3),
+            torch.as_tensor(errs))
+        vn, cn, _, dead = decimation.peel(garr, *state)
+        err0 = torch.where(vn != -1, vn, 0).to(torch.int8)
+        kw.update(vn_state=vn, cn_state=cn, masked=True)
+    done0 = torch.as_tensor(rng.random(B) < 0.1)  # some shots done at entry
+    return H, prior, synds, err0, done0, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bp_span_smem_layout_matches_kernel(card, dtype):
+    """The gate's shared-memory count (``span_smem_bytes``) equals the
+    kernel's own layout (``bp_span_smem_bytes``) on the [[72]] and the
+    flagship [[144]] window graphs, at every block size the gate allows."""
+    import ctypes
+
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.utils import cuda_build
+
+    fn = cuda_build.load(bp_cuda.SPAN_SOURCE).bp_span_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    for code, p, rounds, w in ((72, 0.01, 3, 2), (144, 0.004, 12, 3)):
+        H = build_bb_window_experiment(code, p, rounds, w, 1)[3].windows[1].mat
+        garr = graph_tensors(compile_graph(H), "cpu")
+        shots = bp_cuda.max_shots_per_block(garr, dtype)
+        assert shots >= 1
+        for s in range(1, shots + 1):
+            assert fn(dtype.itemsize, garr["n"], garr["m_pad"], garr["dc"], garr["dv"],
+                      s) == bp_cuda.span_smem_bytes(garr, dtype, s)
+
+
+@pytest.mark.parametrize("freeze", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bp_span_kernel_matches_plain_loop(card, masked, dtype, freeze):
+    """``bp_run`` on the card (one launch of ``bp_span.cu``) against the
+    plain loop on the CPU, B=300 (a ragged last block): error, done,
+    iterations and history bit-equal, and the messages of every shot that
+    is not done (of every shot with ``freeze_messages=True``)."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, bp_run
+    from slidingwindowdecoder_torch.ops.bp_cuda import bp_span
+
+    B = 300
+    H, prior, synds, err0, done0, kw = _bp_span_case(masked, dtype, B, 7)
+    kw["freeze_messages"] = freeze
+    outs = []
+    for dev in ("cpu", card):
+        garr = graph_tensors(compile_graph(H), dev)
+        to = (lambda t: t.to(dev) if torch.is_tensor(t) else t)
+        before = bp_span.launches, bp_span.pinned_launches, bp_span.plain_calls
+        outs.append([x.cpu() for x in bp_run(
+            garr, bp_init_messages_sm(garr, prior, B, dtype), prior, synds.to(dev),
+            torch.zeros((H.shape[1], 4, B), device=dev), err0.to(dev), done0.to(dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            **{k: to(v) for k, v in kw.items()})])
+        after = bp_span.launches, bp_span.pinned_launches, bp_span.plain_calls
+        want = (0, 0, 1) if dev == "cpu" else ((0, 1, 0) if masked else (1, 0, 0))
+        assert tuple(a - b for a, b in zip(after, before)) == want
+    (mv_p, hist_p, err_p, done_p, it_p), (mv_k, hist_k, err_k, done_k, it_k) = outs
+    assert 0 < int(done_p.sum()) < B
+    assert torch.equal(err_k, err_p) and torch.equal(done_k, done_p)
+    assert torch.equal(it_k, it_p) and torch.equal(hist_k, hist_p)
+    keep = torch.ones_like(done_p) if freeze else ~done_p
+    assert torch.equal(mv_k[:, :, keep], mv_p[:, :, keep])

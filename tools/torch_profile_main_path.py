@@ -12,18 +12,15 @@ kernel times and the device's busy share.
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
 (pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, peel sweeps,
-post-BP buckets, OSD. Prints one JSON line with the stage seconds, then
-one with the top kernels by device time and the busy share. 16384 shots
-from seed 2024, as ``chip_smoke.py``. The ``osd_window`` decode launches
-~1.2 million kernels, too many events for the profiler in one call, so
-its profiled run decodes the first two windows only (window 0 and the
-first interior window).
+post-BP buckets, OSD. Prints one JSON line with the stage seconds and the
+kernel launches of the timed decode, then one with the top kernels by
+device time and the busy share. 16384 shots from seed 2024, as
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -55,7 +52,7 @@ def main() -> int:
         build_bb_window_experiment,
         window_decoder_factory,
     )
-    from slidingwindowdecoder_torch.ops import decimation
+    from slidingwindowdecoder_torch.ops import bp_cuda, decimation, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
     _, _, dem, plan = build_bb_window_experiment(144, 0.004, 12, 3, 1)
@@ -82,16 +79,23 @@ def main() -> int:
             (osd_window, "osd_decode", lambda *a, **k: "osd_decode (GJ kernel + CS sweep)"),
         ]
 
-    def run(plan=plan):
+    def run():
         out = decode_sliding_window(plan, det, factory, device="cuda", verbose=False,
                                     collect_window_stats=False)
         torch.cuda.synchronize()
         return out
 
     run()  # warm-up: cuBLAS handles, caching allocator, kernel libraries
+    cn, span, gj = bp_cuda.cn_update, bp_cuda.bp_span, gf2_cuda.gauss_jordan_key
+    for k in (cn, span, gj):
+        k.launches = 0
+    cn.pinned_launches = span.pinned_launches = 0
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
+    launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
+                "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
+                "gauss_jordan_key": gj.launches}
 
     # per-stage wall time: wrap the decoder's stages with synchronizing timers
     stages = defaultdict(float)
@@ -123,18 +127,12 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "path": args.path, "shots": SHOTS,
         "wall_s": wall, "shots_per_s": SHOTS / wall, "staged_wall_s": total,
-        "stages_s": dict(stages), "stage_calls": dict(calls),
+        "stages_s": dict(stages), "stage_calls": dict(calls), "launches": launches,
     }), flush=True)
 
-    prof_plan = plan
-    if args.path == "osd_window":
-        prof_plan = dataclasses.replace(plan, windows=plan.windows[:2])
-        t0 = time.perf_counter()
-        run(prof_plan)
-        wall = time.perf_counter() - t0  # the unprofiled wall of the same windows
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(prof_plan)
+        run()
         prof_wall = time.perf_counter() - t0
     events = prof.key_averages()
 
@@ -155,7 +153,6 @@ def main() -> int:
     busy_us = sum(k[1] for k in kernels)
 
     result = {
-        "profiled_windows": len(prof_plan.windows),
         "unprofiled_wall_s": wall,
         "profiled_wall_s": prof_wall,
         "device_busy_s": busy_us / 1e6,
