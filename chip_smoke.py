@@ -19,9 +19,17 @@ Phases (any failure exits non-zero; nothing is caught):
    [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, with ~30 %
    of the edges and whole checks pinned: bit-exact (kernel A now serves
    only the graphs outside the fused kernel's gate);
-4. kernel B (ordered GF(2) Gauss-Jordan) against its plain version on a
+4. kernel B's elimination entry point (``gauss_jordan_key``: the
+   reliability-ordered GF(2) Gauss-Jordan) against its plain version on a
    216x1728 and the rank-deficient 216x1656 window PCM at B=256, with keys
-   that hold exact ties: every output bit-exact;
+   that hold exact ties and +-0.0: every output bit-exact;
+4b. kernel B's fused entry point (``osd_cs_fused``: the elimination and the
+   OSD-CS sweep in one launch) against the plain elimination and sweep on
+   the card: on the same tie keys at 216x1728 and 216x1656, and on the
+   first OSD bucket of window 0 of each path (the real syndromes and BP
+   reliabilities of the seed-2024 samples); solution, OSD-0, inconsistency
+   and the bits of min_pm equal, with its time beside the standalone
+   elimination's, kernel B's time before the fused design and the bound;
 5. the fused BP kernel (``bp_span.cu``: a whole ``bp_run`` call in one
    launch) on the card against the plain loop on the CPU at every shape
    the paths give it, on window-0 syndromes of the seed-2024 samples: the
@@ -36,14 +44,16 @@ Phases (any failure exits non-zero; nothing is caught):
 6. the main path: the [[144,12,12]] BB code, 12 rounds, p=0.004, (W,F) =
    (3,1) sliding-window BP+OSD-CS-10 with the bench knobs and bf16
    messages over 16384 shots drawn from seed 2024, with the launch counts
-   of the kernels read around it and the failure count held to exactly
-   the JAX package's 414/16384 (and to 3 sigma of its rate); then a small
-   input decoded on the card and by the plain versions on the CPU;
+   of the kernels read around it (``bp_span`` and ``osd_cs_fused`` only)
+   and the failure count held to exactly the JAX package's 414/16384 (and
+   to 3 sigma of its rate); then a small input decoded on the card and by
+   the plain versions on the CPU (no shot may differ);
 7. the shortened path: the same experiment and samples decoded window by
    window with ``OSDWindow`` (pre-BP 8, post-BP 200, OSD-CS-10, f32), the
    decoder of ``sliding_window_decoder(shorten=True)``, with the launch
-   counts read around it and the failure count held to exactly the port's
-   309/16384 (and to 3 sigma of the reference's 183/10000); then the first
+   counts read around it (``bp_span_pinned`` and ``osd_cs_fused`` only)
+   and the failure count held to exactly the port's 309/16384 (and to 3
+   sigma of the reference's 183/10000); then the first
    512 of those shots, at full width (no shot may differ), and a small
    input, each on the card and by the plain versions on the CPU;
 8. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
@@ -63,7 +73,14 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+# H100 SXM arithmetic rates outside the tensor cores: 132 SMs at 1.98 GHz,
+# times the results per clock per SM of compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): 128 for float32
+# add, multiply and compare (the published 67 TFLOP/s counts an FMA as
+# two), 64 for 32-bit integer add, compare, shift and logic, 64 for
+# float64 add
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
+INT32_OPS_PER_S = FP64_ADDS_PER_S = 132 * 64 * 1.98e9
 REF_FAILED, REF_SHOTS, SEED = 414, 16384, 2024  # the JAX package's flagship count
 # the shortened osd_window decode: the reference's own rate (docs/PARITY.md,
 # 183/10000 at p=0.004, W=3, 12 rounds), and the port's own count at seed
@@ -245,6 +262,54 @@ def _gj_ops(m: int, n: int, W: int, rank: int, B: int, xor_rows: int) -> int:
     return per_shot * B + xor_rows * (W + 1)
 
 
+# kernel B (csrc/gauss_jordan.cu) per 256-shot bucket at 216x1728 before
+# the fused design (PERF.md, PR 3's chip runs)
+GJ_BEFORE_MS = 1.928
+
+
+def _tie_keys(gen, B: int, n: int):
+    """Coarse keys with many exact ties, resolved to the lower column, and
+    -0.0 and +0.0 on columns of their own (equal keys too)."""
+    import torch
+
+    key = torch.randint(-32, 32, (B, n), generator=gen, device="cuda").float() * 0.25
+    key[:, ::11] = -0.0
+    key[:, 5::11] = 0.0
+    return key
+
+
+def _sweep_work(gj, key, pair_i, pair_j, order_w: int, solution):
+    """The OSD-CS sweep's work on these inputs, by kind: 32-bit integer
+    operations (a test of each word of the reduced state for a_j, of each
+    row word of a pair's two columns for its Gram term, and of each row's
+    bit of the order_w columns); float32 operations (an add per set bit of
+    a non-pivot column for a_j and per row holding both columns of a pair
+    for its Gram term, an add per OSD-0 support column for pm0, two adds
+    and a compare per non-pivot column for pm_w1, five adds, a multiply
+    and a compare per pair for pm_w2); float64 adds (one per support
+    column of the solution, for min_pm). Returns (int32, float32, float64)
+    counts over the bucket."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        _extract_bitcols,
+        _top_nonpivot_columns,
+    )
+
+    red = gj["reduced_wm"]  # [W, m, B]
+    W, m, B = red.shape
+    n, rank, P = key.shape[1], gj["piv_col"].shape[1], pair_i.shape[0]
+    k = n - rank
+    set_bits = sum(int(((red >> s) & 1).sum()) for s in range(32))  # rank in pivot columns
+    nonpiv = torch.ones((n, B), dtype=torch.bool, device=red.device)
+    nonpiv.scatter_(0, gj["piv_col"].T.long(), False)
+    cols = _extract_bitcols(red, _top_nonpivot_columns(key.T.float(), nonpiv, order_w))
+    both = int((cols[pair_i.long()] * cols[pair_j.long()]).sum())
+    int_ops = B * (m * W + P * 2 * -(-m // 32) + order_w * m)
+    f32_ops = set_bits - rank * B + both + int(gj["osd0"].sum()) + B * (3 * k + 7 * P)
+    return int_ops, f32_ops, int(solution.sum())
+
+
 def phase_gj(plan):
     import torch
 
@@ -265,8 +330,7 @@ def phase_gj(plan):
         Hw = torch.as_tensor(pack_rows_host(H).view(np.int32), device="cuda")
         W = Hw.shape[1]
         synd = torch.randint(0, 2, (B, m), generator=gen, device="cuda", dtype=torch.uint8)
-        # coarse keys: many exact ties, resolved to the lower column
-        key = torch.randint(0, 64, (B, n), generator=gen, device="cuda").float() * 0.25
+        key = _tie_keys(gen, B, n)
         before = gauss_jordan_key.launches
         out = gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank)
         torch.cuda.synchronize()
@@ -298,6 +362,126 @@ def phase_gj(plan):
                           bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                           shape=f"{m}x{n} B={B}")
     gauss_jordan_key.launches = 0
+    return result
+
+
+def _first_osd_bucket(module, factory, spec, synd):
+    """The arguments of the first ``osd_decode`` call of ``module``'s
+    decoder on window ``spec`` (one ``core`` call on ``synd``)."""
+    orig, seen = module.osd_decode, []
+
+    def first(*a, **k):
+        if not seen:
+            seen.append((a, k))
+        return orig(*a, **k)
+
+    module.osd_decode = first
+    try:
+        factory(spec).core(synd)
+    finally:
+        module.osd_decode = orig
+    return seen[0]
+
+
+def phase_osd_cs(plan, det):
+    """The fused OSD-CS launch against the plain elimination and sweep on
+    the card, on tie keys (random syndromes) at 216x1728 and 216x1656 and
+    on the first OSD bucket of window 0 of each path; then its time beside
+    the standalone elimination's, kernel B's before the fused design, and
+    the bound."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import bposd, osd_window
+    from slidingwindowdecoder_torch.harness.circuit_level import window_decoder_factory
+    from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key, osd_cs_fused
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        _osd_sweep_cs_sortless,
+        analyze_patterns,
+        gf2_rank_packed,
+        ordered_gauss_jordan_key,
+        osd_candidate_patterns,
+        pack_rows_host,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B = 256
+    cases = []
+    for spec in (plan.windows[1], plan.windows[-1]):
+        m, n = spec.mat.shape
+        rank = gf2_rank_packed(spec.mat)
+        p = np.asarray(spec.prior, np.float64)
+        meta = analyze_patterns(osd_candidate_patterns(n - rank, 10, "osd_cs"), n - rank)
+        cases.append((f"{m}x{n} tie keys", (
+            torch.as_tensor(pack_rows_host(spec.mat).view(np.int32), device="cuda"),
+            (torch.rand((B, m), generator=gen, device="cuda") < 0.1).to(torch.uint8),
+            _tie_keys(gen, B, n),
+            torch.as_tensor(np.log((1 - p) / p).astype(np.float32), device="cuda")),
+            dict(m=m, n=n, rank=rank, meta=meta)))
+    spec = plan.windows[0]
+    synd = torch.as_tensor(det[:, spec.row_start:spec.row_end], device="cuda")
+    for label, module, factory in (
+            ("flagship", bposd, window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS)),
+            ("shortened", osd_window, window_decoder_factory(True, device="cuda"))):
+        args, kw = _first_osd_bucket(module, factory, spec, synd)
+        m, n = spec.mat.shape
+        cases.append((f"{label} window 0, first OSD bucket ({m}x{n})", args[:4], kw))
+
+    result = {"max_abs_err": 0.0}
+    for label, (Hw, s, key, llr), kw in cases:
+        m, n, rank, meta = kw["m"], kw["n"], kw["rank"], kw["meta"]
+        W, Bc = Hw.shape[1], s.shape[0]
+        pi, pj = (torch.as_tensor(meta[k], dtype=torch.int32, device="cuda")
+                  for k in ("pair_i", "pair_j"))
+        ow = int(meta["order_w"])
+
+        def fused():
+            return osd_cs_fused(Hw, s, key, llr, pi, pj, m=m, n=n, rank=rank, order_w=ow)
+
+        def plain(count_xor=False):
+            gj = ordered_gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank,
+                                          count_xor=count_xor)
+            return gj, _osd_sweep_cs_sortless(gj, key, llr, pi, pj, order_w=ow)
+
+        before = osd_cs_fused.launches
+        out = fused()
+        torch.cuda.synchronize()
+        if osd_cs_fused.launches != before + 1:
+            raise SystemExit("the fused OSD-CS kernel was not launched")
+        gj, (sol, min_pm) = plain(count_xor=True)
+        pairs = {"solution": (out["solution"], sol), "osd0": (out["osd0"], gj["osd0"]),
+                 "inconsistent": (out["inconsistent"], gj["inconsistent"]),
+                 "min_pm": (out["min_pm"].view(torch.int32), min_pm.view(torch.int32))}
+        bad = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
+        err = max(float((out[k].double() - y.double()).abs().max())
+                  for k, y in (("solution", sol), ("osd0", gj["osd0"]), ("min_pm", min_pm)))
+        ms = cuda_time_ms(fused, 20)
+        gj_ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank), 20)
+        plain_ms = cuda_time_ms(plain, 2)
+        xor_rows = int(gj["xor_rows"].sum())
+        int_ops, f32_ops, f64_adds = _sweep_work(gj, key, pi, pj, ow, sol)
+        int_ops += _gj_ops(m, n, W, rank, Bc, xor_rows)
+        nbytes = (Hw.numel() * 4 + s.numel() + key.numel() * 4 + n * 4 + 8 * pi.shape[0]
+                  + Bc * (2 * n + 5))
+        ops_ms = 1e3 * max(int_ops / INT32_OPS_PER_S, f32_ops / FP32_OPS_PER_S,
+                           f64_adds / FP64_ADDS_PER_S)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        n_cand = int((sol != gj["osd0"]).any(dim=1).sum())
+        log(f"[osd_cs] {label} B={Bc}: bit-exact={not bad} max_abs_err={err}; "
+            f"{n_cand} shots take a candidate, {int(gj['inconsistent'].sum())} inconsistent; "
+            f"fused {ms:.4f} ms, elimination alone {gj_ms:.4f} ms, before {GJ_BEFORE_MS} ms "
+            f"(kernel B at 216x1728), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (int32 "
+            f"{int_ops} with {xor_rows} rows XORed, float32 {f32_ops}, float64 {f64_adds} "
+            f"-> {ops_ms:.5f} ms, bytes {nbytes} -> {bytes_ms:.5f} ms)")
+        if bad:
+            raise SystemExit(f"[osd_cs] {label}: the fused kernel disagrees with its plain "
+                             f"version on {bad}")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        if label.startswith("216x1728"):
+            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                          shape=f"{m}x{n} B={Bc}, tie keys")
+    osd_cs_fused.launches = 0
     return result
 
 
@@ -361,7 +545,8 @@ def _span_case(label, args, kw, cpu_garr, reps: int):
     hist_writes = int(((ran - kw["hist_from"]).clamp_min(0) * hist_rows).sum())
     ops = shot_iters * (edges * SPAN_OPS_PER_EDGE + n * SPAN_OPS_PER_VN)
     nbytes = 2 * dc * m_pad * B * t + 4 * hist_writes + B * n
-    ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    # all at the float32 rate, though the sign counts run at the integer one
+    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     # shared-memory traffic of one shot-iteration, from the code: CN two
     # reads and a write per edge; the VN gather with its indices, the
     # prior and the rounded posterior; the edge stage's index, posterior,
@@ -500,10 +685,12 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, 
     det_dev = torch.as_tensor(det, device="cuda")
     torch.cuda.synchronize()
 
-    cn, span, gj = bp_cuda.cn_update, bp_cuda.bp_span, gf2_cuda.gauss_jordan_key
+    cn, span = bp_cuda.cn_update, bp_cuda.bp_span
+    gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
     for k in (cn, span):
         k.launches = k.pinned_launches = k.plain_calls = 0
-    gj.launches = gj.plain_calls = 0
+    for k in (gj, osd):
+        k.launches = k.plain_calls = 0
     t0 = time.perf_counter()
     out = decode_sliding_window(plan, det_dev, factory, device="cuda", verbose=False,
                                 collect_window_stats=False, sync_per_window=True)
@@ -511,9 +698,9 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, 
     dt = time.perf_counter() - t0
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
-                "gauss_jordan_key": gj.launches}
+                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches}
     plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
-             "gauss_jordan_key": gj.plain_calls}
+             "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls}
 
     e_hat = out["total_e_hat"]
     if tuple(e_hat.shape) != (shots, plan.chk.shape[1]) or int(e_hat.max()) > 1:
@@ -547,11 +734,10 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, 
     }
 
 
-def phase_card_vs_cpu(name, plan, det, obs, make_factory, max_diff: int = 2):
-    """Decode ``det`` on the card and by the plain versions on the CPU. BP
-    and the kernels are bit-exact, so only exact ties between OSD-CS
-    candidates (broken by the f32 sum order of each device) may differ:
-    the failure counts must be equal and at most ``max_diff`` shots may
+def phase_card_vs_cpu(name, plan, det, obs, make_factory):
+    """Decode ``det`` on the card and by the plain versions on the CPU. BP,
+    the kernels and the plain versions' f32 sums are bit-exact between the
+    two devices, so the failure counts must be equal and no shot may
     differ."""
     from slidingwindowdecoder_torch.windows.pipeline import (
         decode_sliding_window,
@@ -569,7 +755,7 @@ def phase_card_vs_cpu(name, plan, det, obs, make_factory, max_diff: int = 2):
     log(f"[{name}] card vs CPU plain over {det.shape[0]} shots: failed {res['cuda'][1]} vs "
         f"{res['cpu'][1]}, shots differing {diff}; {res['cuda'][2]:.1f}s card, "
         f"{res['cpu'][2]:.1f}s CPU")
-    if res["cuda"][1] != res["cpu"][1] or diff > max_diff:
+    if res["cuda"][1] != res["cpu"][1] or diff:
         raise SystemExit(f"{name}: the card disagrees with the CPU plain path")
 
 
@@ -598,11 +784,12 @@ def main() -> int:
     t0 = time.perf_counter()
     det, obs, _ = sample_dem_numpy(dem, REF_SHOTS, np.random.default_rng(SEED))
     log(f"[setup] sampled {REF_SHOTS} shots in {time.perf_counter() - t0:.1f}s")
+    osd_cs = phase_osd_cs(plan, det)
     span = phase_bp_span(plan, det)
     main_res = phase_path("main", plan, det, obs,
                           window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS),
                           num_repeat, (REF_FAILED, REF_SHOTS), REF_FAILED,
-                          ("bp_span", "gauss_jordan_key"))
+                          ("bp_span", "osd_cs_fused"))
     _, _, dem72, plan72 = build_bb_window_experiment(72, 0.01, 3, 2, 1)
     det72, obs72, _ = sample_dem_numpy(dem72, 128, np.random.default_rng(SEED))
     phase_card_vs_cpu("small", plan72, det72, obs72, lambda dev: window_decoder_factory(
@@ -612,9 +799,9 @@ def main() -> int:
     short_res = phase_path("osd_window", plan, det, obs,
                            window_decoder_factory(True, device="cuda"), num_repeat,
                            (REF_SHORT_FAILED, REF_SHORT_SHOTS), SHORT_FAILED,
-                           ("bp_span_pinned", "gauss_jordan_key"))
+                           ("bp_span_pinned", "osd_cs_fused"))
     phase_card_vs_cpu("osd_window_slice", plan, det[:SLICE_SHOTS], obs[:SLICE_SHOTS],
-                      lambda dev: window_decoder_factory(True, device=dev), max_diff=0)
+                      lambda dev: window_decoder_factory(True, device=dev))
     phase_card_vs_cpu("osd_window_small", plan72, det72, obs72,
                       lambda dev: window_decoder_factory(True, max_iter=30, osd_order=2,
                                                          device=dev))
@@ -622,6 +809,7 @@ def main() -> int:
 
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
     cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
+    gj_src = "slidingwindowdecoder_torch/csrc/gauss_jordan.cu"
     kernels = [
         {"name": "bp_span", "route": "cuda", "source": span_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package) with the XLA ops "
@@ -637,11 +825,16 @@ def main() -> int:
         {"name": "cn_update_pinned", "route": "cuda", "source": cn_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package)",
          "launches": short_res["launches"]["cn_update_pinned"], "bound_by": "bytes", **cnp},
-        {"name": "gauss_jordan_key", "route": "cuda",
-         "source": "slidingwindowdecoder_torch/csrc/gauss_jordan.cu",
+        {"name": "gauss_jordan_key", "route": "cuda", "source": gj_src,
          "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package)",
          "launches": (main_res["launches"]["gauss_jordan_key"]
                       + short_res["launches"]["gauss_jordan_key"]), **gj},
+        {"name": "osd_cs_fused", "route": "cuda", "source": gj_src,
+         "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package) with the XLA "
+                     "ops/gf2_solve.py:215 (ordered_gauss_jordan_key) and :522 "
+                     "(_osd_sweep_cs_sortless)",
+         "launches": (main_res["launches"]["osd_cs_fused"]
+                      + short_res["launches"]["osd_cs_fused"]), **osd_cs},
     ]
     for k in kernels:
         k.setdefault("library_ms", None)  # no single PyTorch call computes these

@@ -1,200 +1,515 @@
-// Batched reliability-ordered GF(2) Gauss-Jordan for Hopper (sm_90a).
+// Batched reliability-ordered GF(2) Gauss-Jordan, and OSD-CS fused onto it,
+// for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas kernel `ops/gf2_pallas.py:_gj_kernel`
-// (through `ordered_gauss_jordan_pallas`) and, on the main path, the XLA
-// elimination `ops/gf2_solve.py:ordered_gauss_jordan_key` that computes the
-// same elimination keyed by floats. Plain version:
-// `ops/gf2_solve.py:ordered_gauss_jordan_key` in this package.
+// Replaces the JAX package's Pallas kernel `ops/gf2_pallas.py:54`
+// `_gj_kernel` (through `ordered_gauss_jordan_pallas`) and, on the main
+// path, the XLA elimination `ops/gf2_solve.py:215` `ordered_gauss_jordan_key`
+// with the XLA OSD-CS sweep `ops/gf2_solve.py:522` `_osd_sweep_cs_sortless`
+// that follows it. Plain versions in this package: `ops/gf2_solve.py:
+// ordered_gauss_jordan_key` and `_osd_sweep_cs_sortless`.
 //
-// One thread block per shot. The packed state [m, W+1] (PCM rows with the
-// syndrome word appended) and the shot's [n] float keys stay in shared
-// memory for all `rank` pivot steps; device memory is touched once to load
-// and once to store. Each step:
-//   1. OR of the unused rows -> the live-column words (threads split the
-//      (word, row group) pairs, combined with shared-memory atomicOr);
-//   2. block argmin over live columns of (key, column), ties to the lower
-//      column (warp shuffles, then one warp over the warp results);
-//   3. each row's bit of the pivot column into a flag array, and the block
-//      min over the unused rows that hold it -> the pivot row;
-//   4. XOR of the pivot row into every other row that holds the bit.
+// Two entry points from one kernel template: `gauss_jordan_key` stores the
+// reduced state, pivots and inconsistency flag (FUSED = false);
+// `osd_cs_fused` runs the OSD-CS sweep on the reduced state while it is
+// still in shared memory and stores only the solution, the OSD-0 solution,
+// the least path metric and the flag (FUSED = true).
 //
-// Bound: integer operations on shared memory. Per shot and step the dense
-// work is about (m - r) * W words ORed, n keys scanned, m bits tested and
-// (rows holding the bit) * (W + 1) words XORed; at the flagship window
-// (m 216, n 1728, W 54, rank 216) and B = 256 that is of order 1e9 32-bit
-// operations, about 0.02 ms at 67 T/s, against ~14 MB of device-memory
-// traffic (~4 us). Block-wide barriers between the four phases (five per
-// step, 216 steps) and the per-block serial step chain keep the kernel far
-// from that bound; more shots per block, or warp-level steps, are later work.
+// One block of 256 threads per shot; its packed state [m, W+1] (PCM rows
+// with the syndrome word appended) lives in shared memory from load to
+// store. A 256-shot bucket is 256 blocks: at ~61 KB a block, three fit an
+// SM, so the bucket is one wave on 132 SMs.
+//
+// Elimination. The pivot of step r is the argmin over live columns of
+// (key, column); a column is live iff some unused row holds its bit. A
+// dead column stays dead: after row operations its unused-row entries are
+// zero iff it lies in the span of the pivot columns so far, and that span
+// only grows. So the block sorts its (key, column) pairs once (bitonic, in
+// the state's space before the state is loaded; -0.0 is made +0.0 so that
+// it ties with +0.0 as `<` and `torch.argmin` have it), and step r takes
+// the first live column after step r-1's pivot in sorted order. Each round,
+// warp w tests the candidate at sorted position pos + w: its lanes load
+// the candidate's word of every row at once (rows lane, lane + 32, ...; KW
+// words, fixed at compile time), ballots give the rows holding its bit,
+// and the lowest of them that is unused is the pivot row. After one
+// barrier every thread takes the first live candidate; a candidate after
+// it is tested again next step (it may die). Warp v then holds the pivot
+// row in registers (lanes over its W+1 words) and XORs it into the holding
+// rows of row word v, and a second barrier ends the step. Two barriers a
+// step, no division, and no pass over all columns or rows.
+//
+// OSD-CS epilogue (FUSED). With w_r = llr[piv_col_r] * (1 - 2 sol_r) on
+// pivot row r: pm0 = sum of llr over the OSD-0 support in ascending
+// column; a_j = sum over rows holding column j of w_row in ascending row,
+// one thread per non-pivot column; pm_w1 = (pm0 + a_j) + llr_j and its
+// argmin (ties to the lower column); the order_w most unreliable non-pivot
+// columns are the first non-pivot columns of the sorted order; per pair
+// the Gram term (rows holding both columns, ascending row) and pm_w2 =
+// ((((pm0 + a_i) + a_j) - 2 g) + llr_i) + llr_j, argmin over pairs (ties
+// to the lower pair); then the winner's flip of the pivot bits. Every add
+// is __fadd_rn/__fsub_rn (no FMA): the plain sweep sums in the same
+// orders, so the two are bit-exact. min_pm is the metric of the solution
+// taken anew: its support's llr summed in float64 in ascending column
+// (__dadd_rn) and rounded once to float32, which stays within rounding of
+// the exact value where the float32 candidate sums drift by a few ulps.
+//
+// Bound. The work is 32-bit integer operations on shared memory (the
+// pivot-bit tests and the XORs of the holding rows, ~25 rows of 55 words
+// a step at the flagship window) at 64 a clock per SM, and the sweep's
+// word tests and float32 adds of the set bits; `chip_smoke.py` counts
+// them for the bound (a few hundredths of a ms for a bucket). Device
+// memory sees the keys, the syndromes and the outputs once. What sets the
+// time is the serial chain of `rank` steps (~230 rounds at the flagship
+// window), each a test, two barriers and a few rows XORed in turn, for
+// each block; the design keeps that chain short and lets the bucket's
+// blocks run side by side.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRowWords = 16;  // rows per shot <= 32 * kRowWords
+constexpr int kRowChunks = 4;  // words per row W + 1 <= 32 * kRowChunks
+constexpr int kMaxTop = 32;    // order_w the fused entry takes
+constexpr int kSlot = kRowWords + 1;  // per warp and round: pivot row, holding rows
 
-__global__ void __launch_bounds__(kThreads)
-gauss_jordan_key_kernel(const uint32_t* __restrict__ H,
-                        const uint8_t* __restrict__ synd,
-                        const float* __restrict__ keys,
-                        uint32_t* __restrict__ state_out,
-                        int32_t* __restrict__ pcol, int32_t* __restrict__ prow,
-                        uint8_t* __restrict__ incons, int m, int n, int W,
-                        int rank) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Wp1 = W + 1;
-  uint32_t* st = reinterpret_cast<uint32_t*>(smem_raw);  // [m, W+1]
-  float* key = reinterpret_cast<float*>(st + m * Wp1);   // [n]
-  uint32_t* live = reinterpret_cast<uint32_t*>(key + n); // [W]
-  uint8_t* unused = reinterpret_cast<uint8_t*>(live + W); // [m]
-  uint8_t* colflag = unused + m;                          // [m]
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-  __shared__ float red_k[kWarps];
-  __shared__ int red_j[kWarps];
-  __shared__ int s_j;
-  __shared__ int s_i;
+__host__ __device__ inline int next_pow2(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+// Byte offsets of the shared-memory arrays of one block. The first region
+// holds the sort's (key, column) pairs, then the state. `ops/gf2_cuda.py:
+// smem_bytes` computes the same total.
+struct Layout {
+  size_t st, ord, pcol, prow, test, a, wrow, masks, total;
+};
 
-  for (int e = tid; e < m * Wp1; e += kThreads) {
-    const int i = e / Wp1, w = e - i * Wp1;
-    st[e] = (w < W) ? H[i * W + w] : (uint32_t)(synd[(long long)b * m + i] & 1);
+__host__ __device__ inline Layout make_layout(int m, int n, int W, bool fused) {
+  Layout L;
+  size_t o = 0;
+  const size_t state = (size_t)m * (W + 1) * 4, sort = (size_t)next_pow2(n) * 8;
+  L.st = o;    o = align16(o + (state > sort ? state : sort));
+  L.ord = o;   o = align16(o + (size_t)n * 2);
+  L.pcol = o;  o = align16(o + (size_t)m * 2);
+  L.prow = o;  o = align16(o + (size_t)m * 2);
+  L.test = o;  o = align16(o + (size_t)2 * kWarps * kSlot * 4);
+  L.a = L.wrow = L.masks = o;
+  if (fused) {
+    L.a = o;     o = align16(o + (size_t)n * 4);
+    L.wrow = o;  o = align16(o + (size_t)m * 4);
+    L.masks = o; o = align16(o + (size_t)W * 3 * 4);
   }
-  for (int j = tid; j < n; j += kThreads) key[j] = keys[(long long)b * n + j];
-  for (int i = tid; i < m; i += kThreads) unused[i] = 1;
-  for (int w = tid; w < W; w += kThreads) live[w] = 0;
+  L.total = o;
+  return L;
+}
+
+struct Args {
+  const uint32_t* H;     // [m, W] packed PCM rows
+  const uint8_t* synd;   // [B, m]
+  const float* keys;     // [B, n]
+  uint8_t* incons;       // [B]
+  // gauss_jordan_key
+  uint32_t* state_out;   // [B, m, W+1]
+  int32_t* pcol_out;     // [B, rank]
+  int32_t* prow_out;     // [B, rank]
+  // osd_cs_fused
+  const float* llr;      // [n]
+  const int32_t* pair_i; // [P]
+  const int32_t* pair_j; // [P]
+  uint8_t* solution;     // [B, n]
+  uint8_t* osd0;         // [B, n]
+  float* min_pm;         // [B]
+  int m, n, W, rank, order_w, npairs;
+};
+
+// (value, index) argmin across the block, ties to the lower index. Every
+// thread returns the result; contains one barrier and reuses `red_v`/`red_i`
+// only after the caller's next barrier.
+__device__ __forceinline__ void block_argmin(float& v, int& i, float* red_v, int* red_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, v, off);
+    const int oi = __shfl_down_sync(0xffffffffu, i, off);
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+  if (lane == 0) {
+    red_v[warp] = v;
+    red_i[warp] = i;
+  }
+  __syncthreads();
+  v = red_v[0];
+  i = red_i[0];
+  for (int w = 1; w < kWarps; ++w) {
+    const float ov = red_v[w];
+    const int oi = red_i[w];
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+// KW: the row words a candidate's test covers (8 for m <= 256, else 16),
+// fixed at compile time so that a warp issues all its loads at once.
+template <bool FUSED, int KW>
+__global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m = a.m, n = a.n, W = a.W, Wp1 = W + 1, rank = a.rank;
+  const Layout L = make_layout(m, n, W, FUSED);
+  uint32_t* st = (uint32_t*)(smem + L.st);                      // [m, W+1]
+  unsigned long long* pairs = (unsigned long long*)(smem + L.st);  // sort only
+  uint16_t* ord = (uint16_t*)(smem + L.ord);                     // [n]
+  uint16_t* pcol = (uint16_t*)(smem + L.pcol);                   // [rank]
+  uint16_t* prow = (uint16_t*)(smem + L.prow);
+  int* test = (int*)(smem + L.test);  // [2 rounds][kWarps][kSlot]
+  __shared__ uint32_t unused[kRowWords];  // the rows not yet pivot rows
+  __shared__ float red_v[kWarps];
+  __shared__ int red_i[kWarps];
+
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int K = (m + 31) >> 5;
+
+  // 1. sort (key, column) once: the key's bits made unsigned-ordered
+  const int np2 = next_pow2(n);
+  for (int j = tid; j < np2; j += kThreads) {
+    unsigned long long v = ~0ull;  // padding sorts last
+    if (j < n) {
+      const float k = a.keys[(long long)b * n + j];
+      uint32_t u = __float_as_uint(k == 0.f ? 0.f : k);
+      u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+      v = ((unsigned long long)u << 32) | (unsigned)j;
+    }
+    pairs[j] = v;
+  }
+  __syncthreads();
+  for (int size = 2; size <= np2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int p = tid; p < (np2 >> 1); p += kThreads) {
+        const int lo = 2 * p - (p & (stride - 1)), hi = lo + stride;
+        const unsigned long long x = pairs[lo], y = pairs[hi];
+        if ((x > y) == ((lo & size) == 0)) {
+          pairs[lo] = y;
+          pairs[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = tid; j < n; j += kThreads) ord[j] = (uint16_t)(pairs[j] & 0xffffu);
   __syncthreads();
 
-  // (word, row group) split of the live-column OR; with W > kThreads each
-  // thread takes whole words
-  const int groups = W <= kThreads ? kThreads / W : 1;
+  // 2. the packed state
+  for (int e = tid; e < m * Wp1; e += kThreads) {
+    const int i = e / Wp1, w = e - i * Wp1;
+    st[e] = (w < W) ? a.H[i * W + w] : (uint32_t)(a.synd[(long long)b * m + i] & 1);
+  }
+  if (tid < kRowWords) {
+    const int rows = m - 32 * tid;
+    unused[tid] = rows >= 32 ? 0xffffffffu : (rows > 0 ? (1u << rows) - 1u : 0u);
+  }
+  __syncthreads();
 
-  for (int r = 0; r < rank; ++r) {
-    // 1. live-column words
-    if (tid < groups * W) {
-      const int w = tid % W, g = tid / W;
-      uint32_t acc = 0;
-      for (int i = g; i < m; i += groups)
-        if (unused[i]) acc |= st[i * Wp1 + w];
-      if (acc) atomicOr(&live[w], acc);
+  // 3. the pivot steps
+  int pos = 0, r = 0, round = 0;
+  while (r < rank && pos < n) {
+    int* buf = test + (round & 1) * kWarps * kSlot;
+    ++round;
+    const int c = pos + warp;
+    int first = -1;
+    if (c < n) {
+      const int j = ord[c], jw = j >> 5, js = j & 31;
+      uint32_t v[KW];
+#pragma unroll
+      for (int k = 0; k < KW; ++k) {
+        const int i = 32 * k + lane;
+        v[k] = i < m ? st[i * Wp1 + jw] : 0u;
+      }
+      uint32_t mine = 0;  // lane k: the rows of word k that hold bit j
+#pragma unroll
+      for (int k = 0; k < KW; ++k) {
+        const uint32_t h = __ballot_sync(0xffffffffu, (v[k] >> js) & 1u);
+        if (lane == k) mine = h;
+      }
+      const uint32_t live = lane < KW ? mine & unused[lane] : 0u;
+      const uint32_t words = __ballot_sync(0xffffffffu, live != 0u);
+      if (words) {
+        const int k = __ffs(words) - 1;
+        first = 32 * k + __ffs(__shfl_sync(0xffffffffu, live, k)) - 1;
+      }
+      if (lane < K) buf[warp * kSlot + 1 + lane] = (int)mine;
     }
-    for (int w = kThreads + tid; w < W; w += kThreads) {
-      uint32_t acc = 0;
-      for (int i = 0; i < m; ++i)
-        if (unused[i]) acc |= st[i * Wp1 + w];
-      live[w] = acc;
-    }
-    if (tid == 0) s_i = 0x7fffffff;
+    if (lane == 0) buf[warp * kSlot] = first;
     __syncthreads();
 
-    // 2. pivot column: argmin of (key, column) over live columns
-    float bk = INFINITY;
-    int bj = 0x7fffffff;
-    for (int j = tid; j < n; j += kThreads) {
-      if ((live[j >> 5] >> (j & 31)) & 1u) {
-        const float k = key[j];
-        if (k < bk) {  // j grows within a thread: ties keep the lower j
-          bk = k;
-          bj = j;
+    int win = -1, piv = -1;
+    for (int w = 0; w < kWarps; ++w) {
+      const int f = buf[w * kSlot];
+      if (f >= 0) {
+        win = w;
+        piv = f;
+        break;
+      }
+    }
+    if (win < 0) {  // every candidate of this round is dead
+      pos += kWarps;
+      continue;
+    }
+    if (warp < K) {
+      uint32_t pr[kRowChunks];  // the pivot row, lanes over its words
+#pragma unroll
+      for (int q = 0; q < kRowChunks; ++q) {
+        const int w = 32 * q + lane;
+        pr[q] = w < Wp1 ? st[piv * Wp1 + w] : 0u;
+      }
+      for (int k = warp; k < K; k += kWarps) {
+        uint32_t h = (uint32_t)buf[win * kSlot + 1 + k];
+        if (k == (piv >> 5)) h &= ~(1u << (piv & 31));
+        while (h) {
+          uint32_t* row = st + (32 * k + __ffs(h) - 1) * Wp1;
+          h &= h - 1;
+#pragma unroll
+          for (int q = 0; q < kRowChunks; ++q) {
+            const int w = 32 * q + lane;
+            if (w < Wp1) row[w] ^= pr[q];
+          }
         }
       }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ok = __shfl_down_sync(0xffffffffu, bk, off);
-      const int oj = __shfl_down_sync(0xffffffffu, bj, off);
-      if (ok < bk || (ok == bk && oj < bj)) {
-        bk = ok;
-        bj = oj;
-      }
-    }
-    if (lane == 0) {
-      red_k[warp] = bk;
-      red_j[warp] = bj;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bk = lane < kWarps ? red_k[lane] : INFINITY;
-      bj = lane < kWarps ? red_j[lane] : 0x7fffffff;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ok = __shfl_down_sync(0xffffffffu, bk, off);
-        const int oj = __shfl_down_sync(0xffffffffu, bj, off);
-        if (ok < bk || (ok == bk && oj < bj)) {
-          bk = ok;
-          bj = oj;
-        }
-      }
-      if (lane == 0) s_j = bj;
-    }
-    __syncthreads();
-
-    // 3. pivot-column bit of every row; first unused row holding it
-    const int jstar = s_j;
-    const int jw = jstar >> 5, js = jstar & 31;
-    int cand = 0x7fffffff;
-    for (int i = tid; i < m; i += kThreads) {
-      const uint8_t bit = (uint8_t)((st[i * Wp1 + jw] >> js) & 1u);
-      colflag[i] = bit;
-      if (bit && unused[i] && i < cand) cand = i;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      cand = min(cand, __shfl_down_sync(0xffffffffu, cand, off));
-    if (lane == 0 && cand != 0x7fffffff) atomicMin(&s_i, cand);
-    __syncthreads();
-
-    // 4. clear the pivot column from every other row holding it
-    const int istar = s_i;
-    const uint32_t* pr = st + istar * Wp1;
-    for (int e = tid; e < m * Wp1; e += kThreads) {
-      const int i = e / Wp1;
-      if (colflag[i] && i != istar) st[e] ^= pr[e - i * Wp1];
     }
     if (tid == 0) {
-      unused[istar] = 0;
-      pcol[(long long)b * rank + r] = jstar;
-      prow[(long long)b * rank + r] = istar;
+      unused[piv >> 5] &= ~(1u << (piv & 31));  // read again after the barrier
+      pcol[r] = ord[pos + win];
+      prow[r] = (uint16_t)piv;
     }
-    for (int w = tid; w < W; w += kThreads) live[w] = 0;
+    ++r;
+    pos += win + 1;
     __syncthreads();
   }
 
-  // store the reduced state; a syndrome bit left on an unused row means
-  // the syndrome is outside the pivot span
-  uint32_t* out = state_out + (long long)b * m * Wp1;
-  for (int e = tid; e < m * Wp1; e += kThreads) out[e] = st[e];
+  // a syndrome bit left on an unused row: outside the pivot span
   int left = 0;
   for (int i = tid; i < m; i += kThreads)
-    left |= (int)(unused[i] && (st[i * Wp1 + W] & 1u));
+    left |= (int)(((unused[i >> 5] >> (i & 31)) & 1u) && (st[i * Wp1 + W] & 1u));
   left = __syncthreads_or(left);
-  if (tid == 0) incons[b] = (uint8_t)(left != 0);
+  if (tid == 0) a.incons[b] = (uint8_t)(left != 0);
+
+  if (!FUSED) {
+    uint32_t* out = a.state_out + (long long)b * m * Wp1;
+    for (int e = tid; e < m * Wp1; e += kThreads) out[e] = st[e];
+    for (int t = tid; t < rank; t += kThreads) {
+      a.pcol_out[(long long)b * rank + t] = t < r ? pcol[t] : -1;
+      a.prow_out[(long long)b * rank + t] = t < r ? prow[t] : -1;
+    }
+    return;
+  }
+
+  // 4. OSD-CS sweep on the reduced state
+  float* aj = (float*)(smem + L.a);       // [n]
+  float* wrow = (float*)(smem + L.wrow);  // [m], 0 on non-pivot rows
+  uint32_t* pivm = (uint32_t*)(smem + L.masks);  // [W] pivot columns
+  uint32_t* osdm = pivm + W;                     // [W] OSD-0 support
+  uint32_t* solm = osdm + W;                     // [W] the solution's support
+  __shared__ float s_pm0;
+  __shared__ int s_top[kMaxTop];
+
+  for (int w = tid; w < 2 * W; w += kThreads) pivm[w] = 0u;
+  for (int i = tid; i < m; i += kThreads) wrow[i] = 0.f;
+  __syncthreads();
+  for (int t = tid; t < r; t += kThreads) {
+    const int j = pcol[t], i = prow[t];
+    const bool sol = st[i * Wp1 + W] & 1u;
+    const float l = a.llr[j];
+    wrow[i] = sol ? -l : l;
+    atomicOr(&pivm[j >> 5], 1u << (j & 31));
+    if (sol) atomicOr(&osdm[j >> 5], 1u << (j & 31));
+  }
+  __syncthreads();
+
+  // pm0 (one thread, ascending column) and a_j (a thread per column)
+  if (tid == 0) {
+    float acc = 0.f;
+    for (int w = 0; w < W; ++w)
+      for (uint32_t x = osdm[w]; x; x &= x - 1)
+        acc = __fadd_rn(acc, a.llr[32 * w + __ffs(x) - 1]);
+    s_pm0 = acc;
+  }
+  for (int j = tid; j < n; j += kThreads) {
+    const int jw = j >> 5, js = j & 31;
+    if ((pivm[jw] >> js) & 1u) continue;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < m; ++i)
+      if ((st[i * Wp1 + jw] >> js) & 1u) acc = __fadd_rn(acc, wrow[i]);
+    aj[j] = acc;
+  }
+  __syncthreads();
+  const float pm0 = s_pm0;
+
+  // weight-1 candidates: the argmin of pm_w1 over non-pivot columns
+  float best1 = INFINITY;
+  int col1 = n;
+  for (int j = tid; j < n; j += kThreads) {
+    if ((pivm[j >> 5] >> (j & 31)) & 1u) continue;
+    const float pm = __fadd_rn(__fadd_rn(pm0, aj[j]), a.llr[j]);
+    if (pm < best1) {  // j grows within a thread: ties keep the lower j
+      best1 = pm;
+      col1 = j;
+    }
+  }
+  // the order_w most unreliable non-pivot columns: the first ones in
+  // sorted order (warp 0, 32 positions a ballot)
+  if (warp == 0) {
+    int got = 0;
+    for (int p0 = 0; p0 < n && got < a.order_w; p0 += 32) {
+      const int p = p0 + lane;
+      const int j = p < n ? ord[p] : 0;
+      uint32_t x = __ballot_sync(0xffffffffu, p < n && !((pivm[j >> 5] >> (j & 31)) & 1u));
+      while (x && got < a.order_w) {
+        const int src = __ffs(x) - 1;
+        x &= x - 1;
+        const int jj = __shfl_sync(0xffffffffu, j, src);
+        if (lane == 0) s_top[got] = jj;
+        ++got;
+      }
+    }
+  }
+  block_argmin(best1, col1, red_v, red_i);
+  __syncthreads();
+
+  // weight-2 candidates: Gram term and pm_w2 per pair
+  float best2 = INFINITY;
+  int pair = a.npairs;
+  for (int p = tid; p < a.npairs; p += kThreads) {
+    const int ci = s_top[a.pair_i[p]], cj = s_top[a.pair_j[p]];
+    const int iw = ci >> 5, is = ci & 31, jw = cj >> 5, js = cj & 31;
+    float g = 0.f;
+    for (int i = 0; i < m; ++i) {
+      const uint32_t* row = st + i * Wp1;
+      if ((row[iw] >> is) & (row[jw] >> js) & 1u) g = __fadd_rn(g, wrow[i]);
+    }
+    float pm = __fadd_rn(__fadd_rn(pm0, aj[ci]), aj[cj]);
+    pm = __fsub_rn(pm, __fmul_rn(2.f, g));
+    pm = __fadd_rn(__fadd_rn(pm, a.llr[ci]), a.llr[cj]);
+    if (pm < best2) {
+      best2 = pm;
+      pair = p;
+    }
+  }
+  block_argmin(best2, pair, red_v, red_i);
+
+  // the winner, and the solution
+  const bool is_pair = best2 < best1;
+  const float best = is_pair ? best2 : best1;
+  const bool use = best < pm0;
+  const int c1 = is_pair ? s_top[a.pair_i[pair]] : col1;
+  const int c2 = is_pair ? s_top[a.pair_j[pair]] : -1;
+  for (int w = tid; w < W; w += kThreads) {
+    uint32_t x = use ? 0u : osdm[w];
+    if (use && (c1 >> 5) == w) x |= 1u << (c1 & 31);
+    if (is_pair && use && (c2 >> 5) == w) x |= 1u << (c2 & 31);
+    solm[w] = x;
+  }
+  __syncthreads();
+  if (use) {
+    for (int t = tid; t < r; t += kThreads) {
+      const uint32_t* row = st + prow[t] * Wp1;
+      uint32_t y = (row[W] & 1u) ^ ((row[c1 >> 5] >> (c1 & 31)) & 1u);
+      if (is_pair) y ^= (row[c2 >> 5] >> (c2 & 31)) & 1u;
+      if (y) atomicOr(&solm[pcol[t] >> 5], 1u << (pcol[t] & 31));
+    }
+  }
+  __syncthreads();
+  uint8_t* sol_out = a.solution + (long long)b * n;
+  uint8_t* osd0_out = a.osd0 + (long long)b * n;
+  for (int j = tid; j < n; j += kThreads) {
+    osd0_out[j] = (uint8_t)((osdm[j >> 5] >> (j & 31)) & 1u);
+    sol_out[j] = (uint8_t)((solm[j >> 5] >> (j & 31)) & 1u);
+  }
+  if (tid == 0) {  // min_pm: the solution's metric, ascending column
+    double acc = 0.0;
+    for (int w = 0; w < W; ++w)
+      for (uint32_t x = solm[w]; x; x &= x - 1)
+        acc = __dadd_rn(acc, (double)a.llr[32 * w + __ffs(x) - 1]);
+    a.min_pm[b] = __double2float_rn(acc);
+  }
+}
+
+template <bool FUSED, int KW>
+int launch_kw(const Args& a, int B, size_t smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gj_kernel<FUSED, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gj_kernel<FUSED, KW><<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool FUSED>
+int launch(const Args& a, int B, void* stream) {
+  if (B == 0) return 0;
+  const Layout L = make_layout(a.m, a.n, a.W, FUSED);
+  if (a.m > 32 * kRowWords || a.W + 1 > 32 * kRowChunks || a.order_w > kMaxTop ||
+      L.total > 232448)
+    return (int)cudaErrorInvalidValue;
+  return a.m <= 256 ? launch_kw<FUSED, 8>(a, B, L.total, stream)
+                    : launch_kw<FUSED, 16>(a, B, L.total, stream);
+}
+
+Args base_args(const void* H, const void* synd, const void* keys, void* incons, int m,
+               int n, int W, int rank) {
+  Args a = {};
+  a.H = (const uint32_t*)H;
+  a.synd = (const uint8_t*)synd;
+  a.keys = (const float*)keys;
+  a.incons = (uint8_t*)incons;
+  a.m = m;
+  a.n = n;
+  a.W = W;
+  a.rank = rank;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// shared memory per block: the packed state, the keys, the live words and
-// two row flags (`smem_bytes` in ops/gf2_cuda.py says the same)
 int gauss_jordan_key(const void* H, const void* synd, const void* keys,
                      void* state_out, void* pcol, void* prow, void* incons,
                      int m, int n, int W, int rank, int B, void* stream) {
-  if (B == 0) return 0;
-  const size_t smem =
-      (size_t)m * (W + 1) * 4 + (size_t)n * 4 + (size_t)W * 4 + 2 * (size_t)m;
-  cudaError_t err = cudaFuncSetAttribute(
-      gauss_jordan_key_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gauss_jordan_key_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)H, (const uint8_t*)synd, (const float*)keys,
-      (uint32_t*)state_out, (int32_t*)pcol, (int32_t*)prow, (uint8_t*)incons,
-      m, n, W, rank);
-  return (int)cudaGetLastError();
+  Args a = base_args(H, synd, keys, incons, m, n, W, rank);
+  a.state_out = (uint32_t*)state_out;
+  a.pcol_out = (int32_t*)pcol;
+  a.prow_out = (int32_t*)prow;
+  return launch<false>(a, B, stream);
+}
+
+int osd_cs_fused(const void* H, const void* synd, const void* keys, const void* llr,
+                 const void* pair_i, const void* pair_j, void* solution, void* osd0,
+                 void* min_pm, void* incons, int m, int n, int W, int rank, int order_w,
+                 int npairs, int B, void* stream) {
+  Args a = base_args(H, synd, keys, incons, m, n, W, rank);
+  a.llr = (const float*)llr;
+  a.pair_i = (const int32_t*)pair_i;
+  a.pair_j = (const int32_t*)pair_j;
+  a.solution = (uint8_t*)solution;
+  a.osd0 = (uint8_t*)osd0;
+  a.min_pm = (float*)min_pm;
+  a.order_w = order_w;
+  a.npairs = npairs;
+  return launch<true>(a, B, stream);
+}
+
+// Shared memory of one block, as the launch computes it.
+long long gj_smem_bytes(int m, int n, int W, int fused) {
+  return (long long)make_layout(m, n, W, fused != 0).total;
 }
 
 const char* swd_error_string(int code) {

@@ -65,7 +65,7 @@ def osd_tables(pcm, k: int, osd_order: int, method: str, device):
     meta = analyze_patterns(patterns, k)
     for key in ("pair_i", "pair_j"):
         if key in meta:  # OSD-CS only
-            meta[key] = torch.as_tensor(meta[key], device=device)
+            meta[key] = torch.as_tensor(meta[key], dtype=torch.int32, device=device)
     return H_words, patterns, meta
 
 

@@ -1,13 +1,22 @@
-"""Wrapper of the hand-written CUDA Gauss-Jordan kernel (``csrc/gauss_jordan.cu``).
+"""Wrappers of the hand-written CUDA kernel of OSD (``csrc/gauss_jordan.cu``).
 
 The counterpart of the JAX package's ``ops/gf2_pallas.py``: the batched
-reliability-ordered GF(2) elimination of OSD. The kernel takes float keys,
-so it serves both forms of the JAX package: the float-keyed elimination of
-the main path (``gauss_jordan_key``) and the integer-order form of the
-Pallas kernel (``gauss_jordan_order``, whose order becomes rank-position
-keys). On a CPU tensor the wrapper runs the plain version
-``ops.gf2_solve.ordered_gauss_jordan_key``; on a CUDA tensor it launches
-the kernel or raises.
+reliability-ordered GF(2) elimination of OSD, and the OSD-CS sweep fused
+onto it. One kernel template, two entry points:
+
+- ``gauss_jordan_key``: the elimination alone, with float keys. It serves
+  both forms of the JAX package: the float-keyed elimination
+  (``ops/gf2_solve.py:ordered_gauss_jordan_key``) and the integer-order
+  form of the Pallas kernel (``gauss_jordan_order``, whose order becomes
+  rank-position keys). Plain version ``ops.gf2_solve.
+  ordered_gauss_jordan_key``.
+- ``osd_cs_fused``: the elimination and the OSD-CS sweep in one launch, the
+  reduced state never leaving shared memory. Plain version
+  ``ordered_gauss_jordan_key`` followed by ``ops.gf2_solve.
+  _osd_sweep_cs_sortless``.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,49 +27,77 @@ import functools
 import torch
 
 from ..utils import cuda_build
-from .gf2_solve import gj_outputs, ordered_gauss_jordan_key
+from .gf2_solve import _osd_sweep_cs_sortless, gj_outputs, ordered_gauss_jordan_key
 
 SOURCE = "gauss_jordan.cu"
 MAX_SMEM = 232_448  # bytes of shared memory a block can use on an H100
+# the kernel's constants (csrc/gauss_jordan.cu): warps per block, 32-row
+# words of the unused-row mask, 32-word chunks of a row a lane holds, the
+# most columns of the OSD-CS pairs
+WARPS, ROW_WORDS, ROW_CHUNKS, MAX_ORDER_W = 8, 16, 4, 32
+MAX_COLUMNS = 32 * (32 * ROW_CHUNKS - 1)  # W + 1 packed words per row
 
 
-def smem_bytes(m: int, n: int, W: int) -> int:
-    """Shared memory the kernel needs for one shot (the packed state, the
-    keys, the live words and two row flags)."""
-    return m * (W + 1) * 4 + n * 4 + W * 4 + 2 * m
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
-def gj_cuda_supported(m: int, n: int, W: int) -> bool:
-    """Shape gate: one shot's elimination state must fit a block's shared
-    memory."""
-    return smem_bytes(m, n, W) <= MAX_SMEM
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def smem_layout(m: int, n: int, W: int, fused: bool = False) -> dict[str, int]:
+    """Bytes of each shared-memory array of one block (one shot), in the
+    order of the kernel's ``make_layout``."""
+    arrays = {
+        # the sort's (key, column) pairs first, then the packed state
+        "state": max(m * (W + 1) * 4, _next_pow2(n) * 8),
+        "sorted_order": 2 * n,
+        "pivot_columns": 2 * m,
+        "pivot_rows": 2 * m,
+        "candidate_tests": 2 * WARPS * (ROW_WORDS + 1) * 4,
+    }
+    if fused:
+        arrays.update(column_sums=4 * n, row_weights=4 * m, column_masks=3 * W * 4)
+    return arrays
+
+
+def smem_bytes(m: int, n: int, W: int, fused: bool = False) -> int:
+    """Dynamic shared memory of one block: ``smem_layout``, each array
+    aligned to 16 bytes."""
+    return sum(_align16(x) for x in smem_layout(m, n, W, fused).values())
+
+
+def gj_cuda_supported(m: int, n: int, W: int, fused: bool = False) -> bool:
+    """Shape gate: at most ``32 * ROW_WORDS`` rows and ``MAX_COLUMNS``
+    columns, and one shot's arrays within a block's shared memory. The
+    flagship windows (216x1728) need 52,928 bytes, 61,360 fused."""
+    return (m <= 32 * ROW_WORDS and n <= MAX_COLUMNS
+            and smem_bytes(m, n, W, fused) <= MAX_SMEM)
 
 
 @functools.cache
-def _entry():
+def _entry(name: str):
     """(library, C entry point) of the kernel."""
     lib = cuda_build.load(SOURCE)
-    fn = lib.gauss_jordan_key
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = getattr(lib, name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = {
+        "gauss_jordan_key": [p] * 7 + [i] * 5 + [p],
+        "osd_cs_fused": [p] * 10 + [i] * 7 + [p],
+    }[name]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: int):
-    """Reliability-ordered Gauss-Jordan with float keys.
-
-    H_words: [m, W] int32 packed PCM rows; syndrome: [B, m] 0/1 (any
-    integer dtype); key: [B, n] float32, smaller = tried first, ties to the
-    lower column. Returns the dict of ``ops.gf2_solve.gj_outputs``.
-    ``gauss_jordan_key.launches`` counts kernel launches,
-    ``gauss_jordan_key.plain_calls`` the calls that ran the plain version.
-    """
+def _check_inputs(what, H_words, syndrome, key, *, m, n, rank, fused):
+    """Device, dtype, shape and gate checks of a CUDA call; returns W."""
     dev = syndrome.device
-    if dev.type == "cpu":
-        gauss_jordan_key.plain_calls += 1
-        return ordered_gauss_jordan_key(H_words, syndrome, key, m=m, n=n, rank=rank)
     if dev.type != "cuda":
-        raise ValueError(f"gauss_jordan_key: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     B = syndrome.shape[0]
     W = -(-n // 32)
     if (
@@ -68,23 +105,43 @@ def gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: int):
         or tuple(H_words.shape) != (m, W)
     ):
         raise ValueError(
-            f"gauss_jordan_key: H_words must be int32 [{m}, {W}] on {dev}, "
+            f"{what}: H_words must be int32 [{m}, {W}] on {dev}, "
             f"got {H_words.dtype} {tuple(H_words.shape)} on {H_words.device}"
         )
     if tuple(syndrome.shape) != (B, m) or syndrome.dtype.is_floating_point:
-        raise ValueError(f"gauss_jordan_key: syndrome must be integer [B, {m}]")
+        raise ValueError(f"{what}: syndrome must be integer [B, {m}]")
     if key.device != dev or key.dtype != torch.float32 or tuple(key.shape) != (B, n):
         raise ValueError(
-            f"gauss_jordan_key: key must be float32 [{B}, {n}] on {dev}, "
+            f"{what}: key must be float32 [{B}, {n}] on {dev}, "
             f"got {key.dtype} {tuple(key.shape)} on {key.device}"
         )
     if not 0 <= rank <= m:
-        raise ValueError(f"gauss_jordan_key: rank {rank} outside [0, {m}]")
-    if not gj_cuda_supported(m, n, W):
+        raise ValueError(f"{what}: rank {rank} outside [0, {m}]")
+    if not gj_cuda_supported(m, n, W, fused):
         raise ValueError(
-            f"gauss_jordan_key: {smem_bytes(m, n, W)} bytes of shared memory "
-            f"per shot exceed {MAX_SMEM}"
+            f"{what}: {m}x{n} outside the kernel's gate ({smem_bytes(m, n, W, fused)} "
+            f"bytes of shared memory per shot, at most {MAX_SMEM}; at most "
+            f"{32 * ROW_WORDS} rows and {MAX_COLUMNS} columns)"
         )
+    return W
+
+
+def gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: int):
+    """Reliability-ordered Gauss-Jordan with float keys.
+
+    H_words: [m, W] int32 packed PCM rows; syndrome: [B, m] 0/1 (any
+    integer dtype); key: [B, n] float32, smaller = tried first, ties to the
+    lower column; ``rank`` the PCM's GF(2) rank. Returns the dict of
+    ``ops.gf2_solve.gj_outputs``. ``gauss_jordan_key.launches`` counts
+    kernel launches, ``gauss_jordan_key.plain_calls`` the calls that ran
+    the plain version.
+    """
+    if syndrome.device.type == "cpu":
+        gauss_jordan_key.plain_calls += 1
+        return ordered_gauss_jordan_key(H_words, syndrome, key, m=m, n=n, rank=rank)
+    W = _check_inputs("gauss_jordan_key", H_words, syndrome, key, m=m, n=n, rank=rank,
+                      fused=False)
+    dev, B = syndrome.device, syndrome.shape[0]
     H_words = H_words.contiguous()
     synd_u8 = syndrome.to(torch.uint8).contiguous()
     key = key.contiguous()
@@ -92,7 +149,7 @@ def gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: int):
     pcol = torch.empty((B, rank), dtype=torch.int32, device=dev)
     prow = torch.empty((B, rank), dtype=torch.int32, device=dev)
     incons = torch.empty((B,), dtype=torch.uint8, device=dev)
-    lib, fn = _entry()
+    lib, fn = _entry("gauss_jordan_key")
     with torch.cuda.device(dev):
         code = fn(
             H_words.data_ptr(), synd_u8.data_ptr(), key.data_ptr(),
@@ -106,6 +163,68 @@ def gauss_jordan_key(H_words, syndrome, key, *, m: int, n: int, rank: int):
 
 gauss_jordan_key.launches = 0
 gauss_jordan_key.plain_calls = 0
+
+
+def osd_cs_fused(H_words, syndrome, key, channel_llr, pair_i, pair_j, *, m: int, n: int,
+                 rank: int, order_w: int):
+    """OSD-CS: the elimination by ``key`` and the sweep of its candidates.
+
+    The arguments of ``gauss_jordan_key``, with ``channel_llr`` [n] f32
+    (1-D: the kernel takes one prior for every shot), the weight-2 pairs
+    ``pair_i``/``pair_j`` [P] (indices into the ``order_w`` most unreliable
+    non-pivot columns) and ``order_w``. Returns solution [B, n] uint8,
+    osd0 [B, n] uint8, min_pm [B] f32 and inconsistent [B] bool, the dict
+    of ``ops.gf2_solve.osd_decode``. ``osd_cs_fused.launches`` counts kernel
+    launches, ``osd_cs_fused.plain_calls`` the calls that ran the plain
+    version (CPU tensors).
+    """
+    dev = syndrome.device
+    if dev.type == "cpu":
+        osd_cs_fused.plain_calls += 1
+        gj = ordered_gauss_jordan_key(H_words, syndrome, key, m=m, n=n, rank=rank)
+        solution, min_pm = _osd_sweep_cs_sortless(gj, key, channel_llr, pair_i, pair_j,
+                                                  order_w=order_w)
+        return {"solution": solution, "osd0": gj["osd0"], "min_pm": min_pm,
+                "inconsistent": gj["inconsistent"]}
+    W = _check_inputs("osd_cs_fused", H_words, syndrome, key, m=m, n=n, rank=rank,
+                      fused=True)
+    llr = torch.as_tensor(channel_llr)
+    if llr.device != dev or llr.dtype != torch.float32 or tuple(llr.shape) != (n,):
+        raise ValueError(
+            f"osd_cs_fused: channel_llr must be float32 [{n}] on {dev}, got "
+            f"{llr.dtype} {tuple(llr.shape)} on {llr.device}"
+        )
+    pair_i = torch.as_tensor(pair_i, dtype=torch.int32, device=dev).contiguous()
+    pair_j = torch.as_tensor(pair_j, dtype=torch.int32, device=dev).contiguous()
+    if not 0 <= order_w <= min(MAX_ORDER_W, n - rank) or pair_i.shape != pair_j.shape:
+        raise ValueError(
+            f"osd_cs_fused: order_w {order_w} outside [0, min({MAX_ORDER_W}, n - rank = "
+            f"{n - rank})], or pairs of unequal shapes"
+        )
+    B = syndrome.shape[0]
+    H_words = H_words.contiguous()
+    synd_u8 = syndrome.to(torch.uint8).contiguous()
+    key, llr = key.contiguous(), llr.contiguous()
+    solution = torch.empty((B, n), dtype=torch.uint8, device=dev)
+    osd0 = torch.empty((B, n), dtype=torch.uint8, device=dev)
+    min_pm = torch.empty((B,), dtype=torch.float32, device=dev)
+    incons = torch.empty((B,), dtype=torch.uint8, device=dev)
+    lib, fn = _entry("osd_cs_fused")
+    with torch.cuda.device(dev):
+        code = fn(
+            H_words.data_ptr(), synd_u8.data_ptr(), key.data_ptr(), llr.data_ptr(),
+            pair_i.data_ptr(), pair_j.data_ptr(), solution.data_ptr(), osd0.data_ptr(),
+            min_pm.data_ptr(), incons.data_ptr(), m, n, W, rank, order_w,
+            pair_i.shape[0], B, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    cuda_build.check(lib, code, "osd_cs_fused kernel")
+    osd_cs_fused.launches += 1
+    return {"solution": solution, "osd0": osd0, "min_pm": min_pm,
+            "inconsistent": incons.bool()}
+
+
+osd_cs_fused.launches = 0
+osd_cs_fused.plain_calls = 0
 
 
 def rank_position_keys(order) -> torch.Tensor:

@@ -278,16 +278,61 @@ def _extract_bitcols(reduced_wm, col_ids_bm):
 def _weighted_bit_sums(reduced_wm, w_rows, n):
     """a_all[j, b] = sum_i bit(row i, col j) * w_rows[i, b], for all columns.
 
-    One pass per packed word: unpack [m, 32, B] bits and contract the row
-    axis.
+    The rows are added in ascending order from +0.0, one rounding per add:
+    the order of the fused kernel (``csrc/gauss_jordan.cu``), which adds
+    only the set bits. A zero term leaves such a sum unchanged (it never
+    holds -0.0), so both give the same bits.
     """
     W, m, B = reduced_wm.shape
     shifts = torch.arange(_W, dtype=torch.int32, device=reduced_wm.device)[None, :, None]
-    chunks = []
-    for w_idx in range(W):
-        bits = ((reduced_wm[w_idx][:, None, :] >> shifts) & 1).to(torch.float32)
-        chunks.append((bits * w_rows[:, None, :]).sum(dim=0))
-    return torch.cat(chunks, dim=0)[:n]  # [n, B]
+    acc = torch.zeros((n, B), dtype=torch.float32, device=reduced_wm.device)
+    for i in range(m):
+        bits = ((reduced_wm[:, i, :][:, None, :] >> shifts) & 1).reshape(W * _W, B)[:n]
+        acc = acc + torch.where(bits != 0, w_rows[i], 0.0)
+    return acc  # [n, B]
+
+
+def _sum_in_column_order(piv_col_bm, terms):
+    """[B] sum over the pivots of ``terms`` [R, B], taken in ascending pivot
+    column from +0.0 (the kernel's order for pm0)."""
+    _, perm = torch.sort(piv_col_bm, dim=0)
+    terms = torch.gather(terms, 0, perm)
+    acc = torch.zeros(terms.shape[1:], dtype=torch.float32, device=terms.device)
+    for t in terms:
+        acc = acc + t
+    return acc
+
+
+def _support_metric(solution, llr_bm):
+    """[B] f32 path metric of ``solution`` [B, n]: the sum of ``llr_bm``
+    [n, B] over its support, in ascending column from +0.0 in float64,
+    rounded once to float32 (the kernel's order for ``min_pm``)."""
+    B, n = solution.shape
+    dev = solution.device
+    iota_n = torch.arange(n, device=dev)[:, None]
+    cols, _ = torch.sort(torch.where(solution.T != 0, iota_n, n), dim=0)
+    terms = torch.cat([llr_bm.double(), torch.zeros((1, B), dtype=torch.float64, device=dev)])
+    support = int((solution != 0).sum(dim=1).max()) if B else 0
+    terms = torch.gather(terms, 0, cols[:support])
+    acc = torch.zeros((B,), dtype=torch.float64, device=dev)
+    for t in terms:
+        acc = acc + t
+    return acc.float()
+
+
+def _top_nonpivot_columns(rel_t, nonpiv, order_w):
+    """[order_w, B] the most unreliable non-pivot columns, by ``order_w``
+    iterated masked argmins of ``rel_t`` [n, B] (ties to the lower column:
+    the first non-pivot columns of the (key, column) order)."""
+    inf = torch.tensor(float("inf"), device=rel_t.device)
+    iota_n = torch.arange(rel_t.shape[0], device=rel_t.device)[:, None]
+    keyr = torch.where(nonpiv, rel_t, inf)
+    tops = []
+    for _ in range(order_w):
+        tid = keyr.argmin(dim=0)  # [B]
+        tops.append(tid)
+        keyr = torch.where(iota_n == tid[None, :], inf, keyr)
+    return torch.stack(tops)
 
 
 def _osd_sweep_cs_sortless(gj, rel, channel_llr, pair_i, pair_j, *, order_w):
@@ -299,6 +344,15 @@ def _osd_sweep_cs_sortless(gj, rel, channel_llr, pair_i, pair_j, *, order_w):
     columns, found by ``order_w`` iterated masked argmins (ties to the
     lower column id — the stable-argsort order). Returns (solution [B, n]
     uint8, min_pm [B] f32).
+
+    Every f32 sum is taken in the stated order of the fused CUDA kernel
+    (``ops.gf2_cuda.osd_cs_fused``), so that it is bit-exact against this
+    function: pm0 in ascending column, a_j and the Gram terms in ascending
+    row, each add rounded once. ``min_pm`` is the chosen solution's metric
+    taken anew from its support (``_support_metric``): in reals it equals
+    the least candidate metric, and the f64 sum keeps it within rounding of
+    the exact value, where the f32 sums of the candidates drift by a few
+    ulps.
     """
     osd0 = gj["osd0"]
     B, n = osd0.shape
@@ -309,14 +363,12 @@ def _osd_sweep_cs_sortless(gj, rel, channel_llr, pair_i, pair_j, *, order_w):
     piv_row_bm = gj["piv_row"].T.long()
     sol_bm = gj["sol_bits"].T.to(torch.float32)  # [R, B]
     lane = torch.arange(B, device=dev)
-    iota_n = torch.arange(n, device=dev)[:, None]
     inf = torch.tensor(float("inf"), device=dev)
 
     llr = torch.as_tensor(channel_llr, dtype=torch.float32, device=dev)
     llr_bm = llr[:, None].expand(n, B) if llr.ndim == 1 else llr.T
-    pm0 = torch.where(osd0.T == 1, llr_bm, 0.0).sum(dim=0)  # [B]
-
     llr_piv = torch.gather(llr_bm, 0, piv_col_bm)  # [R, B]
+    pm0 = _sum_in_column_order(piv_col_bm, torch.where(sol_bm != 0, llr_piv, 0.0))  # [B]
     w = llr_piv * (1.0 - 2.0 * sol_bm)
     w_rows = torch.zeros((m, B), dtype=torch.float32, device=dev)
     w_rows.scatter_(0, piv_row_bm, w)
@@ -334,26 +386,18 @@ def _osd_sweep_cs_sortless(gj, rel, channel_llr, pair_i, pair_j, *, order_w):
     pair_j = torch.as_tensor(pair_j, dtype=torch.long, device=dev)
     P = pair_i.shape[0]
     if P:
-        keyr = torch.where(nonpiv, rel_t, inf)
-        tops = []
-        for _ in range(order_w):
-            tid = keyr.argmin(dim=0)  # [B]
-            tops.append(tid)
-            keyr = torch.where(iota_n == tid[None, :], inf, keyr)
-        top_ids = torch.stack(tops)  # [order_w, B]
-
+        top_ids = _top_nonpivot_columns(rel_t, nonpiv, order_w)  # [order_w, B]
         a_top = torch.gather(a_all, 0, top_ids)  # [ow, B]
         llr_top = torch.gather(llr_bm, 0, top_ids)
         sub_cols = _extract_bitcols(reduced, top_ids)  # [ow, m, B]
-        coords_sub = torch.gather(
-            sub_cols, 1, piv_row_bm[None].expand(order_w, -1, -1)
-        )  # [ow, R, B]
-        cw = coords_sub * w[None, :, :]  # [ow, R, B]
-        gram = (coords_sub[:, None, :, :] * cw[None, :, :, :]).sum(dim=2)  # [ow, ow, B]
+        both = (sub_cols[pair_i] * sub_cols[pair_j]) != 0  # [P, m, B]
+        gram = torch.zeros((P, B), dtype=torch.float32, device=dev)
+        for i in range(m):  # ascending row; only pivot rows weigh
+            gram = gram + torch.where(both[:, i], w_rows[i], 0.0)
         pm_w2 = (
             pm0[None, :]
             + a_top[pair_i] + a_top[pair_j]
-            - 2.0 * gram[pair_i, pair_j]
+            - 2.0 * gram
             + llr_top[pair_i] + llr_top[pair_j]
         )  # [P, B]
         best2_idx = pm_w2.argmin(dim=0)
@@ -388,8 +432,7 @@ def _osd_sweep_cs_sortless(gj, rel, channel_llr, pair_i, pair_j, *, order_w):
     c2_or_pad = torch.where(is_pair, c2, n)  # pad row swallows non-pairs
     out[c2_or_pad, lane] = 1
     solution = torch.where(use_cand[:, None], out[:n].T, osd0)
-    min_pm = torch.minimum(pm0, best_pm)
-    return solution, min_pm
+    return solution, _support_metric(solution, llr_bm)
 
 
 def osd_decode(
@@ -408,24 +451,32 @@ def osd_decode(
 
     ``reliability``: [B, n] float — smaller = more likely in error = tried
     first. ``meta`` is the static ``analyze_patterns`` result with its
-    pair indices already on the device. The elimination runs through
-    ``ops.gf2_cuda`` (the CUDA kernel on the card, the plain version on
-    the CPU). The CS branch (float keys, sortless sweep) and the OSD-0
-    branch (``meta["kind"] == "none"`` or ``k == 0``: the elimination and
-    its OSD-0 solution) of the JAX ``osd_decode`` are ported; OSD-E is
-    not. The JAX OSD-0 branch eliminates in the order of a stable argsort
-    of the reliability; the float-keyed elimination picks the same pivots
-    (the smallest live key, ties to the lower column), so both branches
-    feed it the reliability directly.
+    pair indices already on the device. The CS branch (float keys,
+    sortless sweep) and the OSD-0 branch (``meta["kind"] == "none"`` or
+    ``k == 0``: the elimination and its OSD-0 solution) of the JAX
+    ``osd_decode`` are ported; OSD-E is not. With a 1-D ``channel_llr``
+    the CS branch is ``ops.gf2_cuda.osd_cs_fused`` (one fused launch on
+    the card, the plain elimination and sweep on the CPU); a 2-D prior and
+    the OSD-0 branch run the elimination through ``ops.gf2_cuda.
+    gauss_jordan_key`` and the sweep here. The JAX OSD-0 branch eliminates
+    in the order of a stable argsort of the reliability; the float-keyed
+    elimination picks the same pivots (the smallest live key, ties to the
+    lower column), so both branches feed it the reliability directly.
     """
-    from .gf2_cuda import gauss_jordan_key
+    from .gf2_cuda import gauss_jordan_key, osd_cs_fused
 
     if meta["kind"] not in ("none", "cs") and k != 0:
         raise NotImplementedError(
             f"OSD with candidate structure {meta['kind']!r} is not ported"
         )
+    cs = meta["kind"] == "cs" and k != 0
+    if cs and torch.as_tensor(channel_llr).ndim == 1:
+        return osd_cs_fused(
+            H_words, syndrome, reliability, channel_llr, meta["pair_i"], meta["pair_j"],
+            m=m, n=n, rank=rank, order_w=int(meta["order_w"]),
+        )
     gj = gauss_jordan_key(H_words, syndrome, reliability, m=m, n=n, rank=rank)
-    if meta["kind"] == "none" or k == 0:
+    if not cs:
         llr = torch.as_tensor(channel_llr, dtype=torch.float32, device=syndrome.device)
         pm0 = (llr * gj["osd0"]).sum(dim=1)
         return {

@@ -183,3 +183,99 @@ def test_bp_span_kernel_matches_plain_loop(card, masked, dtype, freeze):
     assert torch.equal(it_k, it_p) and torch.equal(hist_k, hist_p)
     keep = torch.ones_like(done_p) if freeze else ~done_p
     assert torch.equal(mv_k[:, :, keep], mv_p[:, :, keep])
+
+
+def _window144(which: int):
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+
+    return build_bb_window_experiment(144, 0.004, 12, 3, 1)[3].windows[which]
+
+
+def _osd_case(card, spec, B, seed):
+    """Packed PCM, syndromes, keys with exact ties and +-0.0, and the
+    window's 1-D prior as LLRs, on the card."""
+    from slidingwindowdecoder_torch.ops.gf2_solve import gf2_rank_packed, pack_rows_host
+
+    H = spec.mat
+    m, n = H.shape
+    rng = np.random.default_rng(seed)
+    key = (rng.integers(-16, 16, (B, n)) * 0.25).astype(np.float32)
+    key[:, ::11] = -0.0
+    key[:, 5::11] = 0.0
+    p = np.asarray(spec.prior, np.float64)
+    return dict(
+        Hw=torch.as_tensor(pack_rows_host(H).view(np.int32), device=card),
+        synd=torch.as_tensor(rng.random((B, m)) < 0.1, dtype=torch.uint8, device=card),
+        key=torch.as_tensor(key, device=card),
+        llr=torch.as_tensor(np.log((1 - p) / p).astype(np.float32), device=card),
+        m=m, n=n, rank=gf2_rank_packed(H))
+
+
+@pytest.mark.parametrize("which", [1, -1])
+def test_gj_kernel_bit_exact_windows(card, which):
+    """The redesigned elimination on the [[144]] window PCMs (216x1728 and
+    the rank-deficient 216x1656) with tie keys: every output bit-exact."""
+    from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key
+    from slidingwindowdecoder_torch.ops.gf2_solve import ordered_gauss_jordan_key
+
+    c = _osd_case(card, _window144(which), 64, 8)
+    kw = dict(m=c["m"], n=c["n"], rank=c["rank"])
+    before = gauss_jordan_key.launches
+    out = gauss_jordan_key(c["Hw"], c["synd"], c["key"], **kw)
+    assert gauss_jordan_key.launches == before + 1
+    ref = ordered_gauss_jordan_key(c["Hw"], c["synd"], c["key"], **kw)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.parametrize("B", [1, 37, 256])
+@pytest.mark.parametrize("which", [1, -1])
+def test_osd_cs_fused_bit_exact(card, which, B):
+    """The fused launch against the plain elimination and sweep on the
+    card: solution, OSD-0, inconsistency and the bits of min_pm equal."""
+    from slidingwindowdecoder_torch.ops.gf2_cuda import osd_cs_fused
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        _osd_sweep_cs_sortless,
+        analyze_patterns,
+        ordered_gauss_jordan_key,
+        osd_candidate_patterns,
+    )
+
+    c = _osd_case(card, _window144(which), B, 9 + B)
+    m, n, rank = c["m"], c["n"], c["rank"]
+    meta = analyze_patterns(osd_candidate_patterns(n - rank, 10, "osd_cs"), n - rank)
+    pi, pj = (torch.as_tensor(meta[k], device=card) for k in ("pair_i", "pair_j"))
+    before = osd_cs_fused.launches
+    out = osd_cs_fused(c["Hw"], c["synd"], c["key"], c["llr"], pi, pj, m=m, n=n, rank=rank,
+                       order_w=meta["order_w"])
+    assert osd_cs_fused.launches == before + 1
+    gj = ordered_gauss_jordan_key(c["Hw"], c["synd"], c["key"], m=m, n=n, rank=rank)
+    sol, min_pm = _osd_sweep_cs_sortless(gj, c["key"], c["llr"], pi, pj,
+                                         order_w=meta["order_w"])
+    assert torch.equal(out["solution"], sol)
+    assert torch.equal(out["osd0"], gj["osd0"])
+    assert torch.equal(out["inconsistent"], gj["inconsistent"])
+    assert torch.equal(out["min_pm"].view(torch.int32), min_pm.view(torch.int32))
+    if B > 1:
+        assert bool((out["solution"] != out["osd0"]).any())
+    with pytest.raises(ValueError):  # the kernel takes a 1-D prior only
+        osd_cs_fused(c["Hw"], c["synd"], c["key"], c["llr"].expand(B, n), pi, pj, m=m, n=n,
+                     rank=rank, order_w=meta["order_w"])
+
+
+def test_gj_smem_layout_matches_kernel(card):
+    """The gate's shared-memory count (``smem_bytes``) equals the kernel's
+    own layout (``gj_smem_bytes``) in both modes, at the window shapes and
+    at shapes where the sort's pairs outgrow the state."""
+    import ctypes
+
+    from slidingwindowdecoder_torch.ops import gf2_cuda
+    from slidingwindowdecoder_torch.utils import cuda_build
+
+    fn = cuda_build.load(gf2_cuda.SOURCE).gj_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for m, n in ((216, 1728), (216, 1656), (72, 468), (46, 150), (8, 1000), (512, 700)):
+        W = -(-n // 32)
+        for fused in (False, True):
+            assert fn(m, n, W, int(fused)) == gf2_cuda.smem_bytes(m, n, W, fused)

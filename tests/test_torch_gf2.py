@@ -104,10 +104,17 @@ def test_host_helpers_match_jax(rng):
             np.testing.assert_array_equal(np.asarray(mt[key]), np.asarray(mj[key]))
 
 
-@pytest.mark.parametrize("win", [0, 2])
-def test_osd_cs_matches_jax(rng, win):
-    """Solutions and inconsistency flags equal; ``min_pm`` within rtol 1e-6,
-    because the f32 sums of the path metrics run in another order."""
+@pytest.mark.parametrize("win, jitter", [(0, False), (2, False), (0, True), (2, True)],
+                         ids=["0", "2", "0-jitter", "2-jitter"])
+def test_osd_cs_matches_jax(rng, win, jitter):
+    """OSD-0 and inconsistency flags equal; ``min_pm`` within rtol 1e-6,
+    because the f32 sums of the path metrics run in other orders; equal
+    solutions on every shot but exact ties. With the window's own priors
+    (few distinct values) candidates that swap columns of equal prior have
+    equal path metrics, and each side's sum order may round another one
+    lower: a shot the two decode differently must be such a tie (both
+    corrections satisfy the syndrome, their metrics are equal in f64).
+    Jittered priors leave no ties, and there every solution is equal."""
     spec = _windows()[win]
     H = spec.mat
     m, n = H.shape
@@ -117,7 +124,8 @@ def test_osd_cs_matches_jax(rng, win):
     synd = (rng.random((B, m)) < 0.08).astype(np.uint8)
     # posterior-like reliabilities: distinct floats, as BP leaves them
     rel = (rng.standard_normal((B, n)) * 4).astype(np.float32)
-    llr = np.log((1 - spec.prior) / spec.prior).astype(np.float32)
+    p = spec.prior * (1 + 0.01 * rng.random(n)) if jitter else spec.prior
+    llr = np.log((1 - p) / p).astype(np.float32)
     pats = tg.osd_candidate_patterns(k, 4, "osd_cs")
     Hw = tg.pack_rows_host(H)
 
@@ -127,11 +135,19 @@ def test_osd_cs_matches_jax(rng, win):
     out_j = jg.osd_decode(jnp.asarray(Hw), jnp.asarray(synd), jnp.asarray(rel),
                           jnp.asarray(llr), pats, m=m, n=n, rank=rank, k=k,
                           meta=jg.analyze_patterns(pats, k))
-    np.testing.assert_array_equal(out_t["solution"].numpy(), np.asarray(out_j["solution"]))
+    sol_t, sol_j = out_t["solution"].numpy(), np.asarray(out_j["solution"])
     np.testing.assert_array_equal(out_t["osd0"].numpy(), np.asarray(out_j["osd0"]))
     np.testing.assert_array_equal(out_t["inconsistent"].numpy(),
                                   np.asarray(out_j["inconsistent"]))
     np.testing.assert_allclose(out_t["min_pm"].numpy(), np.asarray(out_j["min_pm"]),
                                rtol=1e-6)
+    differ = np.nonzero((sol_t != sol_j).any(axis=1))[0]
+    if jitter:
+        assert differ.size == 0, differ
+    llr64 = llr.astype(np.float64)
+    for b in differ:
+        for s in (sol_t, sol_j):
+            np.testing.assert_array_equal((H @ s[b]) % 2, synd[b], err_msg=f"shot {b}")
+        assert llr64 @ sol_t[b] == llr64 @ sol_j[b], b
     # the sweep found candidates better than OSD-0 for some shots
-    assert (out_t["solution"].numpy() != out_t["osd0"].numpy()).any()
+    assert (sol_t != out_t["osd0"].numpy()).any()

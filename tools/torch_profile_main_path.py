@@ -14,7 +14,9 @@ phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
 (pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, peel sweeps,
 post-BP buckets, OSD. Prints one JSON line with the stage seconds and the
 kernel launches of the timed decode, then one with the top kernels by
-device time and the busy share. 16384 shots from seed 2024, as
+device time, the busy share, and the OSD stage's device time (the kernels
+launched inside ``osd_decode``) beside its host time (the same calls'
+CPU time), both from the profiled decode. 16384 shots from seed 2024, as
 ``chip_smoke.py``.
 """
 
@@ -33,12 +35,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 SHOTS, SEED = 16384, 2024
+OSD_STAGE = "osd_decode (fused GJ + CS kernel)"
 
 
 def main() -> int:
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("bposd", "osd_window"), default="bposd")
@@ -67,7 +70,7 @@ def main() -> int:
             (BPOSD, "_run_bp", lambda self, mv, synds, *_, **__: (
                 "bp phase A (full batch)" if synds.shape[0] == SHOTS
                 else "bp phase B (buckets)")),
-            (bposd, "osd_decode", lambda *a, **k: "osd_decode (GJ kernel + CS sweep)"),
+            (bposd, "osd_decode", lambda *a, **k: OSD_STAGE),
         ]
     else:
         factory = window_decoder_factory(True, device="cuda")
@@ -76,7 +79,7 @@ def main() -> int:
                 "pre-BP (full batch)" if synds.shape[0] == SHOTS
                 else "post-BP (buckets)")),
             (decimation, "_sweep", lambda *a: "peel sweeps"),
-            (osd_window, "osd_decode", lambda *a, **k: "osd_decode (GJ kernel + CS sweep)"),
+            (osd_window, "osd_decode", lambda *a, **k: OSD_STAGE),
         ]
 
     def run():
@@ -86,8 +89,9 @@ def main() -> int:
         return out
 
     run()  # warm-up: cuBLAS handles, caching allocator, kernel libraries
-    cn, span, gj = bp_cuda.cn_update, bp_cuda.bp_span, gf2_cuda.gauss_jordan_key
-    for k in (cn, span, gj):
+    cn, span = bp_cuda.cn_update, bp_cuda.bp_span
+    gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
+    for k in (cn, span, gj, osd):
         k.launches = 0
     cn.pinned_launches = span.pinned_launches = 0
     t0 = time.perf_counter()
@@ -95,7 +99,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
-                "gauss_jordan_key": gj.launches}
+                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches}
 
     # per-stage wall time: wrap the decoder's stages with synchronizing timers
     stages = defaultdict(float)
@@ -130,10 +134,23 @@ def main() -> int:
         "stages_s": dict(stages), "stage_calls": dict(calls), "launches": launches,
     }), flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        prof_wall = time.perf_counter() - t0
+    # the OSD stage as one profiler range: its kernels' device time and its
+    # calls' CPU time
+    osd_owner = patches[-1][0]
+    osd_fn = osd_owner.osd_decode
+
+    def osd_ranged(*a, **k):
+        with record_function(OSD_STAGE):
+            return osd_fn(*a, **k)
+
+    osd_owner.osd_decode = osd_ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        osd_owner.osd_decode = osd_fn
     events = prof.key_averages()
 
     def dev_us(e):
@@ -143,11 +160,22 @@ def main() -> int:
                 return float(v)
         return 0.0
 
+    # the range appears twice: as the CPU op (its calls' host time) and as a
+    # user annotation on the card's timeline (its span there, which holds
+    # the stage's kernels and any idle gap between them)
+    osd_cpu = [e for e in events if e.key == OSD_STAGE and e.device_type == DeviceType.CPU]
+    osd_dev = [e for e in events if e.key == OSD_STAGE and e.device_type == DeviceType.CUDA]
+    osd_stage = {
+        "calls": sum(e.count for e in osd_cpu),
+        "host_cpu_s": sum(float(e.cpu_time_total) for e in osd_cpu) / 1e6,
+        "device_span_s": sum(dev_us(e) for e in osd_dev) / 1e6,
+    }
+
     # device-side events only (the kernels and memcpys themselves): the
     # aten operator rows repeat the time of the kernels they launch
     kernels = sorted(
         ((e.key, dev_us(e), e.count) for e in events
-         if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+         if e.device_type == DeviceType.CUDA and dev_us(e) > 0 and e.key != OSD_STAGE),
         key=lambda x: -x[1],
     )
     busy_us = sum(k[1] for k in kernels)
@@ -161,6 +189,7 @@ def main() -> int:
         # of an unprofiled run, where busy / wall_s is the estimate)
         "device_idle_share": 1 - busy_us / 1e6 / prof_wall,
         "device_busy_over_unprofiled_wall": busy_us / 1e6 / wall,
+        "osd_stage_profiled": osd_stage,
         "top_kernels": [
             {"name": k[0][:80], "device_ms": k[1] / 1e3, "count": k[2]}
             for k in kernels[:20]
