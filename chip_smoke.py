@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA:
 
-    python3 chip_smoke.py            # the full run: 16384 shots per path
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -56,7 +56,22 @@ Phases (any failure exits non-zero; nothing is caught):
    sigma of the reference's 183/10000); then the first
    512 of those shots, at full width (no shot may differ), and a small
    input, each on the card and by the plain versions on the CPU;
-8. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+8. the GDG path, the decoder of ``sliding_window_gdg`` (the reference's
+   guessing.py: GDG with pre-BP 8 and the reference's ensemble defaults,
+   22 branches, 25 steps, f32): first the ensemble's BP burst
+   (``bp_span_pinned`` at B = bucket x 22, 6 masked iterations, tail
+   history, the transposed state, ``synd_hat``), taken from a real bucket
+   of window 0 entering the step after the first message reinit, on the
+   card against the plain loop on the CPU, bit-exact, with its time beside
+   the bound and the call's layout conversions; then the [[144,12,12]]
+   experiment at p=0.005 over 8192 shots from seed 2024, with the launch
+   counts read around it (``bp_span`` for the pre-BP and
+   ``bp_span_pinned`` for the bursts only) and the failure count held to
+   exactly the port's own ``GDG_FAILED`` (and to 3 sigma of the
+   reference's 400/5000); then its first 64 shots at full width, and the
+   small input, each on the card and by the plain versions on the CPU (no
+   shot may differ);
+9. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -97,6 +112,18 @@ SPAN_OPS_PER_EDGE, SPAN_OPS_PER_VN = 25, 3
 # the first shots of the same samples, decoded on the shortened path on the
 # card and by the plain versions on the CPU at full width
 SLICE_SHOTS = 512
+# the GDG path: [[144]] W=3 at p=0.005 (docs/PARITY.md, "[[144]] SW GDG
+# W=3, p=0.005, pre-BP 8": the reference's 400/5000), 8192 shots; the
+# port's own count at seed 2024 (its first run on the card, PERF.md); the
+# ensemble bucket in shots (the fastest of 64, 256 and 512 on the card);
+# the card-vs-CPU slice's shots, in 32-shot buckets (the CPU's plain
+# decode takes half the time of one 64-shot bucket; the results do not
+# depend on the bucket)
+GDG_P, GDG_SHOTS = 0.005, 8192
+REF_GDG_FAILED, REF_GDG_SHOTS = 400, 5000
+GDG_FAILED = 675
+GDG_BUCKET = 512
+GDG_SLICE_SHOTS, GDG_SLICE_BUCKET = 64, 32
 
 
 def log(*a):
@@ -487,14 +514,16 @@ def phase_osd_cs(plan, det):
 
 def _span_diff(label, out, ref):
     """Hold the fused kernel's outputs ``out`` against the plain loop's
-    ``ref`` (CPU tensors, the same shots): error, done, iterations and
-    history bit-exact, and the messages of every shot the plain loop left
-    not done. Returns max_abs_err."""
+    ``ref`` (CPU tensors, the same shots): error, done, iterations,
+    history and ``synd_hat`` (where returned) bit-exact, and the messages
+    of every shot the plain loop left not done. Returns max_abs_err."""
     import torch
 
     live = ~ref[3]
     pairs = {"messages": (out[0][:, :, live], ref[0][:, :, live]), "history": (out[1], ref[1]),
              "error": (out[2], ref[2]), "done": (out[3], ref[3]), "iters": (out[4], ref[4])}
+    if len(ref) > 5:
+        pairs["synd_hat"] = (out[5], ref[5])
     bad = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
     err = max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
               for x, y in pairs.values())
@@ -658,6 +687,65 @@ def phase_bp_span(plan, det):
     return res
 
 
+class _Captured(Exception):
+    """Ends a decode once the call of interest has been captured."""
+
+
+def phase_bp_span_gdg(plan, det, bucket: int):
+    """The GDG ensemble's BP burst: the arguments of the masked ``bp_run``
+    of step 4 of the first ensemble bucket of window 0 (the step after the
+    tree-side branches restarted their messages at depth 3), captured from
+    a decode on the card, then ``bp_span_pinned`` on them against the plain
+    loop on the CPU (``_span_case``), ``synd_hat`` included. Also times the
+    call's layout conversions (``span_inputs``: the transposes of the
+    [n, B] int8 states, the int32 syndrome and sign seed, the ring's
+    copy)."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import gdg
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.harness.circuit_level import gdg_window_factory
+    from slidingwindowdecoder_torch.ops.bp import span_inputs
+
+    spec = plan.windows[0]
+    cpu_garr = graph_tensors(compile_graph(spec.mat), "cpu")
+    dec = gdg_window_factory(max_iter=8, ensemble_bucket=bucket, device="cuda")(spec)
+    synd = torch.as_tensor(det[:, spec.row_start:spec.row_end], device="cuda")
+    calls, orig = [], gdg.bp_run
+
+    def capture(*a, **k):
+        calls.append((a, k))
+        if len(calls) == 5:
+            raise _Captured
+        return orig(*a, **k)
+
+    gdg.bp_run = capture
+    try:
+        dec.core(synd)
+    except _Captured:
+        pass
+    finally:
+        gdg.bp_run = orig
+    if len(calls) < 5:
+        raise SystemExit("[bp_span] GDG: the first bucket's ensemble ended before step 4")
+    a, k = calls[4]
+    k = {key: v for key, v in k.items()
+         if key not in ("return_synd", "hist_update", "state_layout", "hist_dtype")}
+    args, kw = span_inputs(*a, **k, transposed=True)
+    kw["return_synd"] = True
+    BN = args[1].shape[2]
+    active = int((~args[8]).sum())
+    log(f"[bp_span] GDG burst: {BN} columns ({BN // dec.NB} shots x {dec.NB} branches), "
+        f"{active} active, {float((args[5] != -1).float().mean()):.3f} of the VNs decided; "
+        f"{int(dec.tables['reinit'][:, 3].sum())} branches of each shot "
+        f"restarted their messages at depth 3")
+    res = _span_case(f"GDG burst masked f32 B={BN}", args, kw, cpu_garr, 20)
+    res["prep_ms"] = cuda_time_ms(lambda: span_inputs(*a, **k, transposed=True), 20)
+    log(f"[bp_span] GDG burst: layout conversions at the call {res['prep_ms']:.4f} ms "
+        f"beside the kernel's {res['ms']:.4f} ms")
+    return res
+
+
 # the flagship's bench knobs (bench.py:76-136); the shortened path runs
 # ``sliding_window_decoder(shorten=True)``'s decoder at its defaults
 FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
@@ -768,6 +856,7 @@ def main() -> int:
     from slidingwindowdecoder_torch.circuits import sample_dem_numpy
     from slidingwindowdecoder_torch.harness.circuit_level import (
         build_bb_window_experiment,
+        gdg_window_factory,
         window_decoder_factory,
     )
 
@@ -807,36 +896,56 @@ def main() -> int:
                                                          device=dev))
     log(json.dumps({"osd_window_path": short_res}))
 
+    _, _, gdem, gplan = build_bb_window_experiment(144, GDG_P, num_repeat, 3, 1)
+    gdet, gobs, _ = sample_dem_numpy(gdem, GDG_SHOTS, np.random.default_rng(SEED))
+    gdg_burst = phase_bp_span_gdg(gplan, gdet, GDG_BUCKET)
+    gdg_res = phase_path("gdg", gplan, gdet, gobs,
+                         gdg_window_factory(max_iter=8, ensemble_bucket=GDG_BUCKET,
+                                            device="cuda"),
+                         num_repeat, (REF_GDG_FAILED, REF_GDG_SHOTS), GDG_FAILED,
+                         ("bp_span", "bp_span_pinned"))
+    gdg_res["ensemble_bucket"] = GDG_BUCKET
+    k = GDG_SLICE_SHOTS
+    phase_card_vs_cpu("gdg_slice", gplan, gdet[:k], gobs[:k], lambda dev: gdg_window_factory(
+        max_iter=8, ensemble_bucket=GDG_SLICE_BUCKET, device=dev))
+    phase_card_vs_cpu("gdg_small", plan72, det72, obs72,
+                      lambda dev: gdg_window_factory(max_iter=8, device=dev))
+    log(json.dumps({"gdg_path": gdg_res}))
+
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
     cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
     gj_src = "slidingwindowdecoder_torch/csrc/gauss_jordan.cu"
+    by_path = {k: {"main": main_res["launches"][k], "osd_window": short_res["launches"][k],
+                   "gdg": gdg_res["launches"][k]} for k in main_res["launches"]}
+    span["bp_span_pinned"]["gdg_burst"] = gdg_burst
+    span["bp_span_pinned"]["max_abs_err"] = max(span["bp_span_pinned"]["max_abs_err"],
+                                                gdg_burst["max_abs_err"])
     kernels = [
         {"name": "bp_span", "route": "cuda", "source": span_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package) with the XLA ops "
                      "of ops/bp.py:172 (bp_run's iteration)",
-         "launches": main_res["launches"]["bp_span"], **span["bp_span"]},
+         "launches": sum(by_path["bp_span"].values()), **span["bp_span"]},
         {"name": "bp_span_pinned", "route": "cuda", "source": span_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package) with "
                      "the XLA ops of ops/bp.py:172 (masked bp_run's iteration)",
-         "launches": short_res["launches"]["bp_span_pinned"], **span["bp_span_pinned"]},
+         "launches": sum(by_path["bp_span_pinned"].values()), **span["bp_span_pinned"]},
         {"name": "cn_update", "route": "cuda", "source": cn_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package)",
-         "launches": main_res["launches"]["cn_update"], "bound_by": "bytes", **cn},
+         "launches": sum(by_path["cn_update"].values()), "bound_by": "bytes", **cn},
         {"name": "cn_update_pinned", "route": "cuda", "source": cn_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package)",
-         "launches": short_res["launches"]["cn_update_pinned"], "bound_by": "bytes", **cnp},
+         "launches": sum(by_path["cn_update_pinned"].values()), "bound_by": "bytes", **cnp},
         {"name": "gauss_jordan_key", "route": "cuda", "source": gj_src,
          "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package)",
-         "launches": (main_res["launches"]["gauss_jordan_key"]
-                      + short_res["launches"]["gauss_jordan_key"]), **gj},
+         "launches": sum(by_path["gauss_jordan_key"].values()), **gj},
         {"name": "osd_cs_fused", "route": "cuda", "source": gj_src,
          "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package) with the XLA "
                      "ops/gf2_solve.py:215 (ordered_gauss_jordan_key) and :522 "
                      "(_osd_sweep_cs_sortless)",
-         "launches": (main_res["launches"]["osd_cs_fused"]
-                      + short_res["launches"]["osd_cs_fused"]), **osd_cs},
+         "launches": sum(by_path["osd_cs_fused"].values()), **osd_cs},
     ]
     for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
         k.setdefault("library_ms", None)  # no single PyTorch call computes these
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

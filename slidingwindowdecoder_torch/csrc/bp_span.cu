@@ -21,6 +21,10 @@
 //               masked mode) and the parity of each check's non-positive
 //               posteriors, compared with the syndrome;
 //   bookkeeping iters += 1, done |= (every row matches).
+// When the caller passes `synd_hat`, the edge stage also keeps each check's
+// decoded parity (bit 1 of the syndrome byte, whose bit 0 is the target),
+// and the store writes it for every shot that ran, the target for a shot
+// done at entry (the JAX `bp_run(return_synd=True)`).
 // A shot that is done is skipped from then on, so its messages, errors and
 // rounded posterior keep the values of its last active iteration. The
 // error is written once, at the end, from that posterior. A block leaves
@@ -120,6 +124,7 @@ struct Args {
   const int16_t* cn_vn;         // [dc*m_pad] VN per slot (clipped to n-1)
   const int16_t* vfc;           // [n*dv] slot per VN edge, dc*m_pad = fill
   const int16_t* deg;           // [m_pad] valid slots per check row
+  int8_t* synd_hat;             // [m_pad, B] decoded syndrome, or null
   int n, m_pad, dc, dv, S, num_iter, hist_from;
   long long B;
   float alpha, clip, big, thresh, pin;
@@ -140,7 +145,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   int16_t* deg = (int16_t*)(smem + L.deg);
   int8_t* vst = (int8_t*)(smem + L.vst);  // [n * S]
   int8_t* par = (int8_t*)(smem + L.par);  // [m_pad * S]
-  int8_t* syn = (int8_t*)(smem + L.syn);  // [m_pad * S]
+  int8_t* syn = (int8_t*)(smem + L.syn);  // [m_pad * S] target, decoded parity << 1
   int* done_s = (int*)(smem + L.shot);
   int* iters_s = done_s + S;
   int* ran_s = iters_s + S;
@@ -257,6 +262,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
 
     // edge stage: new messages and the syndrome check
     if (active) {
+      const bool keep = a.synd_hat != nullptr;
       int bad = 0;
       for (int r = r0; r < m_pad; r += step) {
         const int d = deg[r];
@@ -269,7 +275,9 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
           *p = (!MASKED || fabsf(pe) < thresh) ? nv : pin;
           cnt += (pe <= 0.f);
         }
-        bad |= (cnt & 1) != syn[r * S + shot];
+        const int8_t t = syn[r * S + shot] & 1;
+        bad |= (cnt & 1) != t;
+        if (keep) syn[r * S + shot] = (int8_t)(t | ((cnt & 1) << 1));
       }
       if (bad) mism[shot] = 1;
     }
@@ -304,6 +312,11 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
     const long long o = (b0 + sh) * n + v;
     a.err_out[o] = ran_s[sh] ? (int8_t)(to_f(post[v * S + sh]) <= 0.f) : a.err_in[o];
   }
+  if (a.synd_hat && live) {
+    const int bit = ran_s[shot] ? 1 : 0;
+    for (int r = r0; r < m_pad; r += step)
+      a.synd_hat[(long long)r * B + b] = (int8_t)((syn[r * S + shot] >> bit) & 1);
+  }
   if (tid < nshots) {
     a.done_out[b0 + tid] = (uint8_t)(done_s[tid] != 0);
     a.iters_out[b0 + tid] = iters_s[tid];
@@ -331,9 +344,9 @@ Args make_args(const void* mv_in, long long st_s, long long st_i, long long st_b
                const void* vn_state, void* hist, const void* err_in, void* err_out,
                const void* done_in, void* done_out, const void* iters_in,
                void* iters_out, const void* cn_vn, const void* vfc, const void* deg,
-               int n, int m_pad, int dc, int dv, long long B, int S, int num_iter,
-               int hist_from, float alpha, float clip, float big, float thresh,
-               float pin) {
+               void* synd_hat, int n, int m_pad, int dc, int dv, long long B, int S,
+               int num_iter, int hist_from, float alpha, float clip, float big,
+               float thresh, float pin) {
   Args a;
   a.mv_in = mv_in;
   a.st_s = st_s;
@@ -354,6 +367,7 @@ Args make_args(const void* mv_in, long long st_s, long long st_i, long long st_b
   a.cn_vn = (const int16_t*)cn_vn;
   a.vfc = (const int16_t*)vfc;
   a.deg = (const int16_t*)deg;
+  a.synd_hat = (int8_t*)synd_hat;
   a.n = n;
   a.m_pad = m_pad;
   a.dc = dc;
@@ -376,21 +390,21 @@ extern "C" {
 
 // One entry point per (message dtype, mode). alpha, clip, big, thresh and
 // pin arrive already rounded to the storage dtype; the unmasked entry
-// points ignore thresh, pin and vn_state.
+// points ignore thresh, pin and vn_state. synd_hat may be null.
 #define BP_SPAN_ENTRY(NAME, T, MASKED)                                              \
   int NAME(const void* mv_in, long long st_s, long long st_i, long long st_b,       \
            void* mv_out, const void* prior, const void* parity, const void* synd,   \
            const void* vn_state, void* hist, const void* err_in, void* err_out,     \
            const void* done_in, void* done_out, const void* iters_in,               \
            void* iters_out, const void* cn_vn, const void* vfc, const void* deg,    \
-           int n, int m_pad, int dc, int dv, long long B, int S, int threads,       \
-           int num_iter, int hist_from, float alpha, float clip, float big,         \
-           float thresh, float pin, void* stream) {                                 \
+           void* synd_hat, int n, int m_pad, int dc, int dv, long long B, int S,    \
+           int threads, int num_iter, int hist_from, float alpha, float clip,       \
+           float big, float thresh, float pin, void* stream) {                      \
     const Args a = make_args(mv_in, st_s, st_i, st_b, mv_out, prior, parity, synd,  \
                              vn_state, hist, err_in, err_out, done_in, done_out,    \
-                             iters_in, iters_out, cn_vn, vfc, deg, n, m_pad, dc,    \
-                             dv, B, S, num_iter, hist_from, alpha, clip, big,       \
-                             thresh, pin);                                          \
+                             iters_in, iters_out, cn_vn, vfc, deg, synd_hat, n,     \
+                             m_pad, dc, dv, B, S, num_iter, hist_from, alpha, clip, \
+                             big, thresh, pin);                                     \
     return launch<T, MASKED>(a, threads, stream);                                   \
   }
 

@@ -147,8 +147,9 @@ def graph_tensors(graph: TannerGraph, device=None):
     in-bounds gathers: the posterior gather (``mode="clip"``) clamps the
     pad index n to n - 1, and the message gather (``mode="fill"``) reads
     its pad index dc*m_pad from one trailing zero row of the source.
-    ``cn_valid``, ``vn_cn``, ``vn_valid`` and ``cn_degree`` are the tables
-    of the decimation ops (``ops.decimation``).
+    ``cn_valid``, ``vn_cn``, ``vn_valid``, ``cn_degree``, ``vn_cn_cols``
+    and ``cn_vn_fill`` are the tables of the decimation ops
+    (``ops.decimation``); GDG reads ``vn_degree``.
     """
     import torch
 
@@ -167,6 +168,12 @@ def graph_tensors(graph: TannerGraph, device=None):
         "vn_cn": t(graph.vn_cn),  # [n, dv], pad m
         "vn_valid": t(graph.vn_valid),  # [n, dv]
         "cn_degree": t(graph.cn_degree),  # [m]
+        "vn_degree": t(graph.vn_degree),  # [n]
+        # the transposed decimation's gathers: per VN slot, the check (index
+        # m reads a pad row); per check slot, the VN (index n reads a zero
+        # row appended to the source)
+        "vn_cn_cols": t(graph.vn_cn.T.astype(np.int64)),  # [dv, n]
+        "cn_vn_fill": t(cn_vn_flat),  # [dc*m_pad]
         "cn_valid_sm": t(graph.cn_valid_sm),  # [dc, m_pad]
         "cn_vn_clip": t(np.minimum(cn_vn_flat, n - 1)),  # [dc*m_pad]
         # message gather: index dc*m_pad is the zero fill row

@@ -109,12 +109,22 @@ def _cn_update_sm(mv, edge_valid, parity, *, alpha, clip, pinned=False):
                           mv, mvc)
     absx = torch.minimum(torch.where(edge_valid, mvc.abs(), big), big)
     neg = edge_valid & (mvc <= 0)
-    min1 = absx.amin(dim=0)  # [m_pad, B]
-    arg1 = absx.argmin(dim=0)  # first occurrence == fwd-pass order
-    slot = torch.arange(mv.shape[0], device=mv.device)[:, None, None]
+    # min1, its first slot (== fwd-pass order), min2 and the sign count,
+    # slot by slot: elementwise ops, where torch's CPU reductions over the
+    # leading dimension are tens of times slower (min is exact either way)
+    dc = mv.shape[0]
+    min1, arg1 = absx[0], torch.zeros(absx.shape[1:], dtype=torch.int64, device=mv.device)
+    nneg = neg[0].to(torch.int32)
+    for s in range(1, dc):
+        arg1 = torch.where(absx[s] < min1, s, arg1)
+        min1 = torch.minimum(min1, absx[s])
+        nneg = nneg + neg[s]
+    slot = torch.arange(dc, device=mv.device)[:, None, None]
     is_arg = slot == arg1[None]
-    min2 = torch.where(is_arg, big, absx).amin(dim=0)
-    total_sign = (parity + neg.sum(dim=0, dtype=torch.int32)) % 2
+    min2 = big.expand(absx.shape[1:])
+    for s in range(dc):
+        min2 = torch.minimum(min2, torch.where(is_arg[s], big, absx[s]))
+    total_sign = (parity + nneg) % 2
     sign_flip = (total_sign[None] ^ neg.to(torch.int32)) == 1
     mag = torch.where(is_arg, min2[None], min1[None])
     mc = torch.tensor(alpha, dtype=mdt, device=mv.device) * torch.where(
@@ -142,6 +152,7 @@ def bp_loop(
     masked: bool,
     freeze_messages: bool = True,
     posterior_matmul: bool = False,
+    return_synd: bool = False,
 ):
     """Up to ``num_iter`` BP iterations as torch ops around the CN stage
     ``ops.bp_cuda.cn_update``: the plain version of the fused kernel
@@ -154,8 +165,62 @@ def bp_loop(
     undecided; masked mode only); ``hist_t`` [n, 4, B] f32, written in
     place at slot ``i % 4`` from iteration ``hist_from`` on; ``error``
     [B, n] int8, ``done`` [B] bool, ``iters`` [B] int32. Returns
-    ``(mv_sm, hist_t, error, done, iters)``.
+    ``(mv_sm, hist_t, error, done, iters)``, and with ``return_synd`` also
+    ``synd_hat`` [m_pad, B] int8: each shot's decoded syndrome at its last
+    executed iteration, the target ``synd_t`` for a shot done at entry
+    (pad rows 0).
+
+    The iterations run on the shots not done at entry only (one host read
+    of which they are): a shot done at entry keeps every input, its
+    messages pinned at entry in masked mode, as in the kernel. Its
+    messages then differ from the JAX loop's with ``freeze_messages=False``
+    only, where the docstring of ``bp_run`` allows it.
     """
+    mdt = mv_sm.dtype
+    dev = synd_t.device
+    B = synd_t.shape[1]
+    n, dc, m_pad = garr["n"], garr["dc"], garr["m_pad"]
+    sv = garr["cn_valid_sm"][:, :, None]
+    vn_t = None
+    if masked:
+        vn_t = (torch.full((n, B), -1, dtype=torch.int8, device=dev)
+                if vn_state is None else vn_state.T)
+        # pin the edges of decided VNs and the invalid slots once, at entry
+        vs_edge = vn_t[garr["cn_vn_clip"]].reshape(dc, m_pad, B)
+        mv_sm = torch.where((vs_edge != -1) | ~sv, torch.tensor(PIN, dtype=mdt, device=dev),
+                            mv_sm)
+    live = (~done).nonzero()[:, 0]
+    kw = dict(num_iter=num_iter, hist_from=hist_from, alpha=alpha, clip=clip,
+              masked=masked, freeze_messages=freeze_messages,
+              posterior_matmul=posterior_matmul)
+    if live.numel() == B:
+        mv_sm, hist_t, err_t, done, iters, sodd = _bp_iterations(
+            garr, mv_sm, prior, parity, synd_t, vn_t, hist_t, error.T, done, iters, **kw)
+    else:
+        sub = _bp_iterations(
+            garr, mv_sm[:, :, live], prior if prior.ndim == 1 else prior[live],
+            parity[:, live], synd_t[:, live], None if vn_t is None else vn_t[:, live],
+            hist_t[:, :, live], error[live].T, done[live], iters[live], **kw)
+        mv_sm = mv_sm.clone(memory_format=torch.contiguous_format)
+        mv_sm[:, :, live] = sub[0]
+        hist_t[:, :, live] = sub[1]
+        err_t = error.T.clone()
+        err_t[:, live] = sub[2]
+        done, iters = done.clone(), iters.clone()
+        done[live], iters[live] = sub[3], sub[4]
+        sodd = synd_t == 1
+        sodd[:, live] = sub[5]
+    out = (mv_sm, hist_t, err_t.T, done, iters)
+    return out + (sodd.to(torch.int8),) if return_synd else out
+
+
+def _bp_iterations(garr, mv_sm, prior, parity, synd_t, vn_t, hist_t, err_t, done, iters, *,
+                   num_iter, hist_from, alpha, clip, masked, freeze_messages,
+                   posterior_matmul):
+    """``bp_loop``'s iterations on the shots given, their messages already
+    pinned at entry in masked mode. ``vn_t`` and ``err_t`` are [n, B];
+    ``hist_t`` is written in place. Returns (mv_sm, hist_t, err_t, done,
+    iters, decoded syndrome as bool [m_pad, B])."""
     from .bp_cuda import cn_update  # imports this module: no top-level cycle
 
     mdt = mv_sm.dtype
@@ -169,17 +234,12 @@ def bp_loop(
     prior_t = prior[:, None].expand(n, B) if prior.ndim == 1 else prior.T
     syndrome_odd = synd_t == 1
     fill_row = torch.zeros((1, B), dtype=mdt, device=dev)
-    err_t = error.T
+    sodd = syndrome_odd
 
     if masked:
         pin = torch.tensor(PIN, dtype=mdt, device=dev)
         thresh = torch.tensor(PIN_THRESH, dtype=mdt, device=dev)
-        vn_t = (torch.full((n, B), -1, dtype=torch.int8, device=dev)
-                if vn_state is None else vn_state.T)
         vn_undecided = vn_t == -1
-        # pin the edges of decided VNs and the invalid slots once, at entry
-        vs_edge = vn_t[cn_vn_clip].reshape(dc, m_pad, B)
-        mv_sm = torch.where((vs_edge != -1) | ~sv, pin, mv_sm)
         vn_pin = torch.where(vn_t == 1, -pin, pin)  # read only where decided
 
     i = 0
@@ -221,10 +281,11 @@ def bp_loop(
             write = active & vn_undecided if masked else active
             slot.copy_(torch.where(write, posterior, slot))
         err_t = torch.where(active, err_new, err_t)
+        sodd = torch.where(active, synd_odd, sodd)
         iters = iters + active.to(torch.int32)
         done = done | conv
         i += 1
-    return mv_sm, hist_t, err_t.T, done, iters
+    return mv_sm, hist_t, err_t, done, iters, sodd
 
 
 def bp_run(
@@ -248,9 +309,13 @@ def bp_run(
     vn_state=None,
     cn_state=None,
     masked: bool = False,
+    state_layout: str = "batch_major",
+    return_synd: bool = False,
+    hist_update: str = "masked",
+    hist_dtype: str = "float32",
 ):
     """Run up to ``num_iter`` BP iterations with per-shot convergence
-    freeze (the JAX ``bp_run`` with ``hist_update="masked"``).
+    freeze (the JAX ``bp_run``).
 
     ``syndrome`` [B, m], ``error`` [B, n] int8, ``done`` [B] bool and
     ``iters`` [B] int32 are batch-major. With ``io_layout="batch_major"``
@@ -284,26 +349,62 @@ def bp_run(
     ``csrc/bp_span.cu`` (one launch per call); any other call runs
     ``bp_loop`` there, with the CN kernel ``csrc/cn_update.cu``.
 
-    Returns ``(mv, history, error, done, iters)`` in the input layouts.
+    ``state_layout="transposed"`` is the GDG ensemble's carry: ``syndrome``
+    and ``cn_state`` arrive as [m_pad, B] (pad rows 0 and -1), ``vn_state``
+    and ``error`` as [n, B], and ``error`` (and ``synd_hat``) leave so.
+    ``done`` and ``iters`` stay [B]. The kernel takes [B, n] states, so
+    ``vn_state`` and ``error`` are transposed at the call.
+
+    ``return_synd=True`` appends ``synd_hat`` (int8): each row's decoded
+    syndrome at its last executed iteration; a row done at entry keeps the
+    target syndrome. [m_pad, B] with pad rows 0 when transposed, else
+    [B, m].
+
+    ``hist_update``: the JAX ``"masked"`` form writes the ring slot for the
+    active rows' undecided VNs only. Its ``"slice"`` form writes the slot
+    for every row and VN, and its comment notes that no reader sees the
+    extra entries (frozen rows' and decided VNs'). Here ``"slice"`` runs
+    the masked write: the ring equals JAX's on (active rows x undecided
+    VNs), and elsewhere keeps its entry values. ``hist_dtype`` must be
+    ``"float32"``: the bfloat16 ring is not ported.
+
+    Returns ``(mv, history, error, done, iters)`` in the input layouts,
+    then ``synd_hat`` if ``return_synd``.
     """
     from .bp_cuda import bp_span, bp_span_supported  # no top-level cycle
 
+    if hist_update not in ("masked", "slice"):
+        raise ValueError(f"unknown hist_update {hist_update!r}")
+    if hist_dtype != "float32":
+        raise NotImplementedError(f"hist_dtype={hist_dtype!r}: only the float32 "
+                                  "history ring is ported")
+    if state_layout not in ("batch_major", "transposed"):
+        raise ValueError(f"unknown state_layout {state_layout!r}")
+    transposed = state_layout == "transposed"
     args, kw = span_inputs(
         garr, mv, prior_llr, syndrome, history, error, done, iters,
         num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
         freeze_messages=freeze_messages, history_mode=history_mode,
         posterior_matmul=posterior_matmul, io_layout=io_layout,
         vn_state=vn_state, cn_state=cn_state, masked=masked,
+        transposed=transposed,
     )
     mv_sm, prior = args[1], args[2]
     fused = mv_sm.device.type == "cpu" or (
         prior.ndim == 1 and not posterior_matmul
         and bp_span_supported(garr, mv_sm.shape[2], mv_sm.dtype))
-    mv_sm, hist_t, err_out, done, iters = (bp_span if fused else bp_loop)(*args, **kw)
+    out = (bp_span if fused else bp_loop)(*args, **kw, return_synd=return_synd)
+    mv_sm, hist_t, err_out, done, iters = out[:5]
+    if transposed:
+        err_out = err_out.T
     if io_layout == "slot_major":
-        return mv_sm, hist_t, err_out, done, iters
-    mv_out = mv_sm[:, :garr["m"]].permute(2, 1, 0).float()
-    return mv_out, hist_t.permute(2, 0, 1), err_out, done, iters
+        res = (mv_sm, hist_t, err_out, done, iters)
+    else:
+        mv_out = mv_sm[:, :garr["m"]].permute(2, 1, 0).float()
+        res = (mv_out, hist_t.permute(2, 0, 1), err_out, done, iters)
+    if not return_synd:
+        return res
+    return res + (out[5] if transposed else out[5][:garr["m"]].T,)
 
 
 def span_inputs(
@@ -327,23 +428,31 @@ def span_inputs(
     vn_state=None,
     cn_state=None,
     masked: bool = False,
+    transposed: bool = False,
 ):
     """``bp_run``'s arguments as the positional and keyword arguments of
     ``bp_loop`` and ``ops.bp_cuda.bp_span``: slot-major messages in the
     message dtype, the CN sign seed and the syndrome as [m_pad, B] int32,
     a private contiguous copy of the history ring (unless
-    ``history_mode="none"``) and ``hist_from``."""
+    ``history_mode="none"``) and ``hist_from``. ``transposed``: the states
+    arrive in ``bp_run``'s ``state_layout="transposed"``."""
     mdt = msg_torch_dtype(msg_dtype)
     dev = syndrome.device
-    B = syndrome.shape[0]
+    B = syndrome.shape[-1] if transposed else syndrome.shape[0]
     m, dc, m_pad = garr["m"], garr["dc"], garr["m_pad"]
     hist_from = {"full": 0, "tail": max(num_iter - 4, 0), "none": num_iter}.get(history_mode)
     if hist_from is None:
         raise ValueError(f"unknown history_mode {history_mode!r}")
 
     prior = torch.as_tensor(prior_llr, dtype=torch.float32, device=dev)
-    synd_t = torch.zeros((m_pad, B), dtype=torch.int32, device=dev)
-    synd_t[:m] = syndrome.T.to(torch.int32)
+    if transposed:
+        synd_t = syndrome.to(torch.int32)
+        error = error.T
+        if vn_state is not None:
+            vn_state = vn_state.T
+    else:
+        synd_t = torch.zeros((m_pad, B), dtype=torch.int32, device=dev)
+        synd_t[:m] = syndrome.T.to(torch.int32)
     vn = None
     if masked:
         dv = garr["dv"]
@@ -352,8 +461,11 @@ def span_inputs(
                 f"max VN degree {dv} too large for pinned-LLR masking: dv*BIG "
                 f"({dv * BIG:.2e}) must stay below PIN_THRESH ({PIN_THRESH:.0e})"
             )
-        cn_t = torch.full((m_pad, B), -1, dtype=torch.int32, device=dev)
-        cn_t[:m] = (syndrome if cn_state is None else cn_state).T.to(torch.int32)
+        if transposed:
+            cn_t = (syndrome if cn_state is None else cn_state).to(torch.int32)
+        else:
+            cn_t = torch.full((m_pad, B), -1, dtype=torch.int32, device=dev)
+            cn_t[:m] = (syndrome if cn_state is None else cn_state).T.to(torch.int32)
         parity = cn_t.clamp_min(0)  # inactive checks and pad rows seed 0
         if vn_state is not None:
             vn = vn_state.to(torch.int8)
@@ -418,7 +530,8 @@ def decode_bp(
     if either state is given (as in the JAX ``decode_bp``).
 
     Returns dict with error, converged, iterations, history, posterior-sum
-    ordering key (llr_sum), and final messages.
+    ordering key (llr_sum, summed slot by slot as ``history_sum``), and
+    final messages.
     """
     B = syndrome.shape[0]
     if masked is None:
@@ -436,6 +549,6 @@ def decode_bp(
         "converged": done,
         "iterations": iters,
         "history": history,
-        "llr_sum": history.sum(dim=-1),
+        "llr_sum": history_sum(history.permute(1, 2, 0)),
         "mv": mv,
     }

@@ -198,16 +198,18 @@ def _span_entry(dtype: torch.dtype, masked: bool):
     lib = cuda_build.load(SPAN_SOURCE)
     fn = getattr(lib, f"bp_span_{'pinned_' if masked else ''}{_ENTRY[dtype]}")
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, ll, ll, ll, *[p] * 15, i, i, i, i, ll, i, i, i, i, *[f] * 5, p]
+    fn.argtypes = [p, ll, ll, ll, *[p] * 16, i, i, i, i, ll, i, i, i, i, *[f] * 5, p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters, *,
             num_iter: int, hist_from: int, alpha: float, clip: float, masked: bool,
-            freeze_messages: bool = True, posterior_matmul: bool = False):
+            freeze_messages: bool = True, posterior_matmul: bool = False,
+            return_synd: bool = False):
     """One ``bp_run`` call's iterations: the arguments and results of
-    ``ops.bp.bp_loop``.
+    ``ops.bp.bp_loop`` (``synd_hat`` [m_pad, B] int8 last when
+    ``return_synd``: the kernel writes it only when asked).
 
     On CPU tensors this runs ``bp_loop`` (``bp_span.plain_calls``). On CUDA
     tensors it launches ``csrc/bp_span.cu`` once (``bp_span.launches``
@@ -224,7 +226,7 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
         return bp_loop(garr, mv, prior, parity, synd_t, vn_state, hist, error, done,
                        iters, num_iter=num_iter, hist_from=hist_from, alpha=alpha,
                        clip=clip, masked=masked, freeze_messages=freeze_messages,
-                       posterior_matmul=posterior_matmul)
+                       posterior_matmul=posterior_matmul, return_synd=return_synd)
     if mv.device.type != "cuda":
         raise ValueError(f"bp_span: unsupported device {mv.device}")
     n, dc, m_pad, dv = garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
@@ -262,6 +264,8 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
     vn = vn_state.contiguous() if masked and vn_state is not None else None
     mv_out = torch.empty((dc, m_pad, B), dtype=mv.dtype, device=mv.device)
     err_out, done_out, iters_out = (torch.empty_like(t) for t in (error, done, iters))
+    synd_hat = (torch.empty((m_pad, B), dtype=torch.int8, device=mv.device)
+                if return_synd else None)
     consts = [_storage_round(x, mv.dtype) for x in (alpha, clip, BIG, PIN_THRESH, PIN)]
     lib, fn = _span_entry(mv.dtype, masked)
     stream = torch.cuda.current_stream(mv.device).cuda_stream
@@ -272,6 +276,7 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
             hist.data_ptr() if write_hist else None, error.data_ptr(), err_out.data_ptr(),
             done.data_ptr(), done_out.data_ptr(), iters.data_ptr(), iters_out.data_ptr(),
             tables["cn_vn"].data_ptr(), tables["vfc"].data_ptr(), tables["deg"].data_ptr(),
+            synd_hat.data_ptr() if return_synd else None,
             n, m_pad, dc, dv, B, shots, threads, num_iter, hist_from, *consts, stream,
         )
     cuda_build.check(lib, code, "bp_span kernel")
@@ -279,7 +284,8 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
         bp_span.pinned_launches += 1
     else:
         bp_span.launches += 1
-    return mv_out, hist, err_out, done_out, iters_out
+    out = (mv_out, hist, err_out, done_out, iters_out)
+    return out + (synd_hat,) if return_synd else out
 
 
 bp_span.launches = 0

@@ -18,7 +18,13 @@ All decisions of a sweep apply at once and conflicts set ``dead``; a dead
 branch's state is never used. Every op is integer arithmetic, so the
 results are bit-identical to the JAX package's. The JAX fixpoint loop
 (``lax.while_loop``) becomes a host loop that reads one scalar, whether
-another sweep is needed, per sweep.
+another sweep is needed, once per sweep. The ``_t`` forms take
+their gathers slot by slot or in one packed pass where the JAX forms
+write whole per-edge arrays twice; the integers are the same.
+
+The transposed (batch-minor) ``_t`` forms are those of the GDG ensemble:
+VN arrays [n, B], CN arrays [m_pad, B] whose pad rows are inert (state -1,
+degree 0), so ``vn_cn``'s dummy index m reads a pad row of zeros.
 """
 
 from __future__ import annotations
@@ -101,3 +107,127 @@ def peel(garr, vn_state, cn_state, cn_degree, dead):
     while bool(more):
         *state, more = _sweep(garr, *state)
     return tuple(state)
+
+
+# ---------------------------------------------------------------------------
+# Transposed (batch-minor) forms: the GDG ensemble's carry layout.
+# ---------------------------------------------------------------------------
+
+def init_decimation_state_t(garr, syndrome_t):
+    """Fresh transposed state from a [m, B] (or [m_pad, B]) syndrome."""
+    B = syndrome_t.shape[-1]
+    n, m, m_pad = garr["n"], garr["m"], garr["m_pad"]
+    dev = syndrome_t.device
+    vn_t = torch.full((n, B), -1, dtype=torch.int8, device=dev)
+    cn_t = torch.full((m_pad, B), -1, dtype=torch.int8, device=dev)
+    cn_t[:m] = syndrome_t[:m].to(torch.int8)
+    deg_t = torch.zeros((m_pad, B), dtype=torch.int32, device=dev)
+    deg_t[:m] = garr["cn_degree"].to(torch.int32)[:, None]
+    dead = torch.zeros((B,), dtype=torch.bool, device=dev)
+    return vn_t, cn_t, deg_t, dead
+
+
+def _gather_vn_to_cn(garr, x_t):
+    """[n, B] VN-side array -> [dc, m_pad, B] per-CN-slot array through the
+    slot-major table; the invalid slots' index n reads an appended zero
+    row (the JAX ``take`` of the fill row)."""
+    dc, m_pad, B = garr["dc"], garr["m_pad"], x_t.shape[-1]
+    src = torch.cat([x_t, x_t.new_zeros((1, B))])
+    return src[garr["cn_vn_fill"]].reshape(dc, m_pad, B)
+
+
+def _gather_cn_to_vn(garr, x_t):
+    """[m_pad, B] CN-side array -> the dv [n, B] slices of the per-VN-slot
+    array [n, dv, B] through the ``vn_cn`` table; its dummy index m reads
+    the first pad row, which the layout keeps inert (``compile_graph``
+    always leaves one, m < m_pad). Slice by slice, so no [n, dv, B] array
+    is written."""
+    return [x_t[cols] for cols in garr["vn_cn_cols"]]
+
+
+def vn_set_values_t(garr, vn_t, cn_t, deg_t, dead, set_mask_t, values_t):
+    """Transposed ``vn_set_values``: ``set_mask_t``/``values_t`` are [n, B].
+
+    The JAX form gathers one int8 code per edge (0, 1 = set to 0, 2 = set
+    to 1) and sums two counts over the slots. Here one int16 code per edge,
+    1 for a newly decided VN plus 64 if it is decided to 1, is gathered and
+    summed once: the sum's low 6 bits are the newly decided neighbours (at
+    most dc <= 63) and the rest counts those decided to 1. The same
+    integers, one pass over the edges instead of two."""
+    if garr["dc"] > 63:
+        raise ValueError(f"check degree {garr['dc']} > 63: the packed count overflows")
+    values_t = values_t.to(torch.int8)
+    already = set_mask_t & (vn_t != -1)
+    conflict = already & (vn_t != values_t)
+    dead = dead | conflict.any(dim=0)
+    newly = set_mask_t & (vn_t == -1)
+    vn_t = torch.where(newly, values_t, vn_t)
+
+    enc = newly.to(torch.int16) * (1 + 64 * (values_t == 1).to(torch.int16))
+    packed = _gather_vn_to_cn(garr, enc).sum(dim=0, dtype=torch.int16)  # [m_pad, B]
+    delta = (packed & 63).to(torch.int32)
+    pflip = ((packed >> 6) & 1).to(torch.int8)
+
+    active = cn_t != -1
+    new_deg = deg_t - delta
+    new_par = torch.where(active, cn_t ^ pflip, cn_t)
+    hit_zero = active & (new_deg == 0) & (delta > 0)
+    contradiction = hit_zero & (new_par == 1)
+    dead = dead | contradiction.any(dim=0)
+    cn_t = torch.where(hit_zero & (new_par == 0),
+                       torch.tensor(-1, dtype=torch.int8, device=cn_t.device), new_par)
+    return vn_t, cn_t, new_deg, dead
+
+
+def _sweep_t(garr, vn_t, cn_t, deg_t, dead):
+    """One forcing sweep of the transposed state. Returns the new state
+    and whether any live row forced a VN (0-dim, on the device)."""
+    deg1 = (cn_t != -1) & (deg_t == 1)
+    # bit 0: a degree-1 check of parity 0 (forces 0), bit 1: of parity 1
+    code = deg1.to(torch.int8) + (deg1 & (cn_t == 1)).to(torch.int8)
+    acc = None
+    for slot in _gather_cn_to_vn(garr, code):  # OR over each VN's checks
+        acc = slot if acc is None else acc | slot
+    undecided = vn_t == -1
+    force1 = (acc & 2).bool() & undecided
+    force0 = (acc & 1).bool() & undecided
+    dead = dead | (force0 & force1).any(dim=0)
+    forced = force0 ^ force1
+    vn_t, cn_t, deg_t, dead = vn_set_values_t(garr, vn_t, cn_t, deg_t, dead, forced, force1)
+    more = (forced.any(dim=0) & ~dead).any()
+    return vn_t, cn_t, deg_t, dead, more
+
+
+def peel_t(garr, vn_t, cn_t, deg_t, dead):
+    """Transposed ``peel``: degree-1 forcing to the fixpoint of the JAX
+    ``peel_t`` (no ``max_sweeps``). The JAX loop runs a first sweep, then
+    another while the last one forced a VN in a live row; dead rows are
+    swept along. Each sweep ends in one device-to-host read of ``more``."""
+    *state, more = _sweep_t(garr, vn_t, cn_t, deg_t, dead)
+    while bool(more):
+        *state, more = _sweep_t(garr, *state)
+    return tuple(state)
+
+
+def unsatisfied_counts_t(garr, synd_hat_t, syndrome_t, cn_t):
+    """Transposed ``num_flip``: ``synd_hat_t``/``syndrome_t`` [m_pad, B]
+    (pad rows equal), ``cn_t`` [m_pad, B]; returns [n, B] int32. The int8
+    sum over a VN's dv checks is exact (dv <= 127)."""
+    unsat = ((synd_hat_t.to(torch.int32) != syndrome_t.to(torch.int32))
+             & (cn_t != -1)).to(torch.int8)
+    acc = None
+    for slot in _gather_cn_to_vn(garr, unsat):
+        acc = slot if acc is None else acc + slot
+    return acc.to(torch.int32)
+
+
+def unsatisfied_counts(garr, error, syndrome, cn_state, synd_hat=None):
+    """Batch-major ``num_flip`` (bpgd.cpp:296-309): per VN, the adjacent
+    active checks whose decoded syndrome bit (``synd_hat`` [B, m], or that
+    of ``error`` [B, n]) differs from the target. Returns [B, n] int32."""
+    if synd_hat is None:
+        err_e = F.pad(error.to(torch.int32), (0, 1))[:, garr["cn_vn"].long()]
+        synd_hat = (err_e * garr["cn_valid"].to(torch.int32)).sum(dim=-1) % 2
+    unsat = (synd_hat.to(torch.int32) != syndrome.to(torch.int32)) & (cn_state != -1)
+    unsat_e = F.pad(unsat.to(torch.int8), (0, 1))[:, garr["vn_cn"].long()]
+    return (unsat_e * garr["vn_valid"].to(torch.int8)).sum(dim=-1, dtype=torch.int32)

@@ -347,3 +347,109 @@ def test_decode_bp_masked_matches_jax(rng):
                           num_iter=10, vn_state=jnp.asarray(vn), cn_state=jnp.asarray(cn))
     for k in ("error", "converged", "iterations", "history", "llr_sum", "mv"):
         np.testing.assert_array_equal(np.asarray(out_t[k]), np.asarray(out_j[k]), err_msg=k)
+
+
+def _transposed_inputs(rng, g, synds, vn, cn, dead, B):
+    """The GDG burst's transposed state from batch-major inputs: syndrome
+    and CN state [m_pad, B] (pad rows 0 / -1), VN state and error [n, B],
+    a history ring of random values (the entries no write reaches must
+    keep them), some rows done at entry."""
+    m, n, m_pad = g.m, g.n, g.m_pad
+    synd_t = np.zeros((m_pad, B), np.int8)
+    synd_t[:m] = synds.T
+    cn_t = np.full((m_pad, B), -1, np.int8)
+    cn_t[:m] = cn.T
+    err_t = np.where(vn != -1, vn, 0).astype(np.int8).T.copy()
+    hist = rng.standard_normal((n, 4, B)).astype(np.float32)
+    done = dead | (rng.random(B) < 0.1)
+    return synd_t, cn_t, vn.T.copy(), err_t, hist, done
+
+
+def _run_both_transposed(g, prior, synds, vn, cn, dead, B, msg_dtype, rng):
+    garr_t, garr_j = graph_tensors(g, "cpu"), graph_device_arrays(g)
+    synd_t, cn_t, vn_t, err_t, hist, done = _transposed_inputs(rng, g, synds, vn, cn, dead, B)
+    kw = dict(num_iter=6, alpha=1.0, clip=50.0, msg_dtype=msg_dtype, return_synd=True,
+              io_layout="slot_major", history_mode="tail", hist_update="slice",
+              state_layout="transposed")
+    it0 = np.zeros(B, np.int32)
+    out_t = tbp.bp_run(
+        garr_t, tbp.bp_init_messages_sm(garr_t, prior, B, msg_dtype), prior,
+        torch.from_numpy(synd_t), torch.from_numpy(hist), torch.from_numpy(err_t),
+        torch.from_numpy(done), torch.from_numpy(it0), vn_state=torch.from_numpy(vn_t),
+        cn_state=torch.from_numpy(cn_t), masked=True, **kw)
+    out_j = jbp.bp_run(
+        garr_j, jbp.bp_init_messages_sm(garr_j, prior, B, msg_dtype), prior,
+        jnp.asarray(synd_t), jnp.asarray(vn_t), jnp.asarray(cn_t), jnp.asarray(hist),
+        jnp.asarray(err_t), jnp.asarray(done), jnp.asarray(it0), masked=True, **kw)
+    return ([_as_f32(x) if x.dtype == torch.bfloat16 else x.numpy() for x in out_t],
+            [np.asarray(x, np.float32) if x.dtype == jnp.bfloat16 else np.asarray(x)
+             for x in out_j], vn_t, hist)
+
+
+@pytest.mark.parametrize("shape", ["random", "window"])
+def test_bp_run_transposed_synd_slice_f32_matches_jax(rng, shape):
+    """The GDG ensemble's burst (masked, transposed state, ``return_synd``,
+    ``hist_update="slice"``, 6 iterations with tail history, f32) against
+    JAX at B=128: error, done, iterations and ``synd_hat`` bit-equal, the
+    messages of the rows not done bit-equal, and the ring equal on the rows
+    still active after the burst x their undecided VNs (the entries JAX's
+    slice form writes and the port's masked write skips are those no reader
+    sees). The port keeps the entry values elsewhere."""
+    H = _low_degree_graph(rng) if shape == "random" else _window_pcm()
+    g, prior, synds, vn, cn, dead = _masked_inputs(rng, H, 128)
+    (mv_t, hist_t, err_t, done_t, it_t, sh_t), (mv_j, hist_j, err_j, done_j, it_j, sh_j), \
+        vn_t, hist0 = _run_both_transposed(g, prior, synds, vn, cn, dead, 128, "float32", rng)
+    assert 0 < (done_j & ~dead).sum() < (~dead).sum()
+    assert err_t.shape == (g.n, 128) and sh_t.shape == (g.m_pad, 128)
+    for name, a, b in (("error", err_t, err_j), ("done", done_t, done_j),
+                       ("iters", it_t, it_j), ("synd_hat", sh_t, sh_j),
+                       ("messages", mv_t[:, :, ~done_j], mv_j[:, :, ~done_j])):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    read = (vn_t == -1)[:, None, :] & ~done_j[None, None, :]
+    read = np.broadcast_to(read, hist_t.shape)
+    np.testing.assert_array_equal(hist_t[read], hist_j[read])
+    assert read.any() and (hist_t[~read] == hist0[~read]).mean() > 0.5
+    assert not sh_t[g.m:].any()
+
+
+def test_bp_run_transposed_bf16_decisions_equal(rng):
+    """The same burst with bf16 messages on the flagship window graph:
+    error, done, iterations and ``synd_hat`` equal (decisions), the ring
+    on the rows read within one bf16 ulp."""
+    g, prior, synds, vn, cn, dead = _masked_inputs(rng, _window_pcm(), 128)
+    (_, hist_t, err_t, done_t, it_t, sh_t), (_, hist_j, err_j, done_j, it_j, sh_j), vn_t, _ = (
+        _run_both_transposed(g, prior, synds, vn, cn, dead, 128, "bfloat16", rng))
+    for a, b in ((err_t, err_j), (done_t, done_j), (it_t, it_j), (sh_t, sh_j)):
+        np.testing.assert_array_equal(a, b)
+    read = np.broadcast_to((vn_t == -1)[:, None, :] & ~done_j[None, None, :], hist_t.shape)
+    np.testing.assert_allclose(hist_t[read], hist_j[read], rtol=2**-7, atol=1e-2)
+
+
+def test_bp_run_transposed_equals_batch_major(rng):
+    """The transposed state layout and ``return_synd`` give the batch-major
+    call's results, transposed; the bf16 history ring is not ported."""
+    g, prior, synds, vn, cn, dead = _masked_inputs(rng, _low_degree_graph(rng), 64)
+    garr = graph_tensors(g, "cpu")
+    B, m = 64, g.m
+    synd_t, cn_t, vn_t, err_t, hist, done = _transposed_inputs(rng, g, synds, vn, cn, dead, B)
+    kw = dict(num_iter=9, history_mode="full", io_layout="slot_major", masked=True,
+              return_synd=True)
+
+    def run(layout, *state):
+        s, h, e, v, c = state
+        return tbp.bp_run(garr, tbp.bp_init_messages_sm(garr, prior, B), prior, s, h, e,
+                          torch.from_numpy(done), torch.zeros(B, dtype=torch.int32),
+                          vn_state=v, cn_state=c, state_layout=layout, **kw)
+
+    tr = run("transposed", torch.from_numpy(synd_t), torch.from_numpy(hist),
+             torch.from_numpy(err_t), torch.from_numpy(vn_t), torch.from_numpy(cn_t))
+    bm = run("batch_major", torch.from_numpy(synds), torch.from_numpy(hist),
+             torch.from_numpy(err_t.T.copy()), torch.from_numpy(vn), torch.from_numpy(cn))
+    for a, b in ((tr[0], bm[0]), (tr[1], bm[1]), (tr[2].T, bm[2]), (tr[3], bm[3]),
+                 (tr[4], bm[4]), (tr[5][:m].T, bm[5])):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="float32"):
+        tbp.bp_run(garr, tbp.bp_init_messages_sm(garr, prior, B), prior,
+                   torch.from_numpy(synds), torch.from_numpy(hist), torch.from_numpy(err_t.T),
+                   torch.from_numpy(done), torch.zeros(B, dtype=torch.int32), num_iter=2,
+                   io_layout="slot_major", hist_dtype="bfloat16")

@@ -185,6 +185,48 @@ def test_bp_span_kernel_matches_plain_loop(card, masked, dtype, freeze):
     assert torch.equal(mv_k[:, :, keep], mv_p[:, :, keep])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bp_span_pinned_synd_hat_matches_plain_loop(card, dtype):
+    """The GDG burst's form: masked ``bp_run`` with the transposed state,
+    ``return_synd``, the slice history update and 6 iterations with tail
+    history, on the card (one ``bp_span_pinned`` launch) against the plain
+    loop on the CPU: error, done, iterations, history, ``synd_hat`` and the
+    messages of every shot not done bit-equal; a shot done at entry keeps
+    its target syndrome in ``synd_hat``."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, bp_run
+    from slidingwindowdecoder_torch.ops.bp_cuda import bp_span
+
+    B = 300
+    H, prior, synds, err0, done0, kw = _bp_span_case(True, dtype, B, 9)
+    g = compile_graph(H)
+    m, n, m_pad = g.m, g.n, g.m_pad
+    synd_t = torch.zeros((m_pad, B), dtype=torch.int8)
+    synd_t[:m] = synds.T.to(torch.int8)
+    cn_t = torch.full((m_pad, B), -1, dtype=torch.int8)
+    cn_t[:m] = kw["cn_state"].T
+    kw.update(num_iter=6, freeze_messages=True, vn_state=kw["vn_state"].T.contiguous(),
+              cn_state=cn_t, state_layout="transposed", return_synd=True,
+              hist_update="slice")
+    outs = []
+    for dev in ("cpu", card):
+        garr = graph_tensors(g, dev)
+        to = (lambda t: t.to(dev) if torch.is_tensor(t) else t)
+        before = bp_span.pinned_launches
+        outs.append([x.cpu() for x in bp_run(
+            garr, bp_init_messages_sm(garr, prior, B, dtype), prior, synd_t.to(dev),
+            torch.zeros((n, 4, B), device=dev), err0.T.contiguous().to(dev),
+            done0.to(dev), torch.zeros(B, dtype=torch.int32, device=dev),
+            **{k: to(v) for k, v in kw.items()})])
+        assert bp_span.pinned_launches == before + (dev != "cpu")
+    (mv_p, hist_p, err_p, done_p, it_p, sh_p), (mv_k, hist_k, err_k, done_k, it_k, sh_k) = outs
+    assert 0 < int(done_p.sum()) < B and err_p.shape == (n, B) and sh_p.shape == (m_pad, B)
+    for a, b in ((err_k, err_p), (done_k, done_p), (it_k, it_p), (hist_k, hist_p),
+                 (sh_k, sh_p), (mv_k[:, :, ~done_p], mv_p[:, :, ~done_p])):
+        assert torch.equal(a, b)
+    assert torch.equal(sh_k[:, done0], synd_t[:, done0]) and not sh_k[m:].any()
+
+
 def _window144(which: int):
     from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
 

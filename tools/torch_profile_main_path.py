@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch port's decode paths (one CUDA card).
 
-Decodes the [[144,12,12]] W=3 sliding-window experiment (p=0.004, 12
-rounds) once to warm up, once timed, once with per-stage host timers
-(each stage ends in a synchronize) and once under ``torch.profiler`` for
-kernel times and the device's busy share.
+Decodes the [[144,12,12]] W=3 sliding-window experiment (12 rounds) once
+to warm up, once timed, once with per-stage host timers (each stage ends
+in a synchronize; a stage's time excludes the timed stages it calls) and
+once under ``torch.profiler`` for kernel times and the device's busy
+share.
 
     python3 tools/torch_profile_main_path.py                  # BPOSD flagship
     python3 tools/torch_profile_main_path.py --path osd_window
+    python3 tools/torch_profile_main_path.py --path gdg [--gdg-bucket 256]
 
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
 (pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, peel sweeps,
-post-BP buckets, OSD. Prints one JSON line with the stage seconds and the
-kernel launches of the timed decode, then one with the top kernels by
-device time, the busy share, and the OSD stage's device time (the kernels
-launched inside ``osd_decode``) beside its host time (the same calls'
-CPU time), both from the profiled decode. 16384 shots from seed 2024, as
-``chip_smoke.py``.
+post-BP buckets, OSD. Both at p=0.004 over 16384 shots. ``gdg``: the
+``sliding_window_gdg`` decoder (pre-BP 8, the GDG defaults, f32) at
+p=0.005 over 8192 shots; stages pre-BP, shortening, ensemble set-up, BP
+bursts, select and aggressive decimation, the guess's ``vn_set_values_t``,
+the transposed peels (sweeps, each ending in one host read), reduce.
+Seed 2024, as ``chip_smoke.py``.
+
+Prints one JSON line with the stage seconds and the kernel launches of the
+timed decode, then one with the top kernels by device time, the busy
+share, and one stage's device time (the kernels launched inside it)
+beside its host time (the same calls' CPU time), both from the profiled
+decode: OSD on the first two paths, the BP bursts on ``gdg``.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-SHOTS, SEED = 16384, 2024
+SEED = 2024
 OSD_STAGE = "osd_decode (fused GJ + CS kernel)"
+BURST_STAGE = "ensemble bursts (masked bp_run, one bp_span_pinned launch each)"
+PROFILED_GDG_SHOTS = 1024
 
 
 def main() -> int:
@@ -44,31 +54,52 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("bposd", "osd_window"), default="bposd")
+    ap.add_argument("--path", choices=("bposd", "osd_window", "gdg"), default="bposd")
+    ap.add_argument("--gdg-bucket", type=int, default=512,
+                    help="GDG ensemble_bucket (shots per ensemble bucket)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     from slidingwindowdecoder_torch.circuits import sample_dem_numpy
-    from slidingwindowdecoder_torch.decoders import BPOSD, bposd, osd_window
+    from slidingwindowdecoder_torch.decoders import BPOSD, GDG, bposd, gdg, osd_window
     from slidingwindowdecoder_torch.harness.circuit_level import (
         build_bb_window_experiment,
+        gdg_window_factory,
         window_decoder_factory,
     )
     from slidingwindowdecoder_torch.ops import bp_cuda, decimation, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
-    _, _, dem, plan = build_bb_window_experiment(144, 0.004, 12, 3, 1)
-    det, _, _ = sample_dem_numpy(dem, SHOTS, np.random.default_rng(SEED))
+    p, shots = (0.005, 8192) if args.path == "gdg" else (0.004, 16384)
+    _, _, dem, plan = build_bb_window_experiment(144, p, 12, 3, 1)
+    det, _, _ = sample_dem_numpy(dem, shots, np.random.default_rng(SEED))
     det = torch.as_tensor(det, device="cuda")
-    # (owner, attribute, stage name from the call's arguments) to time
-    if args.path == "bposd":
+    # (owner, attribute, stage name from the call's arguments) to time; the
+    # last one is also the profiled stage
+    ranged = OSD_STAGE
+    if args.path == "gdg":
+        factory = gdg_window_factory(max_iter=8, ensemble_bucket=args.gdg_bucket,
+                                     device="cuda")
+        ranged = BURST_STAGE
+        patches = [
+            (gdg, "decode_bp", lambda *a, **k: "pre-BP (whole batch, unmasked)"),
+            (GDG, "_shorten_state", lambda *a: "shortening (sort, vn_set_values, peel)"),
+            (gdg, "_ensemble_init", lambda *a, **k: "ensemble set-up (tiling)"),
+            (gdg, "_select_and_decimate_t",
+             lambda *a, **k: "select and aggressive decimation (num_flip, C/D/A, guess)"),
+            (gdg, "vn_set_values_t", lambda *a: "vn_set_values_t (aggressive set, guess)"),
+            (gdg, "peel_t", lambda *a, **k: "peel_t (sweeps and host reads)"),
+            (gdg, "_ensemble_reduce", lambda *a: "reduce"),
+            (gdg, "bp_run", lambda *a, **k: BURST_STAGE),
+        ]
+    elif args.path == "bposd":
         factory = window_decoder_factory(
             False, bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
             phase_b_spans=(48, 136), msg_dtype="bfloat16", device="cuda")
         patches = [
             (BPOSD, "_run_bp", lambda self, mv, synds, *_, **__: (
-                "bp phase A (full batch)" if synds.shape[0] == SHOTS
+                "bp phase A (full batch)" if synds.shape[0] == shots
                 else "bp phase B (buckets)")),
             (bposd, "osd_decode", lambda *a, **k: OSD_STAGE),
         ]
@@ -76,14 +107,23 @@ def main() -> int:
         factory = window_decoder_factory(True, device="cuda")
         patches = [
             (osd_window, "bp_run", lambda garr, mv, prior, synds, *_, **__: (
-                "pre-BP (full batch)" if synds.shape[0] == SHOTS
+                "pre-BP (full batch)" if synds.shape[0] == shots
                 else "post-BP (buckets)")),
             (decimation, "_sweep", lambda *a: "peel sweeps"),
             (osd_window, "osd_decode", lambda *a, **k: OSD_STAGE),
         ]
 
-    def run():
-        out = decode_sliding_window(plan, det, factory, device="cuda", verbose=False,
+    sweeps = [0]
+    sweep_t = decimation._sweep_t
+
+    def counted_sweep_t(*a, **k):
+        sweeps[0] += 1
+        return sweep_t(*a, **k)
+
+    decimation._sweep_t = counted_sweep_t
+
+    def run(d=det):
+        out = decode_sliding_window(plan, d, factory, device="cuda", verbose=False,
                                     collect_window_stats=False)
         torch.cuda.synchronize()
         return out
@@ -94,26 +134,34 @@ def main() -> int:
     for k in (cn, span, gj, osd):
         k.launches = 0
     cn.pinned_launches = span.pinned_launches = 0
+    sweeps[0] = 0
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches}
+    n_sweeps = sweeps[0]
 
-    # per-stage wall time: wrap the decoder's stages with synchronizing timers
+    # per-stage wall time: wrap the decoder's stages with synchronizing
+    # timers; a stage's time excludes that of the timed stages it calls
     stages = defaultdict(float)
     calls = defaultdict(int)
+    inner = []  # per open timed call: the time spent in timed calls inside it
 
     def timed(name_of, fn):
         def wrapper(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            inner.append(0.0)
             r = fn(*a, **k)
             torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
             name = name_of(*a, **k)
-            stages[name] += time.perf_counter() - t0
+            stages[name] += dt - inner.pop()
             calls[name] += 1
+            if inner:
+                inner[-1] += dt
             return r
         return wrapper
 
@@ -128,29 +176,41 @@ def main() -> int:
         for owner, attr, fn in originals:
             setattr(owner, attr, fn)
     stages["other (pipeline, sort, gather/scatter)"] = total - sum(stages.values())
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "path": args.path, "shots": SHOTS,
-        "wall_s": wall, "shots_per_s": SHOTS / wall, "staged_wall_s": total,
+    res = {
+        "device": torch.cuda.get_device_name(0), "path": args.path, "shots": shots,
+        "wall_s": wall, "shots_per_s": shots / wall, "staged_wall_s": total,
         "stages_s": dict(stages), "stage_calls": dict(calls), "launches": launches,
-    }), flush=True)
+    }
+    if args.path == "gdg":
+        res.update(gdg_bucket=args.gdg_bucket, peel_sweeps=n_sweeps)
+    print(json.dumps(res), flush=True)
 
-    # the OSD stage as one profiler range: its kernels' device time and its
-    # calls' CPU time
-    osd_owner = patches[-1][0]
-    osd_fn = osd_owner.osd_decode
+    # the ranged stage as one profiler range: its kernels' device time and
+    # its calls' CPU time
+    r_owner, r_attr, _ = patches[-1]
+    r_fn = getattr(r_owner, r_attr)
 
-    def osd_ranged(*a, **k):
-        with record_function(OSD_STAGE):
-            return osd_fn(*a, **k)
+    def stage_ranged(*a, **k):
+        with record_function(ranged):
+            return r_fn(*a, **k)
 
-    osd_owner.osd_decode = osd_ranged
+    setattr(r_owner, r_attr, stage_ranged)
+    # the profiler's cost grows with the op count: on the GDG path it
+    # traces the first PROFILED_GDG_SHOTS shots (two full ensemble buckets
+    # a window at the default bucket), the others the whole batch
+    prof_shots = min(shots, PROFILED_GDG_SHOTS) if args.path == "gdg" else shots
+    sub_wall = wall
+    if prof_shots < shots:  # the same shots unprofiled, for the busy share
+        t0 = time.perf_counter()
+        run(det[:prof_shots])
+        sub_wall = time.perf_counter() - t0
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run()
+            run(det[:prof_shots])
             prof_wall = time.perf_counter() - t0
     finally:
-        osd_owner.osd_decode = osd_fn
+        setattr(r_owner, r_attr, r_fn)
     events = prof.key_averages()
 
     def dev_us(e):
@@ -163,24 +223,26 @@ def main() -> int:
     # the range appears twice: as the CPU op (its calls' host time) and as a
     # user annotation on the card's timeline (its span there, which holds
     # the stage's kernels and any idle gap between them)
-    osd_cpu = [e for e in events if e.key == OSD_STAGE and e.device_type == DeviceType.CPU]
-    osd_dev = [e for e in events if e.key == OSD_STAGE and e.device_type == DeviceType.CUDA]
-    osd_stage = {
-        "calls": sum(e.count for e in osd_cpu),
-        "host_cpu_s": sum(float(e.cpu_time_total) for e in osd_cpu) / 1e6,
-        "device_span_s": sum(dev_us(e) for e in osd_dev) / 1e6,
+    r_cpu = [e for e in events if e.key == ranged and e.device_type == DeviceType.CPU]
+    r_dev = [e for e in events if e.key == ranged and e.device_type == DeviceType.CUDA]
+    r_stage = {
+        "stage": ranged,
+        "calls": sum(e.count for e in r_cpu),
+        "host_cpu_s": sum(float(e.cpu_time_total) for e in r_cpu) / 1e6,
+        "device_span_s": sum(dev_us(e) for e in r_dev) / 1e6,
     }
 
     # device-side events only (the kernels and memcpys themselves): the
     # aten operator rows repeat the time of the kernels they launch
     kernels = sorted(
         ((e.key, dev_us(e), e.count) for e in events
-         if e.device_type == DeviceType.CUDA and dev_us(e) > 0 and e.key != OSD_STAGE),
+         if e.device_type == DeviceType.CUDA and dev_us(e) > 0 and e.key != ranged),
         key=lambda x: -x[1],
     )
     busy_us = sum(k[1] for k in kernels)
 
     result = {
+        "profiled_shots": prof_shots,
         "unprofiled_wall_s": wall,
         "profiled_wall_s": prof_wall,
         "device_busy_s": busy_us / 1e6,
@@ -188,8 +250,9 @@ def main() -> int:
         # (the profiler slows the host, so this overstates the idle share
         # of an unprofiled run, where busy / wall_s is the estimate)
         "device_idle_share": 1 - busy_us / 1e6 / prof_wall,
-        "device_busy_over_unprofiled_wall": busy_us / 1e6 / wall,
-        "osd_stage_profiled": osd_stage,
+        "unprofiled_wall_same_shots_s": sub_wall,
+        "device_busy_over_unprofiled_wall": busy_us / 1e6 / sub_wall,
+        "stage_profiled": r_stage,
         "top_kernels": [
             {"name": k[0][:80], "device_ms": k[1] / 1e3, "count": k[2]}
             for k in kernels[:20]
