@@ -71,7 +71,33 @@ Phases (any failure exits non-zero; nothing is caught):
    reference's 400/5000); then its first 64 shots at full width, and the
    small input, each on the card and by the plain versions on the CPU (no
    shot may differ);
-9. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+9. ``[gdg_spans]``: the GDG path again with the span-compacted ensemble
+   (``ensemble_mode="spans"``): exactly ``GDG_FAILED`` failures, and every
+   correction and flag equal to the host-stepped form's, with its shots/s
+   beside that form's and the columns stepped in each span as a share of
+   the ensemble's columns;
+10. code capacity on the [[882,24]] QC-GHP code (``Misc.ipynb`` cell 10)
+   at p=0.04, 65536 shots from seed 2024: first kernel B at 441x882 on
+   the first OSD bucket of the BP+OSD-0 and BP+OSD-CS-10 decodes of the
+   first 8192 shots (``gauss_jordan_key`` and ``osd_cs_fused`` against
+   their plain versions, bit-exact, with times and bounds); then
+   ``[bp_span]`` on the BPGD
+   burst at its real shape (a 2048-row bucket, 12 masked f32 iterations,
+   slot-major carry, batch-major states), captured from the BPGD decode,
+   on the card against the plain loop on the CPU, bit-exact, with its time
+   beside the bound; then ``[cc_bpgd]`` (BPGD, no pre-BP, max_step 100,
+   spans mode) and ``[cc_osd]`` (BP+OSD-0 and BP+OSD-CS-10 at min-sum
+   0.625) through ``data_qubit_noise_decoding``, each held to its own
+   count ``CC_FAILED`` and within 3 sigma of the reference's rate, with
+   the launch counts read around it (``bp_span_pinned`` for BPGD;
+   ``bp_span`` with ``gauss_jordan_key`` or ``osd_cs_fused`` for OSD);
+   ``[cc_device]``: ``run_cc_campaign_device`` for BPGD over all VNs on
+   [[882]] and GDG's spans form on [[288,12,18]] at p=0.02, 65536 shots
+   each, within 3 sigma of the reference; ``[cc_slice]``: the first 256
+   [[882]] shots by BPGD and GDG's spans form on the card and by the plain
+   versions on the CPU, and by BPGD's two forms on the card, no shot
+   differing;
+11. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -124,6 +150,27 @@ REF_GDG_FAILED, REF_GDG_SHOTS = 400, 5000
 GDG_FAILED = 675
 GDG_BUCKET = 512
 GDG_SLICE_SHOTS, GDG_SLICE_BUCKET = 64, 32
+# code capacity: the [[882,24]] QC-GHP code (Misc.ipynb cell 10) at p=0.04,
+# 65536 shots from seed 2024 through ``data_qubit_noise_decoding``; the
+# reference's rates (docs/PARITY.md) and the port's own counts at seed
+# 2024 (its first run on the card, PERF.md), for BPGD at max_step 100 and
+# BP+OSD-0 / OSD-CS-10
+CC_P, CC_SHOTS = 0.04, 65536
+CC_REF = {"bpgd": (551, 1_000_000), "osd0": (26, 1_000_000), "osdcs": (1, 1_000_000)}
+CC_FAILED = {"bpgd": 30, "osd0": 2, "osdcs": 0}
+# the device-resident campaign: BPGD over all VNs on [[882]] (34/1e6) and
+# GDG's spans form on [[288,12,18]] at p=0.02 (1/1e7), 65536 shots each
+CC_DEVICE_SHOTS = 65536
+CC_DEVICE_REF = {"bpgd_all": (34, 1_000_000), "gdg_288": (1, 10_000_000)}
+# the first shots of the [[882]] samples, decoded on the card and on the CPU
+CC_SLICE_SHOTS = 256
+# the [[882]] shots whose first OSD bucket holds kernel B against its plain
+# version at 441x882
+CC_OSD_CHECK_SHOTS = 8192
+# which kernels each code-capacity decoder may launch
+CC_KERNELS = {"bpgd": ("bp_span_pinned",), "osd0": ("bp_span", "gauss_jordan_key"),
+              "osdcs": ("bp_span", "osd_cs_fused"), "bpgd_all": ("bp_span_pinned",),
+              "gdg_288": ("bp_span", "bp_span_pinned")}
 
 
 def log(*a):
@@ -337,15 +384,54 @@ def _sweep_work(gj, key, pair_i, pair_j, order_w: int, solution):
     return int_ops, f32_ops, int(solution.sum())
 
 
-def phase_gj(plan):
+def _gj_case(label, Hw, synd, key, *, m: int, n: int, rank: int, **_):
+    """``gauss_jordan_key`` on the card against ``ordered_gauss_jordan_key``
+    on the same inputs, every output bit-exact; then its time, the plain
+    version's and the bound."""
     import torch
 
     from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key
-    from slidingwindowdecoder_torch.ops.gf2_solve import (
-        gf2_rank_packed,
-        ordered_gauss_jordan_key,
-        pack_rows_host,
-    )
+    from slidingwindowdecoder_torch.ops.gf2_solve import ordered_gauss_jordan_key
+
+    W, B = Hw.shape[1], synd.shape[0]
+    before = gauss_jordan_key.launches
+    out = gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank)
+    torch.cuda.synchronize()
+    if gauss_jordan_key.launches != before + 1:
+        raise SystemExit("kernel B was not launched")
+    ref = ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank)
+    bad = [k for k in ref if not torch.equal(out[k], ref[k])]
+    err = max(float((out[k].double() - ref[k].double()).abs().max()) for k in ref)
+    ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 20)
+    plain_ms = cuda_time_ms(
+        lambda: ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 2)
+    xor_rows = int(ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank,
+                                            count_xor=True)["xor_rows"].sum())
+    ops = _gj_ops(m, n, W, rank, B, xor_rows)
+    nbytes = Hw.numel() * 4 + synd.numel() + key.numel() * 4 + B * (
+        m * (W + 1) * 4 + 2 * rank * 4 + 1)
+    ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    n_incons = int(out["inconsistent"].sum())
+    log(f"[gj] {label} rank {rank} B={B}: bit-exact={not bad} max_abs_err={err} "
+        f"inconsistent {n_incons}/{B}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms (ops {ops}, {xor_rows} rows XORed -> {ops_ms:.5f} ms, "
+        f"bytes {nbytes} -> {bytes_ms:.5f} ms)")
+    if bad:
+        raise SystemExit(f"[gj] {label}: kernel B disagrees with its plain version on {bad}")
+    gauss_jordan_key.launches = 0
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "shape": f"{m}x{n} B={B}"}
+
+
+def phase_gj(plan):
+    """Kernel B's elimination entry point on tie keys (random syndromes)
+    at 216x1656 and 216x1728 (``_gj_case``); the kernels line keeps the
+    216x1728 case."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops.gf2_solve import gf2_rank_packed, pack_rows_host
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     B = 256
@@ -353,48 +439,19 @@ def phase_gj(plan):
     for spec in (plan.windows[1], plan.windows[-1]):
         H = spec.mat
         m, n = H.shape
-        rank = gf2_rank_packed(H)
         Hw = torch.as_tensor(pack_rows_host(H).view(np.int32), device="cuda")
-        W = Hw.shape[1]
         synd = torch.randint(0, 2, (B, m), generator=gen, device="cuda", dtype=torch.uint8)
-        key = _tie_keys(gen, B, n)
-        before = gauss_jordan_key.launches
-        out = gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank)
-        torch.cuda.synchronize()
-        if gauss_jordan_key.launches != before + 1:
-            raise SystemExit("kernel B was not launched")
-        ref = ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank)
-        bad = [k for k in ref if not torch.equal(out[k], ref[k])]
-        err = max(float((out[k].double() - ref[k].double()).abs().max()) for k in ref)
-        ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 20)
-        plain_ms = cuda_time_ms(
-            lambda: ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 2)
-        xor_rows = int(ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank,
-                                                count_xor=True)["xor_rows"].sum())
-        ops = _gj_ops(m, n, W, rank, B, xor_rows)
-        nbytes = Hw.numel() * 4 + synd.numel() + key.numel() * 4 + B * (
-            m * (W + 1) * 4 + 2 * rank * 4 + 1)
-        ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
-        n_incons = int(out["inconsistent"].sum())
-        log(f"[gj] {m}x{n} rank {rank} B={B}: bit-exact={not bad} max_abs_err={err} "
-            f"inconsistent {n_incons}/{B}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms (ops {ops}, {xor_rows} rows XORed -> {ops_ms:.5f} ms, "
-            f"bytes {nbytes} -> {bytes_ms:.5f} ms)")
-        if bad:
-            raise SystemExit(f"kernel B disagrees with its plain version on {bad}")
-        result["max_abs_err"] = max(result["max_abs_err"], err)
+        r = _gj_case(f"{m}x{n}", Hw, synd, _tie_keys(gen, B, n), m=m, n=n,
+                     rank=gf2_rank_packed(H))
+        result["max_abs_err"] = max(result["max_abs_err"], r["max_abs_err"])
         if n == 1728:
-            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                          shape=f"{m}x{n} B={B}")
-    gauss_jordan_key.launches = 0
+            result.update(r, max_abs_err=result["max_abs_err"])
     return result
 
 
-def _first_osd_bucket(module, factory, spec, synd):
-    """The arguments of the first ``osd_decode`` call of ``module``'s
-    decoder on window ``spec`` (one ``core`` call on ``synd``)."""
+def _first_osd_bucket(module, decoder, synd):
+    """The arguments of the first ``osd_decode`` call of ``decoder`` (whose
+    module is ``module``) in one ``core`` call on ``synd``."""
     orig, seen = module.osd_decode, []
 
     def first(*a, **k):
@@ -404,28 +461,90 @@ def _first_osd_bucket(module, factory, spec, synd):
 
     module.osd_decode = first
     try:
-        factory(spec).core(synd)
+        decoder.core(synd)
     finally:
         module.osd_decode = orig
     return seen[0]
 
 
+def _osd_cs_case(label, Hw, s, key, llr, *, m: int, n: int, rank: int, meta: dict, **_):
+    """``osd_cs_fused`` on the card against the plain elimination and sweep
+    on the same inputs: solution, OSD-0, inconsistency and the bits of
+    min_pm equal; then its time beside the standalone elimination's,
+    kernel B's before the fused design, the plain version's and the
+    bound."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key, osd_cs_fused
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        _osd_sweep_cs_sortless,
+        ordered_gauss_jordan_key,
+    )
+
+    W, Bc = Hw.shape[1], s.shape[0]
+    pi, pj = (torch.as_tensor(meta[k], dtype=torch.int32, device="cuda")
+              for k in ("pair_i", "pair_j"))
+    ow = int(meta["order_w"])
+
+    def fused():
+        return osd_cs_fused(Hw, s, key, llr, pi, pj, m=m, n=n, rank=rank, order_w=ow)
+
+    def plain(count_xor=False):
+        gj = ordered_gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank, count_xor=count_xor)
+        return gj, _osd_sweep_cs_sortless(gj, key, llr, pi, pj, order_w=ow)
+
+    before = osd_cs_fused.launches
+    out = fused()
+    torch.cuda.synchronize()
+    if osd_cs_fused.launches != before + 1:
+        raise SystemExit("the fused OSD-CS kernel was not launched")
+    gj, (sol, min_pm) = plain(count_xor=True)
+    pairs = {"solution": (out["solution"], sol), "osd0": (out["osd0"], gj["osd0"]),
+             "inconsistent": (out["inconsistent"], gj["inconsistent"]),
+             "min_pm": (out["min_pm"].view(torch.int32), min_pm.view(torch.int32))}
+    bad = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
+    err = max(float((out[k].double() - y.double()).abs().max())
+              for k, y in (("solution", sol), ("osd0", gj["osd0"]), ("min_pm", min_pm)))
+    ms = cuda_time_ms(fused, 20)
+    gj_ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank), 20)
+    plain_ms = cuda_time_ms(plain, 2)
+    xor_rows = int(gj["xor_rows"].sum())
+    int_ops, f32_ops, f64_adds = _sweep_work(gj, key, pi, pj, ow, sol)
+    int_ops += _gj_ops(m, n, W, rank, Bc, xor_rows)
+    nbytes = (Hw.numel() * 4 + s.numel() + key.numel() * 4 + n * 4 + 8 * pi.shape[0]
+              + Bc * (2 * n + 5))
+    ops_ms = 1e3 * max(int_ops / INT32_OPS_PER_S, f32_ops / FP32_OPS_PER_S,
+                       f64_adds / FP64_ADDS_PER_S)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    n_cand = int((sol != gj["osd0"]).any(dim=1).sum())
+    log(f"[osd_cs] {label} B={Bc}: bit-exact={not bad} max_abs_err={err}; "
+        f"{n_cand} shots take a candidate, {int(gj['inconsistent'].sum())} inconsistent; "
+        f"fused {ms:.4f} ms, elimination alone {gj_ms:.4f} ms, before {GJ_BEFORE_MS} ms "
+        f"(kernel B at 216x1728), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (int32 "
+        f"{int_ops} with {xor_rows} rows XORed, float32 {f32_ops}, float64 {f64_adds} "
+        f"-> {ops_ms:.5f} ms, bytes {nbytes} -> {bytes_ms:.5f} ms)")
+    if bad:
+        raise SystemExit(f"[osd_cs] {label}: the fused kernel disagrees with its plain "
+                         f"version on {bad}")
+    gauss_jordan_key.launches = osd_cs_fused.launches = 0
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "shape": f"{m}x{n} B={Bc}"}
+
+
 def phase_osd_cs(plan, det):
-    """The fused OSD-CS launch against the plain elimination and sweep on
-    the card, on tie keys (random syndromes) at 216x1728 and 216x1656 and
-    on the first OSD bucket of window 0 of each path; then its time beside
-    the standalone elimination's, kernel B's before the fused design, and
-    the bound."""
+    """The fused OSD-CS launch (``_osd_cs_case``) on tie keys (random
+    syndromes) at 216x1728 and 216x1656 and on the first OSD bucket of
+    window 0 of each path; the kernels line keeps the 216x1728 tie-key
+    case."""
     import torch
 
     from slidingwindowdecoder_torch.decoders import bposd, osd_window
     from slidingwindowdecoder_torch.harness.circuit_level import window_decoder_factory
-    from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key, osd_cs_fused
     from slidingwindowdecoder_torch.ops.gf2_solve import (
-        _osd_sweep_cs_sortless,
         analyze_patterns,
         gf2_rank_packed,
-        ordered_gauss_jordan_key,
         osd_candidate_patterns,
         pack_rows_host,
     )
@@ -449,67 +568,40 @@ def phase_osd_cs(plan, det):
     for label, module, factory in (
             ("flagship", bposd, window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS)),
             ("shortened", osd_window, window_decoder_factory(True, device="cuda"))):
-        args, kw = _first_osd_bucket(module, factory, spec, synd)
+        args, kw = _first_osd_bucket(module, factory(spec), synd)
         m, n = spec.mat.shape
         cases.append((f"{label} window 0, first OSD bucket ({m}x{n})", args[:4], kw))
 
     result = {"max_abs_err": 0.0}
-    for label, (Hw, s, key, llr), kw in cases:
-        m, n, rank, meta = kw["m"], kw["n"], kw["rank"], kw["meta"]
-        W, Bc = Hw.shape[1], s.shape[0]
-        pi, pj = (torch.as_tensor(meta[k], dtype=torch.int32, device="cuda")
-                  for k in ("pair_i", "pair_j"))
-        ow = int(meta["order_w"])
-
-        def fused():
-            return osd_cs_fused(Hw, s, key, llr, pi, pj, m=m, n=n, rank=rank, order_w=ow)
-
-        def plain(count_xor=False):
-            gj = ordered_gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank,
-                                          count_xor=count_xor)
-            return gj, _osd_sweep_cs_sortless(gj, key, llr, pi, pj, order_w=ow)
-
-        before = osd_cs_fused.launches
-        out = fused()
-        torch.cuda.synchronize()
-        if osd_cs_fused.launches != before + 1:
-            raise SystemExit("the fused OSD-CS kernel was not launched")
-        gj, (sol, min_pm) = plain(count_xor=True)
-        pairs = {"solution": (out["solution"], sol), "osd0": (out["osd0"], gj["osd0"]),
-                 "inconsistent": (out["inconsistent"], gj["inconsistent"]),
-                 "min_pm": (out["min_pm"].view(torch.int32), min_pm.view(torch.int32))}
-        bad = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
-        err = max(float((out[k].double() - y.double()).abs().max())
-                  for k, y in (("solution", sol), ("osd0", gj["osd0"]), ("min_pm", min_pm)))
-        ms = cuda_time_ms(fused, 20)
-        gj_ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank), 20)
-        plain_ms = cuda_time_ms(plain, 2)
-        xor_rows = int(gj["xor_rows"].sum())
-        int_ops, f32_ops, f64_adds = _sweep_work(gj, key, pi, pj, ow, sol)
-        int_ops += _gj_ops(m, n, W, rank, Bc, xor_rows)
-        nbytes = (Hw.numel() * 4 + s.numel() + key.numel() * 4 + n * 4 + 8 * pi.shape[0]
-                  + Bc * (2 * n + 5))
-        ops_ms = 1e3 * max(int_ops / INT32_OPS_PER_S, f32_ops / FP32_OPS_PER_S,
-                           f64_adds / FP64_ADDS_PER_S)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
-        n_cand = int((sol != gj["osd0"]).any(dim=1).sum())
-        log(f"[osd_cs] {label} B={Bc}: bit-exact={not bad} max_abs_err={err}; "
-            f"{n_cand} shots take a candidate, {int(gj['inconsistent'].sum())} inconsistent; "
-            f"fused {ms:.4f} ms, elimination alone {gj_ms:.4f} ms, before {GJ_BEFORE_MS} ms "
-            f"(kernel B at 216x1728), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (int32 "
-            f"{int_ops} with {xor_rows} rows XORed, float32 {f32_ops}, float64 {f64_adds} "
-            f"-> {ops_ms:.5f} ms, bytes {nbytes} -> {bytes_ms:.5f} ms)")
-        if bad:
-            raise SystemExit(f"[osd_cs] {label}: the fused kernel disagrees with its plain "
-                             f"version on {bad}")
-        result["max_abs_err"] = max(result["max_abs_err"], err)
+    for label, args, kw in cases:
+        r = _osd_cs_case(label, *args, **kw)
+        result["max_abs_err"] = max(result["max_abs_err"], r["max_abs_err"])
         if label.startswith("216x1728"):
-            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                          shape=f"{m}x{n} B={Bc}, tie keys")
-    osd_cs_fused.launches = 0
+            result.update(r, max_abs_err=result["max_abs_err"], shape=r["shape"] + ", tie keys")
     return result
+
+
+def phase_osd_882(code, synd, gj, osd_cs):
+    """Kernel B at the [[882]] code-capacity shape (441x882): the arguments
+    of the first ``osd_decode`` call of the cc882 BP+OSD-0 and
+    BP+OSD-CS-10 decoders on ``synd`` (real syndromes, BP reliabilities),
+    through ``gauss_jordan_key`` (OSD-0) and ``osd_cs_fused`` (OSD-CS)
+    against their plain versions, bit-exact (``_gj_case``,
+    ``_osd_cs_case``). The results go into the kernels line under
+    ``cc882_osd0`` / ``cc882_osdcs`` of ``gj`` / ``osd_cs``."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import bposd
+    from slidingwindowdecoder_torch.harness.code_capacity import parity_decoder
+
+    synd = torch.as_tensor(synd, device="cuda")
+    for which, res, case in (("osd0", gj, _gj_case), ("osdcs", osd_cs, _osd_cs_case)):
+        args, kw = _first_osd_bucket(
+            bposd, parity_decoder(code, CC_P, which, device="cuda"), synd)
+        r = case(f"[[882]] BP+{which.upper()}, first OSD bucket",
+                 *args[:3 if which == "osd0" else 4], **kw)
+        res[f"cc882_{which}"] = r
+        res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
 
 
 def _span_diff(label, out, ref):
@@ -573,7 +665,11 @@ def _span_case(label, args, kw, cpu_garr, reps: int):
                  else torch.full((B,), n))
     hist_writes = int(((ran - kw["hist_from"]).clamp_min(0) * hist_rows).sum())
     ops = shot_iters * (edges * SPAN_OPS_PER_EDGE + n * SPAN_OPS_PER_VN)
-    nbytes = 2 * dc * m_pad * B * t + 4 * hist_writes + B * n
+    # bytes of the rows not done at entry (a done row's block is neither
+    # read nor compared): its message block read and written, its int32
+    # syndrome and sign seed, its VN state and error, and the ring's writes
+    live = int((~args[8]).sum())
+    nbytes = live * (2 * dc * m_pad * t + 8 * m_pad + 2 * n) + 4 * hist_writes
     # all at the float32 rate, though the sign counts run at the integer one
     ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     # shared-memory traffic of one shot-iteration, from the code: CN two
@@ -583,7 +679,8 @@ def _span_case(label, args, kw, cpu_garr, reps: int):
     smem = shot_iters * (edges * (6 * t + 2) + n * dv * (t + 2) + n * (4 + t) + 6 * m_pad)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     S = bp_cuda.shots_per_block(garr, B, mv.dtype, sms)
-    log(f"[bp_span] {label}: {shot_iters} shot-iterations, longest {longest}; kernel "
+    log(f"[bp_span] {label}: {live} of {B} rows not done at entry, {shot_iters} "
+        f"shot-iterations, longest {longest}; kernel "
         f"{ms:.4f} ms ({ms / max(longest, 1):.5f} ms per iteration, {S} shots x "
         f"{bp_cuda.MAX_THREADS // S * S} threads per block, {-(-B // S)} blocks, "
         f"{bp_cuda.span_smem_bytes(garr, mv.dtype, S)} B shared), per-op loop {plain_ms:.4f} "
@@ -752,16 +849,47 @@ FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
                       phase_b_spans=(48, 136), msg_dtype="bfloat16")
 
 
+def reset_counts():
+    """Every kernel wrapper's launch and plain-call count to 0."""
+    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+
+    for k in (bp_cuda.cn_update, bp_cuda.bp_span):
+        k.launches = k.pinned_launches = k.plain_calls = 0
+    for k in (gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused):
+        k.launches = k.plain_calls = 0
+
+
+def read_counts():
+    """(launches by kernel, plain calls by wrapper) since ``reset_counts``."""
+    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+
+    cn, span = bp_cuda.cn_update, bp_cuda.bp_span
+    gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
+    launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
+                "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
+                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches}
+    plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
+             "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls}
+    return launches, plain
+
+
+def check_kernels(name, launches, plain, kernels):
+    """Every kernel in ``kernels`` launched, no other one, no plain call."""
+    ran = {k for k, v in launches.items() if v}
+    if ran != set(kernels) or any(plain.values()):
+        raise SystemExit(f"{name} did not run on its kernels {kernels}: {launches} {plain}")
+
+
 def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, kernels):
     """Drive one decode path on the card over all of ``det``, with the
     launch counts set to 0 just before and read just after. The failure
     count must equal ``exact`` and lie within 3 sigma of the rate ``ref``
     = (failed, shots); every kernel named in ``kernels`` must have
     launched, every other kernel and every plain version must not have
-    run."""
+    run. Returns the counts, times and launches, and the corrections
+    (``e_hat``, on the host)."""
     import torch
 
-    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import (
         decode_sliding_window,
         evaluate_logical_errors,
@@ -773,22 +901,13 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, 
     det_dev = torch.as_tensor(det, device="cuda")
     torch.cuda.synchronize()
 
-    cn, span = bp_cuda.cn_update, bp_cuda.bp_span
-    gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
-    for k in (cn, span):
-        k.launches = k.pinned_launches = k.plain_calls = 0
-    for k in (gj, osd):
-        k.launches = k.plain_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = decode_sliding_window(plan, det_dev, factory, device="cuda", verbose=False,
                                 collect_window_stats=False, sync_per_window=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
-                "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
-                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches}
-    plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
-             "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls}
+    launches, plain = read_counts()
 
     e_hat = out["total_e_hat"]
     if tuple(e_hat.shape) != (shots, plan.chk.shape[1]) or int(e_hat.max()) > 1:
@@ -810,15 +929,14 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, 
     if abs(nf - mean) > 3 * sigma or nf != exact:
         raise SystemExit(f"{name}: {nf} failures, want {exact} inside "
                          f"{mean:.1f} +- 3*{sigma:.1f}")
-    ran = {k for k, v in launches.items() if v}
-    if ran != set(kernels) or any(plain.values()):
-        raise SystemExit(f"{name} did not run on its kernels {kernels}: {launches} {plain}")
+    check_kernels(name, launches, plain, kernels)
     return {
         "shots": shots, "seconds": dt, "shots_per_s": shots / dt,
         "window_p50_s": float(np.percentile(wsec, 50)),
         "window_p99_s": float(np.percentile(wsec, 99)),
         "num_failed": nf, "num_flagged": ev["num_flagged"], "ler_per_round": ler_round,
         "window_counts": out["window_counts"], "launches": launches,
+        "e_hat": e_hat.cpu().numpy(),
     }
 
 
@@ -845,6 +963,215 @@ def phase_card_vs_cpu(name, plan, det, obs, make_factory):
         f"{res['cpu'][2]:.1f}s CPU")
     if res["cuda"][1] != res["cpu"][1] or diff:
         raise SystemExit(f"{name}: the card disagrees with the CPU plain path")
+
+
+def phase_gdg_spans(plan, det, obs, num_repeat: int, host_res):
+    """The GDG path again with ``ensemble_mode="spans"`` (row buckets of
+    2048 columns at most, lane dormancy): the spans form computes the
+    host-stepped form's results (``gdg_ensemble_spans`` says where a dead
+    column could part them), so its failures, flags and every correction
+    must equal ``host_res``'s. Also counts, per span of the schedule, the
+    columns its steps ran on as a share of the ensemble buckets' columns
+    (host-side counts: no extra read)."""
+    from collections import defaultdict
+
+    from slidingwindowdecoder_torch.decoders import gdg
+    from slidingwindowdecoder_torch.harness.circuit_level import gdg_window_factory
+
+    stepped, columns = defaultdict(int), [0]
+    step, spans_fn = gdg._ensemble_step, gdg.gdg_ensemble_spans
+
+    def counted_step(garr, llr, synd, rank, tt, reinit_any, d, carry, **kw):
+        stepped[d] += carry["vn"].shape[1]
+        return step(garr, llr, synd, rank, tt, reinit_any, d, carry, **kw)
+
+    def counted_spans(garr, llr, syndrome, *a, **kw):
+        columns[0] += syndrome.shape[0] * a[-1]["num_branches"]
+        return spans_fn(garr, llr, syndrome, *a, **kw)
+
+    factory = gdg_window_factory(max_iter=8, ensemble_bucket=GDG_BUCKET,
+                                 ensemble_mode="spans", device="cuda")
+    gdg._ensemble_step, gdg.gdg_ensemble_spans = counted_step, counted_spans
+    try:
+        res = phase_path("gdg_spans", plan, det, obs, factory, num_repeat,
+                         (REF_GDG_FAILED, REF_GDG_SHOTS), GDG_FAILED,
+                         ("bp_span", "bp_span_pinned"))
+    finally:
+        gdg._ensemble_step, gdg.gdg_ensemble_spans = step, spans_fn
+    differ = int((res.pop("e_hat") != host_res["e_hat"]).any(axis=1).sum())
+    spans = factory(plan.windows[0]).ensemble_spans
+    shares, d0 = [], 0
+    for sp in spans:
+        shares.append(sum(stepped[d] for d in range(d0, d0 + sp)) / max(1, sp * columns[0]))
+        d0 += sp
+    res.update(spans=spans, active_share_by_span=shares, ensemble_columns=columns[0],
+               column_steps=sum(stepped.values()), shots_differing=differ)
+    log(f"[gdg_spans] {res['shots_per_s']:.1f} shots/s (host-stepped "
+        f"{host_res['shots_per_s']:.1f}); failed {res['num_failed']} flagged "
+        f"{res['num_flagged']} (host-stepped {host_res['num_failed']} / "
+        f"{host_res['num_flagged']}), shots differing {differ}; spans {spans}, columns "
+        f"stepped per span as a share of the {columns[0]} ensemble columns "
+        f"{[round(x, 4) for x in shares]}")
+    if differ or res["num_flagged"] != host_res["num_flagged"]:
+        raise SystemExit("[gdg_spans] the spans form disagrees with the host-stepped form")
+    return res
+
+
+def cc_samples(code):
+    """The seed-2024 syndromes that ``data_qubit_noise_decoding`` draws at
+    one batch of ``CC_SHOTS`` shots."""
+    rng = np.random.default_rng(SEED)
+    err = (rng.random((CC_SHOTS, code.N)) < CC_P).astype(np.float32)
+    return ((err @ code.hx.T.astype(np.float32)) % 2).astype(np.uint8)
+
+
+def phase_bp_span_bpgd(code, synd):
+    """The BPGD burst at its real shape: the arguments of the fourth masked
+    ``bp_run`` of ``BPGD.core`` (spans mode, max_step 100) on the [[882]]
+    syndromes (step 3 of the first bucket of ``row_bucket`` rows; 12
+    iterations, slot-major carry, batch-major states), captured on the
+    card, then ``bp_span_pinned`` on them against the plain loop on the
+    CPU (``_span_case``)."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import bpgd
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.harness.code_capacity import parity_decoder
+    from slidingwindowdecoder_torch.ops.bp import span_inputs
+
+    dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
+    calls, orig = [], bpgd.bp_run
+
+    def capture(*a, **k):
+        calls.append((a, k))
+        if len(calls) == 4:
+            raise _Captured
+        return orig(*a, **k)
+
+    bpgd.bp_run = capture
+    try:
+        dec.core(torch.as_tensor(synd, device="cuda"))
+    except _Captured:
+        pass
+    finally:
+        bpgd.bp_run = orig
+    if len(calls) < 4:
+        raise SystemExit("[bp_span] BPGD: the first bucket halted before step 3")
+    a, k = calls[3]
+    args, kw = span_inputs(*a, **{key: v for key, v in k.items() if key != "hist_update"})
+    B = args[1].shape[2]
+    log(f"[bp_span] BPGD burst: {B} rows ({int((~args[8]).sum())} active), "
+        f"{float((args[5] != -1).float().mean()):.4f} of the VNs decided")
+    return _span_case(f"BPGD burst masked f32 B={B}", args, kw,
+                      graph_tensors(compile_graph(code.hx), "cpu"), 20)
+
+
+def phase_cc_host(code):
+    """``[cc_bpgd]`` and ``[cc_osd]``: [[882]] at p=0.04 through
+    ``data_qubit_noise_decoding`` (seed 2024, one batch of ``CC_SHOTS``),
+    BPGD at max_step 100, BP+OSD-0 and BP+OSD-CS-10, each with the launch
+    counts read around its run: its failures equal to ``CC_FAILED`` and
+    within 3 sigma of the reference's rate (``rates_compatible``)."""
+    import torch
+
+    from slidingwindowdecoder_torch.harness.code_capacity import (
+        data_qubit_noise_decoding,
+        parity_decoder,
+    )
+    from slidingwindowdecoder_torch.utils.metrics import rates_compatible
+
+    res = {}
+    for name, ov in (("bpgd", {"max_step": 100}), ("osd0", {}), ("osdcs", {})):
+        tag = "cc_bpgd" if name == "bpgd" else "cc_osd"
+        dec = parity_decoder(code, CC_P, name, ov, device="cuda")
+        reset_counts()
+        r = data_qubit_noise_decoding(code, CC_P, CC_SHOTS, {name: dec}, batch_size=CC_SHOTS,
+                                      seed=SEED, verbose=False)[name]
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        nf, ref = r["num_err"], CC_REF[name]
+        ok = rates_compatible(nf, r["shots"], *ref)
+        log(f"[{tag}] {name}: failed {nf} flagged {r['num_flagged']} of {r['shots']} "
+            f"(LER {r['ler']:.3e}; reference {ref[0]}/{ref[1]}, within 3 sigma: {ok}); "
+            f"{r['shots_per_sec']:.1f} shots/s ({r['seconds']:.2f}s); launches {launches}; "
+            f"plain calls {plain}")
+        if not ok or nf != CC_FAILED[name]:
+            raise SystemExit(f"[{tag}] {name}: {nf} failures, want {CC_FAILED[name]} within "
+                             f"3 sigma of {ref[0]}/{ref[1]}")
+        check_kernels(f"[{tag}] {name}", launches, plain, CC_KERNELS[name])
+        res[name] = {"num_failed": nf, "num_flagged": r["num_flagged"], "shots": r["shots"],
+                     "seconds": r["seconds"], "shots_per_s": r["shots_per_sec"],
+                     "launches": launches}
+    return res
+
+
+def phase_cc_device(code882):
+    """``[cc_device]``: ``run_cc_campaign_device`` on ``CC_DEVICE_SHOTS``
+    shots (one batch, seed 2024) for BPGD over all VNs on [[882]] at p=0.04
+    and GDG's spans form on [[288,12,18]] at p=0.02 (low_error_mode,
+    factor 0.625, ensemble buckets of 1024 shots: 47 branches, 48,128
+    columns), each held within 3 sigma of its reference's rate."""
+    from slidingwindowdecoder_torch.harness.code_capacity import parity_code, parity_decoder
+    from slidingwindowdecoder_torch.harness.device_campaign import run_cc_campaign_device
+    from slidingwindowdecoder_torch.utils.metrics import rates_compatible
+
+    res = {}
+    for name, code, p, which, ov in (
+            ("bpgd_all", code882, CC_P, "bpgd", {}),
+            ("gdg_288", parity_code(288), 0.02, "gdg", {"ensemble_mode": "spans"})):
+        dec = parity_decoder(code, p, which, ov, device="cuda")
+        reset_counts()
+        r = run_cc_campaign_device(code, p, CC_DEVICE_SHOTS, dec, batch=CC_DEVICE_SHOTS,
+                                   seed=SEED)
+        launches, plain = read_counts()
+        nf, ref = r["num_err"], CC_DEVICE_REF[name]
+        ok = rates_compatible(nf, r["shots"], *ref)
+        log(f"[cc_device] {name}: failed {nf} flagged {r['num_flagged']} of {r['shots']} "
+            f"(reference {ref[0]}/{ref[1]}, within 3 sigma: {ok}); {r['shots_per_sec']:.1f} "
+            f"shots/s ({r['seconds']:.2f}s after a warm-up batch); launches {launches} "
+            f"(the warm-up's included); plain calls {plain}")
+        if not ok:
+            raise SystemExit(f"[cc_device] {name}: {nf} failures outside 3 sigma of {ref}")
+        check_kernels(f"[cc_device] {name}", launches, plain, CC_KERNELS[name])
+        res[name] = {"num_failed": nf, "num_flagged": r["num_flagged"], "shots": r["shots"],
+                     "seconds": r["seconds"], "shots_per_s": r["shots_per_sec"],
+                     "launches": launches}
+    return res
+
+
+def phase_cc_slice(code, synd):
+    """``[cc_slice]``: the first ``CC_SLICE_SHOTS`` [[882]] syndromes
+    decoded by BPGD (max_step 100) and by GDG's spans form (the cc882-gdg
+    row's knobs) on the card and by the plain versions on the CPU, and by
+    BPGD's loop form and its spans form with 64-row buckets on the card:
+    no shot may differ in error, convergence, iterations or min_pm."""
+    from slidingwindowdecoder_torch.harness.code_capacity import PARITY_ROWS, parity_decoder
+
+    first = synd[:CC_SLICE_SHOTS]
+    bpgd_kw = {"max_step": 100}
+    cases = [
+        ("BPGD card vs CPU", "bpgd", bpgd_kw, ("cuda", {}), ("cpu", {})),
+        ("BPGD loop vs spans (64-row buckets), card", "bpgd", bpgd_kw,
+         ("cuda", {"mode": "loop"}), ("cuda", {"row_bucket": 64})),
+        ("GDG spans card vs CPU", "gdg",
+         {**PARITY_ROWS["cc882-gdg"][4], "ensemble_mode": "spans"}, ("cuda", {}),
+         ("cpu", {})),
+    ]
+    for label, which, kw, (dev_a, kw_a), (dev_b, kw_b) in cases:
+        out = []
+        for dev, extra in ((dev_a, kw_a), (dev_b, kw_b)):
+            t0 = time.perf_counter()
+            r = parity_decoder(code, CC_P, which, {**kw, **extra}, device=dev).decode_batch(first)
+            out.append((r, time.perf_counter() - t0))
+        (ra, ta), (rb, tb) = out
+        differ = np.zeros(len(first), bool)
+        for k in ("error", "converged", "iterations", "min_pm"):
+            a, b = getattr(ra, k), getattr(rb, k)
+            differ |= (a != b).reshape(len(first), -1).any(axis=1)
+        log(f"[cc_slice] {label}, {len(first)} shots: converged {int(ra.converged.sum())}, "
+            f"shots differing {int(differ.sum())}; {ta:.1f}s and {tb:.1f}s")
+        if differ.any():
+            raise SystemExit(f"[cc_slice] {label}: {int(differ.sum())} shots differ")
 
 
 def main() -> int:
@@ -884,6 +1211,7 @@ def main() -> int:
     phase_card_vs_cpu("small", plan72, det72, obs72, lambda dev: window_decoder_factory(
         False, max_iter=30, osd_order=2, phase_a_iters=None, phase_b_spans=None,
         device=dev))
+    main_res.pop("e_hat")
     log(json.dumps({"main_path": main_res}))
     short_res = phase_path("osd_window", plan, det, obs,
                            window_decoder_factory(True, device="cuda"), num_repeat,
@@ -894,6 +1222,7 @@ def main() -> int:
     phase_card_vs_cpu("osd_window_small", plan72, det72, obs72,
                       lambda dev: window_decoder_factory(True, max_iter=30, osd_order=2,
                                                          device=dev))
+    short_res.pop("e_hat")
     log(json.dumps({"osd_window_path": short_res}))
 
     _, _, gdem, gplan = build_bb_window_experiment(144, GDG_P, num_repeat, 3, 1)
@@ -910,16 +1239,34 @@ def main() -> int:
         max_iter=8, ensemble_bucket=GDG_SLICE_BUCKET, device=dev))
     phase_card_vs_cpu("gdg_small", plan72, det72, obs72,
                       lambda dev: gdg_window_factory(max_iter=8, device=dev))
-    log(json.dumps({"gdg_path": gdg_res}))
+    log(json.dumps({"gdg_path": {k: v for k, v in gdg_res.items() if k != "e_hat"}}))
+    spans_res = phase_gdg_spans(gplan, gdet, gobs, num_repeat, gdg_res)
+    log(json.dumps({"gdg_spans_path": spans_res}))
+
+    from slidingwindowdecoder_torch.harness.code_capacity import parity_code
+
+    code882 = parity_code(882)
+    cc_synd = cc_samples(code882)
+    phase_osd_882(code882, cc_synd[:CC_OSD_CHECK_SHOTS], gj, osd_cs)
+    bpgd_burst = phase_bp_span_bpgd(code882, cc_synd[:CC_SHOTS])
+    cc_res = phase_cc_host(code882)
+    cc_dev = phase_cc_device(code882)
+    phase_cc_slice(code882, cc_synd)
+    log(json.dumps({"code_capacity": cc_res, "code_capacity_device": cc_dev}))
 
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
     cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
     gj_src = "slidingwindowdecoder_torch/csrc/gauss_jordan.cu"
     by_path = {k: {"main": main_res["launches"][k], "osd_window": short_res["launches"][k],
-                   "gdg": gdg_res["launches"][k]} for k in main_res["launches"]}
+                   "gdg": gdg_res["launches"][k], "gdg_spans": spans_res["launches"][k],
+                   "code_capacity": sum(r["launches"][k] for r in (*cc_res.values(),
+                                                                   *cc_dev.values()))}
+               for k in main_res["launches"]}
     span["bp_span_pinned"]["gdg_burst"] = gdg_burst
+    span["bp_span_pinned"]["bpgd_burst"] = bpgd_burst
     span["bp_span_pinned"]["max_abs_err"] = max(span["bp_span_pinned"]["max_abs_err"],
-                                                gdg_burst["max_abs_err"])
+                                                gdg_burst["max_abs_err"],
+                                                bpgd_burst["max_abs_err"])
     kernels = [
         {"name": "bp_span", "route": "cuda", "source": span_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package) with the XLA ops "

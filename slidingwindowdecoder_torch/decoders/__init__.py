@@ -1,4 +1,5 @@
 from .base import DecodeResult
 from .bposd import BPOSD
+from .bpgd import BPGD
 from .gdg import GDG
 from .osd_window import OSDWindow

@@ -21,11 +21,14 @@ the select and aggressive decimation, the guess, two peels and the
 side-branch message reinit, then one host read of whether every column has
 finished. The JAX package's "fused" (one compiled loop over all steps) and
 "host_loop" forms give identical results, so both run this host-stepped
-form here.
+form here: one driver, ``gdg_ensemble_spans``, with unit spans and no
+compaction. Its "spans" form cuts the depth loop into static spans and,
+before each, sorts the finished columns out of the walk (row
+compaction); a side or tree-side column stays dormant until its
+activation depth and then copies its source column (lane dormancy).
 
-Not ported (``NotImplementedError``): ``ensemble_mode="spans"`` (row
-compaction and lane dormancy), ``multi_thread=False`` (the serial work
-queue ``gdg_serial``) and the bfloat16 history ring.
+Not ported (``NotImplementedError``): ``multi_thread=False`` (the serial
+work queue ``gdg_serial``) and the bfloat16 history ring.
 
 Path metrics (``min_pm`` and the per-shot choice among converged branches)
 are the priors of the correction's support summed in float64. Every
@@ -269,13 +272,17 @@ def _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0, cn_state0, cn_degr
 
 def _ensemble_step(garr, llr, synd, scan_rank, tt, reinit_any, d: int, carry, *,
                    num_iter: int, alpha: float, clip: float, low_error_mode: bool,
-                   msg_dtype: str):
+                   msg_dtype: str, start_row=None):
     """One ensemble decimation step (the JAX ``_ensemble_step``): masked BP
     burst, select_vn, decimate, peel, side-branch message reinit. Updates
     ``carry`` in place of its entries. ``reinit_any``: whether any branch
-    reinitializes its messages at depth ``d`` (a host bool)."""
+    reinitializes its messages at depth ``d`` (a host bool). ``start_row``
+    [BN] (spans form only) keeps dormant columns, which copy another
+    column's state at their activation depth, frozen before that depth."""
     c = carry
     active = ~c["halted"] & (d < tt["budget_row"])
+    if start_row is not None:
+        active = active & (d >= start_row)
 
     # masked BP burst; tail history: only the burst's last 4 iterations
     # write the ring, which the select reads for rows still active
@@ -354,7 +361,35 @@ def _ensemble_reduce(carry, llr, BK: int, NB: int):
     }
 
 
-def gdg_ensemble_hostloop(
+def default_spans(D_max: int, budgets, span: int = 4, activations=()) -> tuple:
+    """Static span schedule (the JAX ``default_spans``): compaction every
+    ``span`` steps, plus a boundary at each branch-budget cliff where at
+    least 1/8 of the ensemble goes inactive at once, plus one at every
+    lane activation depth (dormant lanes copy their source at span
+    starts, so each distinct ``copy_at`` needs a boundary)."""
+    budgets = [int(b) for b in budgets]
+    nb = max(len(budgets), 1)
+    counts = {}
+    for b in budgets:
+        counts[b] = counts.get(b, 0) + 1
+    cliffs = {b for b, c in counts.items() if 0 < b < D_max and c * 8 >= nb}
+    acts = {int(a) for a in activations if 0 < a < D_max}
+    bounds = sorted(set(range(span, D_max, span)) | cliffs | acts | {D_max})
+    spans, prev = [], 0
+    for b in bounds:
+        if b > prev:
+            spans.append(b - prev)
+            prev = b
+    return tuple(spans)
+
+
+def _take_cols(carry, idx):
+    """Columns ``idx`` of every entry of a batch-minor carry (rows on the
+    last axis)."""
+    return {k: v[..., idx] for k, v in carry.items()}
+
+
+def gdg_ensemble_spans(
     garr,
     llr,
     syndrome,
@@ -370,30 +405,94 @@ def gdg_ensemble_hostloop(
     clip: float,
     low_error_mode: bool,
     msg_dtype: str = "float32",
+    spans: tuple,
+    row_bucket: int | None = None,
+    copy_plan=None,
 ):
-    """Host-stepped branch ensemble over ``BK`` shots (``syndrome`` [BK,
-    m]): up to ``D_max`` ``_ensemble_step`` calls, stopping after the
-    first step at whose end every column has finished (halted, or its
-    step budget spent), then ``_ensemble_reduce``. ``tables``: the output
-    of ``build_branch_tables``.
+    """The branch ensemble over ``BK`` shots (``syndrome`` [BK, m]), the
+    JAX ``gdg_ensemble_spans``: ``_ensemble_step`` for each depth, the
+    depth loop cut into the static ``spans``, then ``_ensemble_reduce``.
+    ``tables``: the output of ``build_branch_tables``. Before each span,
+    one host read of how many columns (shot x branch lanes) are
+    unfinished; a span with none is skipped, and the ensemble ends once
+    none is left and no dormant lane is still to wake (a finished column
+    changes no output).
 
-    The same results as the JAX ``gdg_ensemble`` (which runs all D_max
-    steps; a finished column changes no output) and
-    ``gdg_ensemble_hostloop``."""
+    ``row_bucket`` None: the span's steps run on every column. Else the
+    columns are sorted unfinished-first (a stable sort) and only the
+    buckets of ``row_bucket`` columns (the largest divisor of BN up to
+    it) that cover unfinished columns run the span's steps, every step of
+    it, as in JAX (row compaction); a bucket may hold finished columns,
+    which the step freezes. The host-stepped form of the JAX package is
+    unit spans and ``row_bucket`` None (``GDG`` "fused" and "host_loop").
+
+    ``copy_plan`` = (copy_at, copy_from) per lane (``build_branch_tables``)
+    turns on lane dormancy: a lane that shares another lane's decisions up
+    to its activation depth stays frozen until then and copies that lane's
+    state at the span boundary of that depth (the reference's snapshot
+    handoff, bpgd.cpp:651-664), instead of recomputing the shared prefix.
+    Every activation depth must be a span boundary. Every schedule gives
+    the host-stepped form's results, up to columns that died in a peel
+    (``_ensemble_reduce`` reads one only when no branch of its shot
+    converged): such a column keeps being swept while a live column of its
+    batch forces, and the batches differ."""
     BK = syndrome.shape[0]
-    NB, D_max = tables["num_branches"], tables["D_max"]
+    NB = tables["num_branches"]
+    dev = syndrome.device
     carry, synd, rank_b = _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0,
                                          cn_state0, cn_degree0, dead0, NB, msg_dtype)
-    tt = tile_branch_tables(tables, BK, syndrome.device)
+    tt = tile_branch_tables(tables, BK, dev)
     reinit_any = tables["reinit"].any(axis=0)
-    for d in range(D_max):
-        carry = _ensemble_step(
-            garr, llr, synd, rank_b, tt, bool(reinit_any[d]), d, carry,
-            num_iter=num_iter, alpha=alpha, clip=clip, low_error_mode=low_error_mode,
-            msg_dtype=msg_dtype,
-        )
-        if bool((carry["halted"] | (d + 1 >= tt["budget_row"])).all()):
+    BN = BK * NB
+    lanes = np.arange(BN) % NB
+    start_np = start_row = None
+    if copy_plan is not None:
+        copy_at, copy_from = (np.asarray(a, np.int32) for a in copy_plan)
+        bounds = set(np.cumsum((0,) + tuple(spans)).tolist())
+        acts = {int(a) for a in copy_at if a >= 0}
+        if not acts <= bounds:
+            raise ValueError(f"spans {spans} miss the activation depths "
+                             f"{sorted(acts - bounds)} (default_spans adds them)")
+        start_np = np.maximum(copy_at[lanes], 0)
+        start_row = torch.as_tensor(start_np, device=dev)
+    kw = dict(num_iter=num_iter, alpha=alpha, clip=clip, low_error_mode=low_error_mode,
+              msg_dtype=msg_dtype)
+    bucket = BN if row_bucket is None else _divisor_bucket(BN, row_bucket)
+    if bucket < BN:  # the walk writes into the carry: no broadcast view
+        carry["mv"] = carry["mv"].contiguous()
+    last_wake = -1 if start_np is None else int(start_np.max())
+
+    d0 = 0
+    for sp in spans:
+        if copy_plan is not None and (copy_at[lanes] == d0).any():
+            # activations: each lane starting here copies its source lane
+            src = np.where(copy_at[lanes] == d0, (np.arange(BN) // NB) * NB
+                           + copy_from[lanes], np.arange(BN))
+            carry = _take_cols(carry, torch.as_tensor(src, device=dev))
+        finished = carry["halted"] | (d0 >= tt["budget_row"])
+        if start_np is not None:  # dormant through the whole span
+            finished = finished | (start_row >= d0 + sp)
+        n_todo = int((~finished).sum())
+        if not n_todo and last_wake < d0 + sp:  # nothing left, nothing to wake
             break
+        if bucket == BN and n_todo:  # one bucket holds every column: no compaction
+            for d in range(d0, d0 + sp):
+                carry = _ensemble_step(garr, llr, synd, rank_b, tt, bool(reinit_any[d]), d,
+                                       carry, start_row=start_row, **kw)
+            d0 += sp
+            continue
+        order = torch.argsort(finished.to(torch.int8), stable=True)
+        for b in range(-(-n_todo // bucket)):
+            idx = order[b * bucket:(b + 1) * bucket]
+            sub, tt_c = _take_cols(carry, idx), _take_cols(tt, idx)
+            synd_c, rank_c = synd[:, idx], rank_b[:, idx]
+            start_c = None if start_row is None else start_row[idx]
+            for d in range(d0, d0 + sp):
+                sub = _ensemble_step(garr, llr, synd_c, rank_c, tt_c, bool(reinit_any[d]), d,
+                                     sub, start_row=start_c, **kw)
+            for k, v in sub.items():
+                carry[k][..., idx] = v
+        d0 += sp
     return _ensemble_reduce(carry, llr, BK, NB)
 
 
@@ -402,13 +501,16 @@ class GDG:
     (bp_guessing_decoder.pyx:160-338), multi-thread form.
 
     The constructor is the JAX package's, less ``cn_engine`` (the kernels
-    are chosen by shape), ``ensemble_early_exit`` (the host-stepped form
+    are chosen by shape) and ``ensemble_early_exit`` (the host-stepped form
     always stops when every column has finished; the results are the
-    same), ``ensemble_spans`` and ``row_bucket`` (spans form only), plus
-    ``device`` (None means "cuda"; raises without a card).
-    ``ensemble_mode`` "fused" and "host_loop" both run
-    ``gdg_ensemble_hostloop``; "spans", ``multi_thread=False`` and
-    ``hist_dtype="bfloat16"`` raise ``NotImplementedError``.
+    same), plus ``device`` (None means "cuda"; raises without a card).
+    Every mode runs ``gdg_ensemble_spans``: "fused" and "host_loop" with
+    unit spans on every column (host-stepped), "spans" over
+    ``ensemble_spans`` (default ``default_spans``) in buckets of
+    ``row_bucket`` columns, with lane dormancy unless a user schedule
+    misses an activation depth (then each lane recomputes its prefix).
+    ``multi_thread=False`` and ``hist_dtype="bfloat16"`` raise
+    ``NotImplementedError``.
 
     Shortening decides the n - new_n most reliable columns (by the pre-BP
     history sum) to 0 on the full masked graph, then peels.
@@ -436,12 +538,12 @@ class GDG:
         hist_dtype: str = "float32",
         multi_thread: bool = True,
         ensemble_mode: str = "fused",
+        ensemble_spans=None,
+        row_bucket: int = 2048,
         device=None,
     ):
         if ensemble_mode not in ("fused", "host_loop", "spans"):
             raise ValueError("ensemble_mode must be 'fused', 'host_loop' or 'spans'")
-        if ensemble_mode == "spans":
-            raise NotImplementedError("ensemble_mode='spans' is not ported")
         if not multi_thread:
             raise NotImplementedError("multi_thread=False (gdg_serial) is not ported")
         if hist_dtype != "float32":
@@ -474,6 +576,21 @@ class GDG:
                                           max_tree_branch_step, max_side_branch_step)
         self.NB = self.tables["num_branches"]
         self.D_max = self.tables["D_max"]
+        self.row_bucket = int(row_bucket)
+        # the lane-dormancy plan of the spans form
+        self._copy_plan = (self.tables["copy_at"], self.tables["copy_from"])
+        if ensemble_spans is None:
+            self.ensemble_spans = default_spans(self.D_max, self.tables["budget"].tolist(),
+                                                activations=self.tables["copy_at"])
+        else:
+            self.ensemble_spans = tuple(int(s) for s in ensemble_spans)
+            if sum(self.ensemble_spans) != self.D_max:
+                raise ValueError(f"ensemble_spans must sum to D_max={self.D_max}")
+            bounds = set(np.cumsum((0,) + self.ensemble_spans).tolist())
+            if not {int(a) for a in self.tables["copy_at"] if a >= 0} <= bounds:
+                # the schedule misses an activation depth: no dormancy, every
+                # lane recomputes its prefix (as the JAX package falls back)
+                self._copy_plan = None
 
     def _shorten_state(self, synds, llr_sum):
         """Decide the most reliable n - new_n columns to 0, then peel. Also
@@ -500,7 +617,8 @@ class GDG:
         non-converged shots (sorted by syndrome weight, so that a bucket's
         columns finish together), each bucket shortened and run through the
         ensemble. One host read of how many shots are left, then one per
-        ensemble step.
+        ensemble step (host-stepped form) or per span (spans form), besides
+        the peels' reads.
 
         Returns dict: error [B, n] uint8, converged [B] bool, iterations
         [B] int32 (pre-BP plus all branches' burst iterations), min_pm [B]
@@ -520,16 +638,19 @@ class GDG:
         key = converged.to(torch.int32) * (self.m + 2) + synd_weight
         order = torch.argsort(key, stable=True)
         n_todo = int((~converged).sum())
+        kw = dict(num_iter=self.num_iter_per_step, alpha=self.gdg_factor, clip=self.clip,
+                  low_error_mode=self.low_error_mode, msg_dtype=self.msg_dtype,
+                  spans=(1,) * self.D_max)
+        if self.ensemble_mode == "spans":
+            kw.update(spans=self.ensemble_spans, row_bucket=self.row_bucket,
+                      copy_plan=self._copy_plan)
         for b in range(-(-n_todo // bucket)):
             idx = order[b * bucket:(b + 1) * bucket]
             s = synds[idx]
             done_c = converged[idx]
             vn0, cn0, cd0, dead0, rank_pos = self._shorten_state(s, llr_sum[idx])
-            out = gdg_ensemble_hostloop(
-                self.garr, self._llr_dev, s, rank_pos, vn0, cn0, cd0, dead0, self.tables,
-                num_iter=self.num_iter_per_step, alpha=self.gdg_factor, clip=self.clip,
-                low_error_mode=self.low_error_mode, msg_dtype=self.msg_dtype,
-            )
+            out = gdg_ensemble_spans(self.garr, self._llr_dev, s, rank_pos, vn0, cn0, cd0,
+                                     dead0, self.tables, **kw)
             # boundary buckets may straddle converged shots: keep theirs
             error[idx] = torch.where(done_c[:, None], error[idx], out["error"])
             converged[idx] = done_c | out["converged"]

@@ -213,6 +213,7 @@ def gdg_window_factory(
     last_win_bp_factor: float = 1.0,
     ensemble_bucket: int = 64,
     ensemble_mode: str = "fused",
+    ensemble_spans=None,
     msg_dtype: str = "float32",
     hist_dtype: str = "float32",
     device=None,
@@ -241,6 +242,7 @@ def gdg_window_factory(
             low_error_mode=low_error_mode,
             ensemble_bucket=ensemble_bucket,
             ensemble_mode=ensemble_mode,
+            ensemble_spans=ensemble_spans,
             msg_dtype=msg_dtype,
             hist_dtype=hist_dtype,
             device=dev,
@@ -272,6 +274,7 @@ def sliding_window_gdg(
     last_win_bp_factor: float = 1.0,
     ensemble_bucket: int = 64,
     ensemble_mode: str = "fused",
+    ensemble_spans=None,
     msg_dtype: str = "float32",
     hist_dtype: str = "float32",
     seed: int | None = None,
@@ -279,8 +282,8 @@ def sliding_window_gdg(
     device=None,
 ):
     """Sliding-window decoding with GDG per window (guessing.py:19-237);
-    the JAX package's driver, less ``ensemble_spans`` and ``cn_engine``,
-    plus ``device`` (None means "cuda"; raises without a card).
+    the JAX package's driver, less ``cn_engine``, plus ``device`` (None
+    means "cuda"; raises without a card).
 
     With ``last_win_osd``, the final window is re-decoded with BP+OSD-CS-10
     (``BPOSD``) after the GDG pass (guessing.py:149-158, 229-236) and both
@@ -306,7 +309,8 @@ def sliding_window_gdg(
         max_side_branch_step=max_side_branch_step, low_error_mode=low_error_mode,
         last_win_gdg_factor=last_win_gdg_factor, last_win_bp_factor=last_win_bp_factor,
         ensemble_bucket=ensemble_bucket, ensemble_mode=ensemble_mode,
-        msg_dtype=msg_dtype, hist_dtype=hist_dtype, device=dev,
+        ensemble_spans=ensemble_spans, msg_dtype=msg_dtype, hist_dtype=hist_dtype,
+        device=dev,
     )
     # warm-up: build every window's decoder and load the kernels outside
     # the timed region

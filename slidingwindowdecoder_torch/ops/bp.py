@@ -531,19 +531,22 @@ def decode_bp(
 
     Returns dict with error, converged, iterations, history, posterior-sum
     ordering key (llr_sum, summed slot by slot as ``history_sum``), and
-    final messages.
+    final messages. ``num_iter=0`` runs nothing on either device (no
+    launch) and returns the fresh state, as the JAX loop of no iteration
+    does: no shot converged, ``llr_sum`` all zero.
     """
     B = syndrome.shape[0]
     if masked is None:
         masked = vn_state is not None or cn_state is not None
     mv = bp_init_messages(garr, prior_llr, B)
     history, error, done, iters = fresh_bp_state(garr, B)
-    mv, history, error, done, iters = bp_run(
-        garr, mv, prior_llr, syndrome, history, error, done, iters,
-        num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
-        freeze_messages=freeze_messages, history_mode=history_mode,
-        vn_state=vn_state, cn_state=cn_state, masked=masked,
-    )
+    if num_iter > 0:
+        mv, history, error, done, iters = bp_run(
+            garr, mv, prior_llr, syndrome, history, error, done, iters,
+            num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
+            freeze_messages=freeze_messages, history_mode=history_mode,
+            vn_state=vn_state, cn_state=cn_state, masked=masked,
+        )
     return {
         "error": error,
         "converged": done,

@@ -321,3 +321,66 @@ def test_gj_smem_layout_matches_kernel(card):
         W = -(-n // 32)
         for fused in (False, True):
             assert fn(m, n, W, int(fused)) == gf2_cuda.smem_bytes(m, n, W, fused)
+
+
+def _cc_inputs(p, shots, seed):
+    from slidingwindowdecoder_torch.codes import bb_code_by_n
+
+    code, _, _ = bb_code_by_n(72)
+    rng = np.random.default_rng(seed)
+    probs = p * (0.75 + 0.5 * rng.random(code.N))
+    errs = (rng.random((shots, code.N)) < probs).astype(np.uint8)
+    return code, probs, (errs @ code.hx.T) % 2
+
+
+def _launches():
+    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+
+    span, cn = bp_cuda.bp_span, bp_cuda.cn_update
+    return {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
+            "cn_update": cn.launches + cn.pinned_launches,
+            "gauss_jordan_key": gf2_cuda.gauss_jordan_key.launches,
+            "osd_cs_fused": gf2_cuda.osd_cs_fused.launches}
+
+
+@pytest.mark.parametrize("mode", ["loop", "spans"])
+def test_bpgd_card_matches_cpu(card, mode):
+    """BPGD with the ``Misc.ipynb`` cell 10 knobs (no pre-BP, 12 masked
+    iterations a step at ``gd_factor`` 0.8) on bb72 syndromes: every burst
+    is one pinned fused launch and the decode equals the plain one on the
+    CPU, shot for shot."""
+    from slidingwindowdecoder_torch.decoders import BPGD
+
+    code, probs, synds = _cc_inputs(0.1, 128, 9)
+    kw = dict(max_iter=0, max_iter_per_step=12, gd_factor=0.8, max_step=code.N,
+              new_n=code.N, bucket=64, row_bucket=64, mode=mode)
+    before = _launches()
+    rc = BPGD(code.hx, probs, device=card, **kw).decode_batch(synds)
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran["bp_span_pinned"] > 0 and not any(v for k, v in ran.items()
+                                                 if k != "bp_span_pinned")
+    rp = BPGD(code.hx, probs, device="cpu", **kw).decode_batch(synds)
+    for k in ("error", "converged", "iterations", "min_pm"):
+        np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)
+
+
+def test_gdg_spans_card_matches_cpu(card):
+    """GDG's spans form at the code-capacity factor 0.625 with
+    ``low_error_mode`` on bb72 syndromes, 88-column row buckets: the card's
+    decode (pre-BP on the unmasked fused kernel, bursts on the pinned one)
+    equals the plain one on the CPU, shot for shot."""
+    from slidingwindowdecoder_torch.decoders import GDG
+
+    code, probs, synds = _cc_inputs(0.13, 64, 7)
+    kw = dict(max_iter=24, ms_scaling_factor=0.625, gdg_factor=0.625, max_iter_per_step=6,
+              max_step=40, max_tree_depth=3, max_side_depth=10, max_tree_branch_step=20,
+              max_side_branch_step=20, low_error_mode=True, ensemble_bucket=16,
+              ensemble_mode="spans", row_bucket=128)
+    before = _launches()
+    rc = GDG(code.hx, probs, device=card, **kw).decode_batch(synds)
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran["bp_span"] == 1 and ran["bp_span_pinned"] > 0
+    assert not (ran["cn_update"] or ran["gauss_jordan_key"] or ran["osd_cs_fused"])
+    rp = GDG(code.hx, probs, device="cpu", **kw).decode_batch(synds)
+    for k in ("error", "converged", "iterations", "min_pm"):
+        np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)

@@ -164,8 +164,10 @@ def test_gdg_bucket_invariance_and_modes(bb72):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(ensemble_mode="spans"), "spans"), (dict(multi_thread=False), "gdg_serial"),
-    (dict(hist_dtype="bfloat16"), "float32")])
+    # the spans form is ported; its bfloat16 history ring is not
+    pytest.param(dict(ensemble_mode="spans", hist_dtype="bfloat16"), "float32",
+                 id="kw0-spans"),
+    (dict(multi_thread=False), "gdg_serial"), (dict(hist_dtype="bfloat16"), "float32")])
 def test_gdg_unported_forms_raise(bb72, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         GDG(bb72.hx, np.full(bb72.N, 0.05), device="cpu", **kw)

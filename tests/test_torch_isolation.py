@@ -44,7 +44,8 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize(
     "path",
     [p.relative_to(ROOT).as_posix() for p in sorted(PKG.rglob("*"))
-     if p.suffix in (".py", ".cu", ".cuh")] + ["chip_smoke.py"],
+     if p.suffix in (".py", ".cu", ".cuh")] + ["chip_smoke.py"]
+    + [p.relative_to(ROOT).as_posix() for p in sorted((ROOT / "tools").glob("torch_*.py"))],
 )
 def test_sources_name_no_jax(path):
     text = (ROOT / path).read_text()

@@ -10,6 +10,8 @@ share.
     python3 tools/torch_profile_main_path.py                  # BPOSD flagship
     python3 tools/torch_profile_main_path.py --path osd_window
     python3 tools/torch_profile_main_path.py --path gdg [--gdg-bucket 256]
+    python3 tools/torch_profile_main_path.py --path gdg_spans
+    python3 tools/torch_profile_main_path.py --path cc_bpgd
 
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
@@ -19,13 +21,21 @@ post-BP buckets, OSD. Both at p=0.004 over 16384 shots. ``gdg``: the
 p=0.005 over 8192 shots; stages pre-BP, shortening, ensemble set-up, BP
 bursts, select and aggressive decimation, the guess's ``vn_set_values_t``,
 the transposed peels (sweeps, each ending in one host read), reduce.
-Seed 2024, as ``chip_smoke.py``.
+``gdg_spans``: the same decoder with ``ensemble_mode="spans"`` (row buckets
+of 2048 at most, lane dormancy); its stages add the compaction's gathers.
+``cc_bpgd``: code capacity on the [[882,24]] QC-GHP code at p=0.04, one
+``BPGD.core`` call on 65536 syndromes (the first batch that
+``data_qubit_noise_decoding`` draws from seed 2024 at that batch size):
+no pre-BP, 12 masked iterations a step at ``gd_factor`` 0.8, max_step
+100, spans mode; stages the bursts, the decision's ``vn_set_values``, the
+peels (sweeps, a host read each) and the rest (the argmax, the step's
+finished read, the compaction). Seed 2024, as ``chip_smoke.py``.
 
 Prints one JSON line with the stage seconds and the kernel launches of the
 timed decode, then one with the top kernels by device time, the busy
 share, and one stage's device time (the kernels launched inside it)
 beside its host time (the same calls' CPU time), both from the profiled
-decode: OSD on the first two paths, the BP bursts on ``gdg``.
+decode: OSD on the first two paths, the BP bursts on the others.
 """
 
 from __future__ import annotations
@@ -46,6 +56,10 @@ SEED = 2024
 OSD_STAGE = "osd_decode (fused GJ + CS kernel)"
 BURST_STAGE = "ensemble bursts (masked bp_run, one bp_span_pinned launch each)"
 PROFILED_GDG_SHOTS = 1024
+PROFILED_CC_SHOTS = 16384
+CC_SHOTS, CC_P = 65536, 0.04
+
+
 
 
 def main() -> int:
@@ -54,7 +68,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("bposd", "osd_window", "gdg"), default="bposd")
+    ap.add_argument("--path", choices=("bposd", "osd_window", "gdg", "gdg_spans", "cc_bpgd"),
+                    default="bposd")
     ap.add_argument("--gdg-bucket", type=int, default=512,
                     help="GDG ensemble_bucket (shots per ensemble bucket)")
     args = ap.parse_args()
@@ -62,27 +77,56 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     from slidingwindowdecoder_torch.circuits import sample_dem_numpy
-    from slidingwindowdecoder_torch.decoders import BPOSD, GDG, bposd, gdg, osd_window
+    from slidingwindowdecoder_torch.decoders import (
+        BPGD,
+        BPOSD,
+        GDG,
+        bpgd,
+        bposd,
+        gdg,
+        osd_window,
+    )
     from slidingwindowdecoder_torch.harness.circuit_level import (
         build_bb_window_experiment,
         gdg_window_factory,
         window_decoder_factory,
     )
+    from slidingwindowdecoder_torch.harness.code_capacity import parity_code, parity_decoder
     from slidingwindowdecoder_torch.ops import bp_cuda, decimation, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
-    p, shots = (0.005, 8192) if args.path == "gdg" else (0.004, 16384)
-    _, _, dem, plan = build_bb_window_experiment(144, p, 12, 3, 1)
-    det, _, _ = sample_dem_numpy(dem, shots, np.random.default_rng(SEED))
-    det = torch.as_tensor(det, device="cuda")
+    gdg_paths = ("gdg", "gdg_spans")
+    if args.path == "cc_bpgd":
+        code = parity_code(882)
+        shots = CC_SHOTS
+        rng = np.random.default_rng(SEED)
+        err = (rng.random((shots, code.N)) < CC_P).astype(np.float32)
+        det = torch.as_tensor(((err @ code.hx.T.astype(np.float32)) % 2).astype(np.uint8),
+                              device="cuda")
+        dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
+    else:
+        p, shots = (0.005, 8192) if args.path in gdg_paths else (0.004, 16384)
+        _, _, dem, plan = build_bb_window_experiment(144, p, 12, 3, 1)
+        det, _, _ = sample_dem_numpy(dem, shots, np.random.default_rng(SEED))
+        det = torch.as_tensor(det, device="cuda")
     # (owner, attribute, stage name from the call's arguments) to time; the
     # last one is also the profiled stage
     ranged = OSD_STAGE
-    if args.path == "gdg":
-        factory = gdg_window_factory(max_iter=8, ensemble_bucket=args.gdg_bucket,
-                                     device="cuda")
+    if args.path == "cc_bpgd":
         ranged = BURST_STAGE
         patches = [
+            (BPGD, "_shorten_state", lambda *a: "shortening (nothing to drop: new_n = n)"),
+            (bpgd, "vn_set_values", lambda *a: "vn_set_values (the decision)"),
+            (bpgd, "peel", lambda *a: "peel (sweeps and host reads)"),
+            (bpgd, "bp_run", lambda *a, **k: BURST_STAGE),
+        ]
+    elif args.path in gdg_paths:
+        mode = "spans" if args.path == "gdg_spans" else "fused"
+        factory = gdg_window_factory(max_iter=8, ensemble_bucket=args.gdg_bucket,
+                                     ensemble_mode=mode, device="cuda")
+        ranged = BURST_STAGE
+        patches = [
+            (gdg, "_take_cols", lambda *a: "compaction and activation gathers"),
             (gdg, "decode_bp", lambda *a, **k: "pre-BP (whole batch, unmasked)"),
             (GDG, "_shorten_state", lambda *a: "shortening (sort, vn_set_values, peel)"),
             (gdg, "_ensemble_init", lambda *a, **k: "ensemble set-up (tiling)"),
@@ -114,17 +158,21 @@ def main() -> int:
         ]
 
     sweeps = [0]
-    sweep_t = decimation._sweep_t
+    sweep_name = "_sweep" if args.path == "cc_bpgd" else "_sweep_t"
+    sweep_fn = getattr(decimation, sweep_name)
 
-    def counted_sweep_t(*a, **k):
+    def counted_sweep(*a, **k):
         sweeps[0] += 1
-        return sweep_t(*a, **k)
+        return sweep_fn(*a, **k)
 
-    decimation._sweep_t = counted_sweep_t
+    setattr(decimation, sweep_name, counted_sweep)
 
     def run(d=det):
-        out = decode_sliding_window(plan, d, factory, device="cuda", verbose=False,
-                                    collect_window_stats=False)
+        if args.path == "cc_bpgd":
+            out = dec.core(d)
+        else:
+            out = decode_sliding_window(plan, d, factory, device="cuda", verbose=False,
+                                        collect_window_stats=False)
         torch.cuda.synchronize()
         return out
 
@@ -181,8 +229,13 @@ def main() -> int:
         "wall_s": wall, "shots_per_s": shots / wall, "staged_wall_s": total,
         "stages_s": dict(stages), "stage_calls": dict(calls), "launches": launches,
     }
-    if args.path == "gdg":
+    if args.path in gdg_paths:
         res.update(gdg_bucket=args.gdg_bucket, peel_sweeps=n_sweeps)
+    elif args.path == "cc_bpgd":
+        # host reads: one per peel sweep, one per step (whether every row
+        # halted; a burst is one step), one per span (rows left)
+        res.update(peel_sweeps=n_sweeps, bursts=launches["bp_span_pinned"],
+                   spans=len(dec.decim_spans))
     print(json.dumps(res), flush=True)
 
     # the ranged stage as one profiler range: its kernels' device time and
@@ -195,10 +248,12 @@ def main() -> int:
             return r_fn(*a, **k)
 
     setattr(r_owner, r_attr, stage_ranged)
-    # the profiler's cost grows with the op count: on the GDG path it
+    # the profiler's cost grows with the op count: on the GDG paths it
     # traces the first PROFILED_GDG_SHOTS shots (two full ensemble buckets
-    # a window at the default bucket), the others the whole batch
-    prof_shots = min(shots, PROFILED_GDG_SHOTS) if args.path == "gdg" else shots
+    # a window at the default bucket), on cc_bpgd PROFILED_CC_SHOTS, the
+    # others the whole batch
+    prof_shots = {"gdg": PROFILED_GDG_SHOTS, "gdg_spans": PROFILED_GDG_SHOTS,
+                  "cc_bpgd": PROFILED_CC_SHOTS}.get(args.path, shots)
     sub_wall = wall
     if prof_shots < shots:  # the same shots unprofiled, for the busy share
         t0 = time.perf_counter()
