@@ -13,12 +13,16 @@ Phases (any failure exits non-zero; nothing is caught):
    together);
 2. kernel A (min-sum check-node update) against its plain PyTorch version
    at the flagship window shape [35, 224, B], B in {1024, 16384}, f32 and
-   bf16, with forced ties, clipping and padding: bit-exact;
+   bf16, at the global DEM graph's bf16 blocks [35, 960, B], B in {8192,
+   1024}, and at a [[288]] W=4 interior window's f32 blocks [35, 608, B],
+   B in {16384, 512}, with forced ties, clipping and padding: bit-exact;
 3. the pinned kernel A (masked BP) against its plain version at [35, 224,
    B], B in {512, 16384}, on a [[288]] W=4 window (m_pad 608) and on the
-   [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, with ~30 %
-   of the edges and whole checks pinned: bit-exact (kernel A now serves
-   only the graphs outside the fused kernel's gate);
+   [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, and on
+   the global graph at the shortened global decode's f32 blocks, B in
+   {8192, 512}, with ~30 % of the edges and whole checks pinned:
+   bit-exact (kernel A now serves only the graphs outside the fused
+   kernel's gate);
 4. kernel B's elimination entry point (``gauss_jordan_key``: the
    reliability-ordered GF(2) Gauss-Jordan) against its plain version on a
    216x1728 and the rank-deficient 216x1656 window PCM at B=256, with keys
@@ -34,7 +38,7 @@ Phases (any failure exits non-zero; nothing is caught):
    launch) on the card against the plain loop on the CPU at every shape
    the paths give it, on window-0 syndromes of the seed-2024 samples: the
    whole-batch pre-BP (masked f32, B=16384, 8 iterations) and phase A
-   (unmasked bf16, B=16384, 16 iterations), held on their first 512
+   (unmasked bf16, B=16384, 16 iterations), held on their first 256
    shots; a post-BP bucket (masked f32, B=512, shortened as ``OSDWindow``
    does, 200 iterations) and a phase-B bucket (unmasked bf16, B=1024, a
    48-iteration span), both with tail history; error, done, iterations
@@ -54,7 +58,7 @@ Phases (any failure exits non-zero; nothing is caught):
    counts read around it (``bp_span_pinned`` and ``osd_cs_fused`` only)
    and the failure count held to exactly the port's 309/16384 (and to 3
    sigma of the reference's 183/10000); then the first
-   512 of those shots, at full width (no shot may differ), and a small
+   256 of those shots, at full width (no shot may differ), and a small
    input, each on the card and by the plain versions on the CPU;
 8. the GDG path, the decoder of ``sliding_window_gdg`` (the reference's
    guessing.py: GDG with pre-BP 8 and the reference's ensemble defaults,
@@ -68,7 +72,7 @@ Phases (any failure exits non-zero; nothing is caught):
    counts read around it (``bp_span`` for the pre-BP and
    ``bp_span_pinned`` for the bursts only) and the failure count held to
    exactly the port's own ``GDG_FAILED`` (and to 3 sigma of the
-   reference's 400/5000); then its first 64 shots at full width, and the
+   reference's 400/5000); then its first 32 shots at full width, and the
    small input, each on the card and by the plain versions on the CPU (no
    shot may differ);
 9. ``[gdg_spans]``: the GDG path again with the span-compacted ensemble
@@ -97,7 +101,30 @@ Phases (any failure exits non-zero; nothing is caught):
    [[882]] shots by BPGD and GDG's spans form on the card and by the plain
    versions on the CPU, and by BPGD's two forms on the card, no shot
    differing;
-11. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+11. ``[global]``: ``global_decoder`` on the whole [[144]] DEM (936x8784) at
+   p=0.004, 16384 shots from seed 2024, BP+OSD-CS-10 (bf16, the bench
+   knobs), held to its own count and within 3 sigma of the reference's
+   76/10000, and the shortened ``OSDWindow``, held to its own count (its
+   verdicts against the reference's 90/10000 and the JAX package's
+   98/16384 printed), and 8192 shots with BP+OSD-0 (its own count, no shot
+   flagged), with the launch counts read around it (``cn_update`` or
+   ``cn_update_pinned``, and the cluster route of ``osd_cs_fused`` or
+   ``gauss_jordan_key``); ``[sw_wide]``: the [[144]] W=4 and W=5 windows at
+   p=0.004 and the [[288,12,18]] W=4 windows (r=6, p=0.005), BP+OSD-CS-10 at
+   the default knobs, 16384 shots each, each held to its own count and
+   within 3 sigma of 131, 107 and 70 /10000; then the fused BP kernel on
+   the first call of each window shape, batch and span it took there,
+   against the plain loop on the CPU over 32 shots, and kernel B's fused
+   entry point on the first OSD bucket of each window shape, against the
+   plain versions on the card, bit-exact;
+   ``[gj_cluster]``: kernel B's cluster route (both entry points) against
+   the plain elimination and sweep, on the card over the bucket and on the
+   CPU over its first shots, bit-exact: tie keys at 216x1728 forced to 4
+   blocks, and the first OSD buckets of a [[288]] W=4 interior window
+   (576x4896, 2 blocks) and of the global decode (936x8784, 8 blocks), with
+   times and bounds; ``[global_slice]``: 32 global shots on the card and on
+   the CPU, no shot differing;
+12. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -105,6 +132,8 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -137,7 +166,7 @@ SHORT_FAILED = 309
 SPAN_OPS_PER_EDGE, SPAN_OPS_PER_VN = 25, 3
 # the first shots of the same samples, decoded on the shortened path on the
 # card and by the plain versions on the CPU at full width
-SLICE_SHOTS = 512
+SLICE_SHOTS = 256
 # the GDG path: [[144]] W=3 at p=0.005 (docs/PARITY.md, "[[144]] SW GDG
 # W=3, p=0.005, pre-BP 8": the reference's 400/5000), 8192 shots; the
 # port's own count at seed 2024 (its first run on the card, PERF.md); the
@@ -149,7 +178,7 @@ GDG_P, GDG_SHOTS = 0.005, 8192
 REF_GDG_FAILED, REF_GDG_SHOTS = 400, 5000
 GDG_FAILED = 675
 GDG_BUCKET = 512
-GDG_SLICE_SHOTS, GDG_SLICE_BUCKET = 64, 32
+GDG_SLICE_SHOTS, GDG_SLICE_BUCKET = 32, 32
 # code capacity: the [[882,24]] QC-GHP code (Misc.ipynb cell 10) at p=0.04,
 # 65536 shots from seed 2024 through ``data_qubit_noise_decoding``; the
 # reference's rates (docs/PARITY.md) and the port's own counts at seed
@@ -171,6 +200,50 @@ CC_OSD_CHECK_SHOTS = 8192
 CC_KERNELS = {"bpgd": ("bp_span_pinned",), "osd0": ("bp_span", "gauss_jordan_key"),
               "osdcs": ("bp_span", "osd_cs_fused"), "bpgd_all": ("bp_span_pinned",),
               "gdg_288": ("bp_span", "bp_span_pinned")}
+# the whole-block decode (``global_decoder``) of the [[144]] DEM (936x8784)
+# at p=0.004 from seed 2024 in 8192-shot chunks, by form: its arguments,
+# shots, the rates its count is compared with (failed, shots), whether it
+# must lie within 3 sigma of the first, the port's own count at seed 2024
+# (its first run on the card) and the kernels it may launch (BP on the
+# per-op loop with kernel A: the graph is outside ``bp_span``'s gate; OSD
+# on kernel B's cluster route). BP+OSD-CS is held to the reference's rate
+# (docs/PARITY.md, IBM.ipynb cell 3). The shortened form is held to its
+# exact count alone: it lies outside 3 sigma of the reference's 90/10000
+# (IBM.ipynb cell 5) at seeds 2024 and 7 (78 and 84 of 16384, the port's
+# runs on the card, PERF.md), and both verdicts are printed, against the
+# reference and against the JAX package's 98/16384 (docs/PARITY.md, seed
+# 7). The OSD-0 form (the elimination alone, no reference rate) must leave
+# no syndrome unmatched.
+GLOBAL_FORMS = {
+    "bposd": ({}, 16384, {"reference": (76, 10000)}, True, 152,
+              ("cn_update", "osd_cs_fused_cluster")),
+    "shortened": ({"shorten": True}, 16384,
+                  {"reference": (90, 10000), "JAX package, seed 7": (98, 16384)}, False, 78,
+                  ("cn_update_pinned", "osd_cs_fused_cluster")),
+    "osd0": ({"osd_method": "osd_0"}, 8192, {}, False, 151,
+             ("cn_update", "gauss_jordan_key_cluster")),
+}
+# the wide sliding windows, BP+OSD-CS-10 at the default knobs (f32), 16384
+# shots from seed 2024 each: (N, p, rounds, W, reference (failed, shots),
+# the port's own count (its first run on the card), kernels); [[144]] W=4/5
+# (288x2376/2448, 360x3096/3168) fit both fused kernels; [[288]] W=4
+# (576x4752/4896) runs its interior windows' BP on kernel A and all its OSD
+# on the cluster route
+SW_WIDE_SHOTS = 16384
+SW_WIDE = {
+    "144-w4": (144, 0.004, 12, 4, (131, 10000), 196, ("bp_span", "osd_cs_fused")),
+    "144-w5": (144, 0.004, 12, 5, (107, 10000), 167, ("bp_span", "osd_cs_fused")),
+    "288-w4": (288, 0.005, 6, 4, (70, 10000), 91,
+               ("bp_span", "cn_update", "osd_cs_fused_cluster")),
+}
+# shots of each recorded [sw_wide] BP call that the plain loop also takes
+# on the machine's CPU
+SW_WIDE_CPU_SHOTS = 32
+# global shots decoded on the card and by the plain versions on the CPU
+GLOBAL_SLICE_SHOTS = 32
+# shots of each [gj_cluster] bucket that the plain versions also take on
+# the machine's CPU
+GJ_CLUSTER_CPU_SHOTS = 32
 
 
 def log(*a):
@@ -214,50 +287,76 @@ def phase_build():
                 log(f"[build] {src}: {line.strip()}")
 
 
+@functools.cache
+def wide_pcms():
+    """(the [[144]] global DEM's check matrix (936x8784, m_pad 960), a
+    [[288]] W=4 interior window's (576x4896, m_pad 608)): the graphs that
+    BP runs on kernel A through ``bp_loop``."""
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+
+    _, _, dem144, _ = build_bb_window_experiment(144, 0.004, 12, 3, 1)
+    _, _, _, plan288 = build_bb_window_experiment(288, 0.005, 6, 4, 1)
+    return dem144.chk, plan288.windows[1].mat
+
+
 def phase_cn(plan):
+    """Kernel A against its plain version, bit-exact, on random messages
+    with ties, equal values and zeros, at the shapes of the unmasked BP:
+    the flagship window (phase A at 16384 shots, phase-B buckets of 1024,
+    f32 and bf16), the global DEM graph in bf16 (phase A at 8192 shots, the
+    chunk; phase-B buckets of 1024) and a [[288]] W=4 interior window in
+    f32 (phase A at 16384 shots, phase-B buckets of 512). The kernels line
+    keeps the flagship phase-A case; the others go under their paths."""
     import torch
 
     from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
     from slidingwindowdecoder_torch.ops.bp import _cn_update_sm
     from slidingwindowdecoder_torch.ops.bp_cuda import cn_update
 
-    g = compile_graph(plan.windows[1].mat)
-    garr = graph_tensors(g, "cuda")
-    valid = garr["cn_valid_sm"]
-    dc, m_pad = g.dc, g.m_pad
+    f32, bf16 = torch.float32, torch.bfloat16
+    win, glob, w288 = plan.windows[1].mat, *wide_pcms()
+    cases = [(None, win, B, dt) for B in (1024, 16384) for dt in (f32, bf16)] + [
+        ("global_phase_a", glob, 8192, bf16), ("global_phase_b", glob, 1024, bf16),
+        ("sw_288_w4_phase_a", w288, 16384, f32), ("sw_288_w4_phase_b", w288, 512, f32)]
     gen = torch.Generator(device="cuda").manual_seed(7)
     result = {"max_abs_err": 0.0}
-    for B in (1024, 16384):
-        for dtype in (torch.float32, torch.bfloat16):
-            mv = torch.randn((dc, m_pad, B), generator=gen, device="cuda") * 30
-            mv[1, ::3] = -mv[0, ::3]  # ties of |x| between slots 0 and 1
-            mv[2, ::5] = mv[3, ::5]  # equal values
-            mv[4, ::7] = 0.0  # zeros count as negative
-            mv = mv.to(dtype)
-            parity = torch.randint(0, 2, (m_pad, B), generator=gen, device="cuda",
-                                   dtype=torch.int32)
-            before = cn_update.launches
-            out = cn_update(mv, valid, parity, alpha=1.0, clip=50.0)
-            torch.cuda.synchronize()
-            if cn_update.launches != before + 1:
-                raise SystemExit("kernel A was not launched")
-            ref = _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0)
-            err = float((out.float() - ref.float()).abs().max())
-            same = torch.equal(out, ref)
-            ms = cuda_time_ms(lambda: cn_update(mv, valid, parity, alpha=1.0, clip=50.0), 50)
-            plain_ms = cuda_time_ms(
-                lambda: _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0), 5)
-            nbytes = 2 * mv.numel() * mv.element_size() + parity.numel() * 4 + valid.numel()
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            log(f"[cn] [{dc},{m_pad},{B}] {str(dtype)[6:]}: bit-exact={same} "
-                f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms (bytes {nbytes})")
-            if not same:
-                raise SystemExit(f"kernel A disagrees with its plain version at B={B} {dtype}")
-            result["max_abs_err"] = max(result["max_abs_err"], err)
-            if B == 16384 and dtype == torch.bfloat16:  # phase A of the main path
-                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              shape=f"[{dc},{m_pad},{B}] bf16")
+    for name, H, B, dtype in cases:
+        g = compile_graph(H)
+        valid = graph_tensors(g, "cuda")["cn_valid_sm"]
+        dc, m_pad = g.dc, g.m_pad
+        mv = torch.randn((dc, m_pad, B), generator=gen, device="cuda") * 30
+        mv[1, ::3] = -mv[0, ::3]  # ties of |x| between slots 0 and 1
+        mv[2, ::5] = mv[3, ::5]  # equal values
+        mv[4, ::7] = 0.0  # zeros count as negative
+        mv = mv.to(dtype)
+        parity = torch.randint(0, 2, (m_pad, B), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        before = cn_update.launches
+        out = cn_update(mv, valid, parity, alpha=1.0, clip=50.0)
+        torch.cuda.synchronize()
+        if cn_update.launches != before + 1:
+            raise SystemExit("kernel A was not launched")
+        ref = _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0)
+        err = float((out.float() - ref.float()).abs().max())
+        same = torch.equal(out, ref)
+        ms = cuda_time_ms(lambda: cn_update(mv, valid, parity, alpha=1.0, clip=50.0), 50)
+        plain_ms = cuda_time_ms(
+            lambda: _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0), 5)
+        nbytes = 2 * mv.numel() * mv.element_size() + parity.numel() * 4 + valid.numel()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shape = f"[{dc},{m_pad},{B}] {str(dtype)[6:]}"
+        log(f"[cn] {H.shape[0]}x{H.shape[1]} {shape}: bit-exact={same} "
+            f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms (bytes {nbytes})")
+        if not same:
+            raise SystemExit(f"kernel A disagrees with its plain version at {shape}")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        case = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "shape": shape}
+        if name:
+            result[name] = case
+        elif B == 16384 and dtype == bf16:  # phase A of the main path
+            result.update(case)
+        del mv, parity, out, ref
     cn_update.launches = 0
     return result
 
@@ -265,63 +364,68 @@ def phase_cn(plan):
 def phase_cn_pinned(plan):
     """The pinned kernel against its plain version at the shapes of the
     masked BP: the flagship window (pre-BP at 16384 shots, post-BP buckets
-    of 512), a [[288]] W=4 window and the [[144]] global DEM graph (the
-    shapes where the TPU kernel faulted its worker)."""
+    of 512), a [[288]] W=4 window and the [[144]] global DEM graph at 1024
+    shots (the shapes where the TPU kernel faulted its worker), and the
+    global graph in f32 at the shortened global decode's pre-BP chunk (8192
+    shots) and post-BP buckets (512)."""
     import torch
 
     from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
-    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
     from slidingwindowdecoder_torch.ops.bp import PIN, _cn_update_sm
     from slidingwindowdecoder_torch.ops.bp_cuda import cn_update
 
-    _, _, dem144, _ = build_bb_window_experiment(144, 0.004, 12, 3, 1)
-    _, _, _, plan288 = build_bb_window_experiment(288, 0.005, 6, 4, 1)
-    cases = [(plan.windows[1].mat, 512), (plan.windows[1].mat, 16384),
-             (plan288.windows[1].mat, 1024), (dem144.chk, 1024)]
+    glob, w288 = wide_pcms()
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(H, B, dt) for H, B in ((plan.windows[1].mat, 512), (plan.windows[1].mat, 16384),
+                                     (w288, 1024), (glob, 1024)) for dt in (f32, bf16)] + [
+        (glob, 8192, f32), (glob, 512, f32)]
     gen = torch.Generator(device="cuda").manual_seed(13)
     result = {"max_abs_err": 0.0}
-    for H, B in cases:
+    for H, B, dtype in cases:
         g = compile_graph(H)
         valid = graph_tensors(g, "cuda")["cn_valid_sm"]
         dc, m_pad = g.dc, g.m_pad
-        for dtype in (torch.float32, torch.bfloat16):
-            mv = torch.randn((dc, m_pad, B), generator=gen, device="cuda") * 30
-            mv[1, ::3] = -mv[0, ::3]  # ties of |x| between slots 0 and 1
-            mv[2, ::5] = mv[3, ::5]  # equal values
-            mv[4, ::7] = 0.0  # zeros count as negative
-            mv[5, ::11] = 80.0  # beyond +clip
-            mv[6, ::13] = -75.0  # beyond -clip
-            mv = mv.to(dtype)
-            mv[torch.rand(mv.shape, generator=gen, device="cuda") < 0.3] = PIN
-            mv[:, ::9] = PIN  # every edge of these checks pinned
-            parity = torch.randint(0, 2, (m_pad, B), generator=gen, device="cuda",
-                                   dtype=torch.int32)
+        mv = torch.randn((dc, m_pad, B), generator=gen, device="cuda") * 30
+        mv[1, ::3] = -mv[0, ::3]  # ties of |x| between slots 0 and 1
+        mv[2, ::5] = mv[3, ::5]  # equal values
+        mv[4, ::7] = 0.0  # zeros count as negative
+        mv[5, ::11] = 80.0  # beyond +clip
+        mv[6, ::13] = -75.0  # beyond -clip
+        mv = mv.to(dtype)
+        mv[torch.rand(mv.shape, generator=gen, device="cuda") < 0.3] = PIN
+        mv[:, ::9] = PIN  # every edge of these checks pinned
+        parity = torch.randint(0, 2, (m_pad, B), generator=gen, device="cuda",
+                               dtype=torch.int32)
 
-            def kern():
-                return cn_update(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True)
+        def kern():
+            return cn_update(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True)
 
-            before = cn_update.pinned_launches, cn_update.launches
-            out = kern()
-            torch.cuda.synchronize()
-            if (cn_update.pinned_launches, cn_update.launches) != (before[0] + 1, before[1]):
-                raise SystemExit("the pinned kernel was not launched exactly once")
-            ref = _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True)
-            err = float((out.float() - ref.float()).abs().max())
-            same = torch.equal(out, ref)
-            ms = cuda_time_ms(kern, 50)
-            plain_ms = cuda_time_ms(
-                lambda: _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True), 5)
-            nbytes = 2 * mv.numel() * mv.element_size() + parity.numel() * 4 + valid.numel()
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            shape = f"[{dc},{m_pad},{B}] {str(dtype)[6:]}"
-            log(f"[cn_pinned] {H.shape[0]}x{H.shape[1]} {shape}: bit-exact={same} "
-                f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms (bytes {nbytes})")
-            if not same:
-                raise SystemExit(f"the pinned kernel disagrees with its plain version at {shape}")
-            result["max_abs_err"] = max(result["max_abs_err"], err)
-            if m_pad == 224 and B == 512 and dtype == torch.float32:  # post-BP bucket
-                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, shape=shape)
+        before = cn_update.pinned_launches, cn_update.launches
+        out = kern()
+        torch.cuda.synchronize()
+        if (cn_update.pinned_launches, cn_update.launches) != (before[0] + 1, before[1]):
+            raise SystemExit("the pinned kernel was not launched exactly once")
+        ref = _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True)
+        err = float((out.float() - ref.float()).abs().max())
+        same = torch.equal(out, ref)
+        ms = cuda_time_ms(kern, 50)
+        plain_ms = cuda_time_ms(
+            lambda: _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True), 5)
+        nbytes = 2 * mv.numel() * mv.element_size() + parity.numel() * 4 + valid.numel()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shape = f"[{dc},{m_pad},{B}] {str(dtype)[6:]}"
+        log(f"[cn_pinned] {H.shape[0]}x{H.shape[1]} {shape}: bit-exact={same} "
+            f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms (bytes {nbytes})")
+        if not same:
+            raise SystemExit(f"the pinned kernel disagrees with its plain version at {shape}")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        case = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "shape": shape}
+        if m_pad == 224 and B == 512 and dtype == f32:  # post-BP bucket
+            result.update(case)
+        elif m_pad == 960 and dtype == f32 and B != 1024:  # the shortened global decode
+            result["global_pre_bp" if B == 8192 else "global_post_bp"] = case
+        del mv, parity, out, ref
     cn_update.launches = cn_update.pinned_launches = 0
     return result
 
@@ -384,27 +488,44 @@ def _sweep_work(gj, key, pair_i, pair_j, order_w: int, solution):
     return int_ops, f32_ops, int(solution.sum())
 
 
-def _gj_case(label, Hw, synd, key, *, m: int, n: int, rank: int, **_):
-    """``gauss_jordan_key`` on the card against ``ordered_gauss_jordan_key``
-    on the same inputs, every output bit-exact; then its time, the plain
-    version's and the bound."""
+def _gj_shots(gj, k: int):
+    """The first ``k`` shots of an elimination's result dict (its packed
+    state is shot-minor)."""
+    return {key: v[..., :k] if key == "reduced_wm" else v[:k] for key, v in gj.items()}
+
+
+def _gj_case(label, Hw, synd, key, *, m: int, n: int, rank: int, cluster_blocks=None,
+             cpu_ref=None, reps: int = 20, plain_reps: int = 2, **_):
+    """``gauss_jordan_key`` on the card (the route its shape takes, or the
+    cluster route with ``cluster_blocks``) against ``ordered_gauss_jordan_key``
+    on the same inputs, every output bit-exact, and on its first shots
+    against the plain version's result on the CPU (``cpu_ref``); then its
+    time, the plain version's and the bound."""
     import torch
 
+    from slidingwindowdecoder_torch.ops import gf2_cuda
     from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key
     from slidingwindowdecoder_torch.ops.gf2_solve import ordered_gauss_jordan_key
 
     W, B = Hw.shape[1], synd.shape[0]
-    before = gauss_jordan_key.launches
-    out = gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank)
+    C = gf2_cuda.gj_route(m, n, W, False, cluster_blocks)
+    counter = "cluster_launches" if C else "launches"
+    before = getattr(gauss_jordan_key, counter)
+    out = gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank, cluster_blocks=cluster_blocks)
     torch.cuda.synchronize()
-    if gauss_jordan_key.launches != before + 1:
-        raise SystemExit("kernel B was not launched")
+    if getattr(gauss_jordan_key, counter) != before + 1:
+        raise SystemExit(f"kernel B ({'cluster' if C else 'single-block'} route) was not "
+                         f"launched")
     ref = ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank)
     bad = [k for k in ref if not torch.equal(out[k], ref[k])]
+    if cpu_ref is not None:
+        head = _gj_shots(out, cpu_ref["shots"])
+        bad += [f"{k} (CPU)" for k in ref if not torch.equal(head[k].cpu(), cpu_ref["gj"][k])]
     err = max(float((out[k].double() - ref[k].double()).abs().max()) for k in ref)
-    ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 20)
+    ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank,
+                                               cluster_blocks=cluster_blocks), reps)
     plain_ms = cuda_time_ms(
-        lambda: ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), 2)
+        lambda: ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), plain_reps)
     xor_rows = int(ordered_gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank,
                                             count_xor=True)["xor_rows"].sum())
     ops = _gj_ops(m, n, W, rank, B, xor_rows)
@@ -413,16 +534,19 @@ def _gj_case(label, Hw, synd, key, *, m: int, n: int, rank: int, **_):
     ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     n_incons = int(out["inconsistent"].sum())
-    log(f"[gj] {label} rank {rank} B={B}: bit-exact={not bad} max_abs_err={err} "
-        f"inconsistent {n_incons}/{B}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms (ops {ops}, {xor_rows} rows XORed -> {ops_ms:.5f} ms, "
-        f"bytes {nbytes} -> {bytes_ms:.5f} ms)")
+    tag = "gj_cluster" if C else "gj"
+    route = f"cluster of {C} blocks" if C else "one block"
+    cpu = f", first {cpu_ref['shots']} shots also against the CPU" if cpu_ref else ""
+    log(f"[{tag}] {label} rank {rank} B={B} ({route}{cpu}): bit-exact={not bad} "
+        f"max_abs_err={err} inconsistent {n_incons}/{B}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms (ops {ops}, {xor_rows} rows XORed -> "
+        f"{ops_ms:.5f} ms, bytes {nbytes} -> {bytes_ms:.5f} ms)")
     if bad:
-        raise SystemExit(f"[gj] {label}: kernel B disagrees with its plain version on {bad}")
-    gauss_jordan_key.launches = 0
+        raise SystemExit(f"[{tag}] {label}: kernel B disagrees with its plain version on {bad}")
+    gauss_jordan_key.launches = gauss_jordan_key.cluster_launches = 0
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "shape": f"{m}x{n} B={B}"}
+            "shape": f"{m}x{n} B={B}" + (f", C={C}" if C else "")}
 
 
 def phase_gj(plan):
@@ -449,32 +573,57 @@ def phase_gj(plan):
     return result
 
 
+def _clone(x):
+    return x.clone() if hasattr(x, "clone") else x
+
+
+@contextlib.contextmanager
+def first_calls(module, name: str, key, store: dict):
+    """Record in ``store``, under ``key(*args, **kwargs)``, the arguments of
+    the first call of ``module.name`` with each key while the block runs
+    (a key of None is not recorded). Tensors are cloned, since the decode
+    may go on writing them; no kernel runs for it."""
+    orig = getattr(module, name)
+
+    def first(*a, **k):
+        got = key(*a, **k)
+        if got is not None and got not in store:
+            store[got] = (tuple(_clone(x) for x in a), {x: _clone(v) for x, v in k.items()})
+        return orig(*a, **k)
+
+    setattr(module, name, first)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def osd_shape(*_, m, n, **__):
+    """``first_calls`` key of an ``osd_decode`` call: its PCM's shape."""
+    return m, n
+
+
 def _first_osd_bucket(module, decoder, synd):
     """The arguments of the first ``osd_decode`` call of ``decoder`` (whose
     module is ``module``) in one ``core`` call on ``synd``."""
-    orig, seen = module.osd_decode, []
-
-    def first(*a, **k):
-        if not seen:
-            seen.append((a, k))
-        return orig(*a, **k)
-
-    module.osd_decode = first
-    try:
+    seen = {}
+    with first_calls(module, "osd_decode", osd_shape, seen):
         decoder.core(synd)
-    finally:
-        module.osd_decode = orig
-    return seen[0]
+    return seen[(decoder.m, decoder.n)]
 
 
-def _osd_cs_case(label, Hw, s, key, llr, *, m: int, n: int, rank: int, meta: dict, **_):
-    """``osd_cs_fused`` on the card against the plain elimination and sweep
-    on the same inputs: solution, OSD-0, inconsistency and the bits of
-    min_pm equal; then its time beside the standalone elimination's,
-    kernel B's before the fused design, the plain version's and the
-    bound."""
+def _osd_cs_case(label, Hw, s, key, llr, *, m: int, n: int, rank: int, meta: dict,
+                 cluster_blocks=None, cpu_ref=None, reps: int = 20, plain_reps: int = 2, **_):
+    """``osd_cs_fused`` on the card (the route its shape takes, or the
+    cluster route with ``cluster_blocks``) against the plain elimination
+    and sweep on the same inputs, and on its first shots against their
+    result on the CPU (``cpu_ref``): solution, OSD-0, inconsistency and the
+    bits of min_pm equal; then its time beside the standalone
+    elimination's, kernel B's before the fused design, the plain version's
+    and the bound."""
     import torch
 
+    from slidingwindowdecoder_torch.ops import gf2_cuda
     from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key, osd_cs_fused
     from slidingwindowdecoder_torch.ops.gf2_solve import (
         _osd_sweep_cs_sortless,
@@ -485,29 +634,43 @@ def _osd_cs_case(label, Hw, s, key, llr, *, m: int, n: int, rank: int, meta: dic
     pi, pj = (torch.as_tensor(meta[k], dtype=torch.int32, device="cuda")
               for k in ("pair_i", "pair_j"))
     ow = int(meta["order_w"])
+    C = gf2_cuda.gj_route(m, n, W, True, cluster_blocks)
+    counter = "cluster_launches" if C else "launches"
 
     def fused():
-        return osd_cs_fused(Hw, s, key, llr, pi, pj, m=m, n=n, rank=rank, order_w=ow)
+        return osd_cs_fused(Hw, s, key, llr, pi, pj, m=m, n=n, rank=rank, order_w=ow,
+                            cluster_blocks=cluster_blocks)
 
     def plain(count_xor=False):
         gj = ordered_gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank, count_xor=count_xor)
         return gj, _osd_sweep_cs_sortless(gj, key, llr, pi, pj, order_w=ow)
 
-    before = osd_cs_fused.launches
+    before = getattr(osd_cs_fused, counter)
     out = fused()
     torch.cuda.synchronize()
-    if osd_cs_fused.launches != before + 1:
-        raise SystemExit("the fused OSD-CS kernel was not launched")
+    if getattr(osd_cs_fused, counter) != before + 1:
+        raise SystemExit(f"the fused OSD-CS kernel ({'cluster' if C else 'single-block'} "
+                         f"route) was not launched")
     gj, (sol, min_pm) = plain(count_xor=True)
     pairs = {"solution": (out["solution"], sol), "osd0": (out["osd0"], gj["osd0"]),
              "inconsistent": (out["inconsistent"], gj["inconsistent"]),
              "min_pm": (out["min_pm"].view(torch.int32), min_pm.view(torch.int32))}
+    if cpu_ref is not None:
+        k = cpu_ref["shots"]
+        pairs.update({
+            "solution (CPU)": (out["solution"][:k].cpu(), cpu_ref["solution"]),
+            "osd0 (CPU)": (out["osd0"][:k].cpu(), cpu_ref["gj"]["osd0"]),
+            "inconsistent (CPU)": (out["inconsistent"][:k].cpu(),
+                                   cpu_ref["gj"]["inconsistent"]),
+            "min_pm (CPU)": (out["min_pm"][:k].cpu().view(torch.int32),
+                             cpu_ref["min_pm"].view(torch.int32))})
     bad = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
     err = max(float((out[k].double() - y.double()).abs().max())
               for k, y in (("solution", sol), ("osd0", gj["osd0"]), ("min_pm", min_pm)))
-    ms = cuda_time_ms(fused, 20)
-    gj_ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank), 20)
-    plain_ms = cuda_time_ms(plain, 2)
+    ms = cuda_time_ms(fused, reps)
+    gj_ms = cuda_time_ms(lambda: gauss_jordan_key(Hw, s, key, m=m, n=n, rank=rank,
+                                                  cluster_blocks=cluster_blocks), reps)
+    plain_ms = cuda_time_ms(plain, plain_reps)
     xor_rows = int(gj["xor_rows"].sum())
     int_ops, f32_ops, f64_adds = _sweep_work(gj, key, pi, pj, ow, sol)
     int_ops += _gj_ops(m, n, W, rank, Bc, xor_rows)
@@ -518,19 +681,23 @@ def _osd_cs_case(label, Hw, s, key, llr, *, m: int, n: int, rank: int, meta: dic
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     n_cand = int((sol != gj["osd0"]).any(dim=1).sum())
-    log(f"[osd_cs] {label} B={Bc}: bit-exact={not bad} max_abs_err={err}; "
+    tag = "osd_cs_cluster" if C else "osd_cs"
+    route = f"cluster of {C} blocks" if C else "one block"
+    cpu = f", first {cpu_ref['shots']} shots also against the CPU" if cpu_ref else ""
+    log(f"[{tag}] {label} B={Bc} ({route}{cpu}): bit-exact={not bad} max_abs_err={err}; "
         f"{n_cand} shots take a candidate, {int(gj['inconsistent'].sum())} inconsistent; "
         f"fused {ms:.4f} ms, elimination alone {gj_ms:.4f} ms, before {GJ_BEFORE_MS} ms "
         f"(kernel B at 216x1728), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms (int32 "
         f"{int_ops} with {xor_rows} rows XORed, float32 {f32_ops}, float64 {f64_adds} "
         f"-> {ops_ms:.5f} ms, bytes {nbytes} -> {bytes_ms:.5f} ms)")
     if bad:
-        raise SystemExit(f"[osd_cs] {label}: the fused kernel disagrees with its plain "
+        raise SystemExit(f"[{tag}] {label}: the fused kernel disagrees with its plain "
                          f"version on {bad}")
-    gauss_jordan_key.launches = osd_cs_fused.launches = 0
+    for f in (gauss_jordan_key, osd_cs_fused):
+        f.launches = f.cluster_launches = 0
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "shape": f"{m}x{n} B={Bc}"}
+            "shape": f"{m}x{n} B={Bc}" + (f", C={C}" if C else "")}
 
 
 def phase_osd_cs(plan, det):
@@ -625,10 +792,13 @@ def _span_diff(label, out, ref):
     return err
 
 
-def _span_case(label, args, kw, cpu_garr, reps: int):
+def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = None,
+               ring_times: bool = True):
     """One ``bp_span`` input on the card against the plain loop on the CPU
-    (``_span_diff``), then its time, the per-op CUDA loop's time and the
-    bound."""
+    (``_span_diff``; over the first ``cpu_shots`` shots where given: BP is
+    per shot), then its time, the per-op CUDA loop's time and the bound;
+    with ``ring_times`` also its time with the history ring written at
+    every iteration and at none."""
     import torch
 
     from slidingwindowdecoder_torch.ops import bp_cuda
@@ -639,8 +809,14 @@ def _span_case(label, args, kw, cpu_garr, reps: int):
     counter = "pinned_launches" if masked else "launches"
     B, n, dc, m_pad, dv = mv.shape[2], garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
 
-    def inputs(dev):  # the history ring is written in place: a copy each
+    def inputs(dev, k=None):  # the history ring is written in place: a copy each
         a = [t.to(dev) if torch.is_tensor(t) else t for t in args[1:]]
+        if k is not None:  # the first k shots
+            mv_, prior, parity, synd_t, vn, hist, error, done, iters = a
+            a = [x if x is None else x.contiguous() for x in (
+                mv_[:, :, :k], prior, parity[:, :k], synd_t[:, :k],
+                None if vn is None else vn[:k], hist[:, :, :k], error[:k], done[:k],
+                iters[:k])]
         a[5] = a[5].clone()
         return (cpu_garr if dev == "cpu" else garr, *a)
 
@@ -651,13 +827,16 @@ def _span_case(label, args, kw, cpu_garr, reps: int):
     if getattr(bp_cuda.bp_span, counter) != before + 1:
         raise SystemExit(f"[bp_span] {label}: the kernel was not launched once")
     t0 = time.perf_counter()
-    ref = bp_cuda.bp_span(*inputs("cpu"), **kw)  # CPU tensors: the plain loop
+    ref = bp_cuda.bp_span(*inputs("cpu", cpu_shots), **kw)  # CPU tensors: the plain loop
     cpu_s = time.perf_counter() - t0
-    err = _span_diff(label, out, ref)
+    k = B if cpu_shots is None else cpu_shots
+    head = [out[0][:, :, :k], out[1][:, :, :k], *(x[:k] for x in out[2:5]),
+            *(x[:, :k] for x in out[5:])]
+    err = _span_diff(label if k == B else f"{label}, first {k} shots", head, ref)
 
     ms = cuda_time_ms(lambda: bp_cuda.bp_span(*card_args, **kw), reps)
     plain_ms = cuda_time_ms(lambda: bp_loop(*card_args, **kw), 2)  # per-op loop
-    ran = ref[4] - args[9].cpu()  # iterations each shot ran in this call
+    ran = out[4] - args[9].cpu()  # iterations each shot ran in this call
     shot_iters, longest = int(ran.sum()), int(ran.max())
     edges = int(garr["cn_valid_sm"].sum())
     t = mv.element_size()
@@ -687,7 +866,7 @@ def _span_case(label, args, kw, cpu_garr, reps: int):
         f"ms, bound {max(ops_ms, bytes_ms):.5f} ms (ops {ops} -> {ops_ms:.5f} ms, bytes "
         f"{nbytes} -> {bytes_ms:.5f} ms), shared memory {smem / ms / 1e9:.1f} TB/s; CPU "
         f"plain {cpu_s:.1f}s")
-    for hist_from in (0, kw["num_iter"]):  # the ring written always, or never
+    for hist_from in (0, kw["num_iter"]) if ring_times else ():  # always, or never
         hist_ms = cuda_time_ms(lambda: bp_cuda.bp_span(
             *card_args, **{**kw, "hist_from": hist_from}), reps)
         log(f"[bp_span] {label}: history from iteration {hist_from} -> {hist_ms:.4f} ms")
@@ -856,7 +1035,7 @@ def reset_counts():
     for k in (bp_cuda.cn_update, bp_cuda.bp_span):
         k.launches = k.pinned_launches = k.plain_calls = 0
     for k in (gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused):
-        k.launches = k.plain_calls = 0
+        k.launches = k.cluster_launches = k.plain_calls = 0
 
 
 def read_counts():
@@ -867,7 +1046,9 @@ def read_counts():
     gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
-                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches}
+                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
+                "gauss_jordan_key_cluster": gj.cluster_launches,
+                "osd_cs_fused_cluster": osd.cluster_launches}
     plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
              "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls}
     return launches, plain
@@ -880,7 +1061,7 @@ def check_kernels(name, launches, plain, kernels):
         raise SystemExit(f"{name} did not run on its kernels {kernels}: {launches} {plain}")
 
 
-def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact: int, kernels):
+def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact, kernels):
     """Drive one decode path on the card over all of ``det``, with the
     launch counts set to 0 just before and read just after. The failure
     count must equal ``exact`` and lie within 3 sigma of the rate ``ref``
@@ -1015,6 +1196,223 @@ def phase_gdg_spans(plan, det, obs, num_repeat: int, host_res):
     if differ or res["num_flagged"] != host_res["num_flagged"]:
         raise SystemExit("[gdg_spans] the spans form disagrees with the host-stepped form")
     return res
+
+
+def phase_global(captured: dict):
+    """``[global]``: ``global_decoder`` on the whole [[144]] DEM from seed
+    2024 in each of ``GLOBAL_FORMS``, each with the launch counts set to 0
+    just before and read just after: its failures equal to its own count,
+    within 3 sigma of the first rate where the form is held to it, no shot
+    flagged where no rate is given, only its kernels launched and no plain
+    call. The 3-sigma verdict against each rate is printed. The first OSD
+    bucket of the BP+OSD-CS form goes into ``captured`` (under its shape,
+    936x8784)."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import bposd
+    from slidingwindowdecoder_torch.harness.circuit_level import global_decoder
+    from slidingwindowdecoder_torch.utils.metrics import rates_compatible
+
+    res = {}
+    for name, (kw, shots, rates, held, exact, kernels) in GLOBAL_FORMS.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        with first_calls(bposd, "osd_decode", osd_shape, captured):
+            r = global_decoder(144, 0.004, 12, shots, seed=SEED, verbose=False, device="cuda",
+                               **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = read_counts()
+        nf, nfl = r["num_failed"], r["num_flagged"]
+        within = {k: rates_compatible(nf, shots, *v) for k, v in rates.items()}
+        verdict = "; ".join(f"{k} {v[0]}/{v[1]}, within 3 sigma: {within[k]}"
+                            for k, v in rates.items()) or f"no reference; flagged {nfl}"
+        log(f"[global] {name}: failed {nf} flagged {nfl} of {shots} (LER/round "
+            f"{r['ler_per_round']:.4e}; {verdict}); {r['shots_per_sec']:.1f} shots/s "
+            f"({r['decode_seconds']:.3f}s timed, {wall:.1f}s with set-up and the warm-up "
+            f"chunk); launches {launches} (the warm-up's included); plain calls {plain}")
+        first = next(iter(rates), None)
+        if nf != exact or (held and not within[first]) or (not rates and nfl):
+            raise SystemExit(f"[global] {name}: {nf} failures ({nfl} flagged), want {exact}"
+                             + (f" within 3 sigma of {rates[first]}" if held else "")
+                             + ("" if rates else ", none flagged"))
+        check_kernels(f"[global] {name}", launches, plain, kernels)
+        res[name] = {"num_failed": nf, "num_flagged": nfl, "shots": shots,
+                     "within_3_sigma": within, "seconds": r["decode_seconds"],
+                     "shots_per_s": r["shots_per_sec"], "wall_with_warmup_s": wall,
+                     "launches": launches}
+    return res
+
+
+def phase_sw_wide(captured: dict):
+    """``[sw_wide]``: the wide sliding windows (``SW_WIDE``), each through
+    ``phase_path`` with ``sliding_window_decoder``'s decoder (BP+OSD-CS-10,
+    default knobs, f32) on ``SW_WIDE_SHOTS`` shots from seed 2024. During
+    each run the first ``bp_run`` call that the fused BP kernel takes is
+    recorded for each window shape, batch and span (the whole-batch phase
+    A and the two phase-B spans), and the first ``osd_decode`` call for
+    each window shape; after it, each goes through ``_span_case`` (against
+    the plain loop on the CPU over its first ``SW_WIDE_CPU_SHOTS`` shots)
+    or ``_osd_cs_case`` (against the plain elimination and sweep on the
+    card), bit-exact. The first OSD bucket of a [[288]] W=4 interior window
+    (576x4896) goes into ``captured`` for ``[gj_cluster]``. Returns the
+    paths' results and the kernel checks, by kernel and case."""
+    import torch
+
+    from slidingwindowdecoder_torch.circuits import sample_dem_numpy
+    from slidingwindowdecoder_torch.decoders import bposd
+    from slidingwindowdecoder_torch.harness.circuit_level import (
+        build_bb_window_experiment,
+        window_decoder_factory,
+    )
+    from slidingwindowdecoder_torch.ops import gf2_cuda
+    from slidingwindowdecoder_torch.ops.bp import msg_torch_dtype, span_inputs
+    from slidingwindowdecoder_torch.ops.bp_cuda import bp_span_supported
+
+    def fused_bp_call(garr, mv, prior, synd, *_, num_iter, msg_dtype="float32", **__):
+        B = synd.shape[0]
+        if prior.ndim == 1 and bp_span_supported(garr, B, msg_torch_dtype(msg_dtype)):
+            return garr["m"], garr["n"], B, num_iter
+        return None
+
+    res, checks = {}, {"bp_span": {}, "osd_cs_fused": {}, "osd_cs_fused_cluster": {}}
+    for name, (N, p, rounds, W, ref, exact, kernels) in SW_WIDE.items():
+        _, _, dem, plan = build_bb_window_experiment(N, p, rounds, W, 1)
+        det, obs, _ = sample_dem_numpy(dem, SW_WIDE_SHOTS, np.random.default_rng(SEED))
+        bp_calls, osd_calls = {}, {}
+        with (first_calls(bposd, "bp_run", fused_bp_call, bp_calls),
+              first_calls(bposd, "osd_decode", osd_shape, osd_calls)):
+            r = phase_path(f"sw_wide {name}", plan, det, obs,
+                           window_decoder_factory(False, device="cuda"), rounds, ref, exact,
+                           kernels)
+        r.pop("e_hat")
+        r.pop("window_counts")
+        res[name] = {"windows": [list(w.mat.shape) for w in plan.windows], **r}
+        for (m, n, B, it), (a, k) in bp_calls.items():
+            args, kw = span_inputs(*a, **k)
+            label = f"{name} {m}x{n} {k.get('msg_dtype', 'float32')} B={B}, {it} iterations"
+            cpu_garr = {x: v.cpu() if torch.is_tensor(v) else v for x, v in a[0].items()}
+            checks["bp_span"][label] = _span_case(label, args, kw, cpu_garr, 5,
+                                                  cpu_shots=SW_WIDE_CPU_SHOTS, ring_times=False)
+        for (m, n), (a, k) in osd_calls.items():
+            if (m, n) == (576, 4896):
+                captured[m, n] = (a, k)
+                continue
+            C = gf2_cuda.gj_route(m, n, a[0].shape[1], True)
+            label = f"{name} {m}x{n}, first OSD bucket"
+            checks["osd_cs_fused_cluster" if C else "osd_cs_fused"][label] = _osd_cs_case(
+                label, *a[:4], **k, reps=10, plain_reps=1)
+        del bp_calls, osd_calls
+        torch.cuda.empty_cache()
+    return res, checks
+
+
+def _cpu_reference(args, kw, k: int):
+    """The plain elimination and OSD-CS sweep on the machine's CPU over the
+    first ``k`` shots of an ``osd_decode`` call's arguments."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        _osd_sweep_cs_sortless,
+        ordered_gauss_jordan_key,
+    )
+
+    Hw, s, key, llr = (x.cpu() for x in args[:4])
+    s, key = s[:k], key[:k]
+    meta = kw["meta"]
+    pi, pj = (torch.as_tensor(meta[x]).cpu() for x in ("pair_i", "pair_j"))
+    t0 = time.perf_counter()
+    gj = ordered_gauss_jordan_key(Hw, s, key, m=kw["m"], n=kw["n"], rank=kw["rank"])
+    sol, min_pm = _osd_sweep_cs_sortless(gj, key, llr, pi, pj, order_w=int(meta["order_w"]))
+    return {"shots": s.shape[0], "gj": gj, "solution": sol, "min_pm": min_pm,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_gj_cluster(plan, cap288, cap_global):
+    """``[gj_cluster]``: kernel B's cluster route, both entry points, on the
+    card against the plain elimination and sweep on the card over the whole
+    bucket and on the machine's CPU over its first ``GJ_CLUSTER_CPU_SHOTS``
+    shots (``_gj_case``, ``_osd_cs_case``), bit-exact: tie keys at 216x1728
+    with the route forced to 4 blocks (random syndromes, 256 shots); the
+    first OSD bucket of a [[288]] W=4 interior window (576x4896, C=2) and of
+    the global decode (936x8784, C=8), both captured from the paths' runs
+    (real syndromes and BP reliabilities). The kernels line keeps the
+    global case."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops import gf2_cuda
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        analyze_patterns,
+        gf2_rank_packed,
+        osd_candidate_patterns,
+        pack_rows_host,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    spec, B = plan.windows[1], 256
+    m, n = spec.mat.shape
+    rank = gf2_rank_packed(spec.mat)
+    pr = np.asarray(spec.prior, np.float64)
+    ties = ((torch.as_tensor(pack_rows_host(spec.mat).view(np.int32), device="cuda"),
+             (torch.rand((B, m), generator=gen, device="cuda") < 0.1).to(torch.uint8),
+             _tie_keys(gen, B, n),
+             torch.as_tensor(np.log((1 - pr) / pr).astype(np.float32), device="cuda")),
+            dict(m=m, n=n, rank=rank, meta=analyze_patterns(
+                osd_candidate_patterns(n - rank, 10, "osd_cs"), n - rank)))
+    cases = [(f"{m}x{n} tie keys, forced", ties, 4, 20),
+             ("[[288]] W=4 window, first OSD bucket (576x4896)", cap288, None, 10),
+             ("[[144]] global DEM, first OSD bucket (936x8784)", cap_global, None, 5)]
+    res = {"gauss_jordan_key_cluster": {"max_abs_err": 0.0},
+           "osd_cs_fused_cluster": {"max_abs_err": 0.0}}
+    for label, (args, kw), C, reps in cases:
+        cpu_ref = _cpu_reference(args, kw, GJ_CLUSTER_CPU_SHOTS)
+        W = args[0].shape[1]
+        log(f"[gj_cluster] {label}: {args[1].shape[0]} shots, C="
+            f"{C or gf2_cuda.gj_cluster_supported(kw['m'], kw['n'], W, True)}; CPU plain over "
+            f"{cpu_ref['shots']} shots {cpu_ref['seconds']:.1f}s")
+        for name, case, nargs in (("gauss_jordan_key_cluster", _gj_case, 3),
+                                  ("osd_cs_fused_cluster", _osd_cs_case, 4)):
+            r = case(label, *args[:nargs], **kw, cluster_blocks=C, cpu_ref=cpu_ref, reps=reps,
+                     plain_reps=1)
+            out = res[name]
+            out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+            if "global" in label:
+                out.update(r, max_abs_err=out["max_abs_err"])
+            elif "288" in label:
+                out["sw_288_w4"] = r
+    return res
+
+
+def phase_global_slice():
+    """``[global_slice]``: the first ``GLOBAL_SLICE_SHOTS`` seed-2024 global
+    shots decoded by ``global_decoder``'s decoder (BP+OSD-CS-10) on the card
+    and by the plain versions on the CPU: no shot may differ in error,
+    convergence, iterations or OSD use."""
+    import torch
+
+    from slidingwindowdecoder_torch.circuits import sample_dem_numpy
+    from slidingwindowdecoder_torch.harness.circuit_level import (
+        build_bb_window_experiment,
+        build_global_decoder,
+    )
+
+    dem = build_bb_window_experiment(144, 0.004, 12, 3, 1)[2]
+    det, _, _ = sample_dem_numpy(dem, GLOBAL_SLICE_SHOTS, np.random.default_rng(SEED))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = build_global_decoder(dem, device=dev).core(torch.as_tensor(det, device=dev))
+        outs[dev] = ({k: out[k].cpu() for k in ("error", "converged", "iterations",
+                                                 "osd_applied")}, time.perf_counter() - t0)
+    (a, ta), (b, tb) = outs["cuda"], outs["cpu"]
+    differ = torch.zeros(len(det), dtype=torch.bool)
+    for k in a:
+        differ |= (a[k] != b[k]).reshape(len(det), -1).any(dim=1)
+    log(f"[global_slice] card vs CPU plain over {len(det)} shots: {int(a['osd_applied'].sum())} "
+        f"through OSD, shots differing {int(differ.sum())}; {ta:.1f}s card, {tb:.1f}s CPU")
+    if differ.any():
+        raise SystemExit(f"[global_slice] {int(differ.sum())} shots differ")
+
 
 
 def cc_samples(code):
@@ -1254,14 +1652,31 @@ def main() -> int:
     phase_cc_slice(code882, cc_synd)
     log(json.dumps({"code_capacity": cc_res, "code_capacity_device": cc_dev}))
 
+    captured = {}
+    global_res = phase_global(captured)
+    log(json.dumps({"global": global_res}))
+    wide_res, wide_checks = phase_sw_wide(captured)
+    log(json.dumps({"sw_wide": wide_res}))
+    if set(captured) != {(936, 8784), (576, 4896)}:
+        raise SystemExit("[gj_cluster] a path ran no OSD bucket at 936x8784 or 576x4896")
+    gj_cluster = phase_gj_cluster(plan, captured[576, 4896], captured[936, 8784])
+    phase_global_slice()
+
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
     cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
     gj_src = "slidingwindowdecoder_torch/csrc/gauss_jordan.cu"
     by_path = {k: {"main": main_res["launches"][k], "osd_window": short_res["launches"][k],
                    "gdg": gdg_res["launches"][k], "gdg_spans": spans_res["launches"][k],
                    "code_capacity": sum(r["launches"][k] for r in (*cc_res.values(),
-                                                                   *cc_dev.values()))}
+                                                                   *cc_dev.values())),
+                   "global": sum(r["launches"][k] for r in global_res.values()),
+                   "sw_wide": sum(r["launches"][k] for r in wide_res.values())}
                for k in main_res["launches"]}
+    for res, name in ((span["bp_span"], "bp_span"), (osd_cs, "osd_cs_fused"),
+                      (gj_cluster["osd_cs_fused_cluster"], "osd_cs_fused_cluster")):
+        res["sw_wide"] = wide_checks[name]
+        res["max_abs_err"] = max([res["max_abs_err"],
+                                  *(r["max_abs_err"] for r in wide_checks[name].values())])
     span["bp_span_pinned"]["gdg_burst"] = gdg_burst
     span["bp_span_pinned"]["bpgd_burst"] = bpgd_burst
     span["bp_span_pinned"]["max_abs_err"] = max(span["bp_span_pinned"]["max_abs_err"],
@@ -1290,6 +1705,18 @@ def main() -> int:
                      "ops/gf2_solve.py:215 (ordered_gauss_jordan_key) and :522 "
                      "(_osd_sweep_cs_sortless)",
          "launches": sum(by_path["osd_cs_fused"].values()), **osd_cs},
+        {"name": "gauss_jordan_key_cluster", "route": "cuda", "source": gj_src,
+         "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package) and the XLA "
+                     "ops/gf2_solve.py:215 (ordered_gauss_jordan_key) at shapes beyond one "
+                     "block",
+         "launches": sum(by_path["gauss_jordan_key_cluster"].values()),
+         **gj_cluster["gauss_jordan_key_cluster"]},
+        {"name": "osd_cs_fused_cluster", "route": "cuda", "source": gj_src,
+         "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package) with the XLA "
+                     "ops/gf2_solve.py:215 (ordered_gauss_jordan_key) and :522 "
+                     "(_osd_sweep_cs_sortless) at shapes beyond one block",
+         "launches": sum(by_path["osd_cs_fused_cluster"].values()),
+         **gj_cluster["osd_cs_fused_cluster"]},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]

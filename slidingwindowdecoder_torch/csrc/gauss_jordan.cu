@@ -62,10 +62,28 @@
 // window), each a test, two barriers and a few rows XORed in turn, for
 // each block; the design keeps that chain short and lets the bucket's
 // blocks run side by side.
+//
+// Cluster route (`gauss_jordan_key_cluster`, `osd_cs_fused_cluster`). A
+// shape whose state does not fit one block (more than 512 rows or 127 words
+// a row, or over the shared-memory limit: a [[288]] W=4 window of 576x4896,
+// the [[144]] global DEM of 936x8784) runs one shot per thread-block
+// cluster of C blocks (2, 4 or 8; `ops/gf2_cuda.py:gj_cluster_supported`
+// picks the least that fits), each block holding about m/C rows. It
+// computes the same function in the same summation orders
+// (`gj_cluster_kernel`, below), so it is bit-exact against the plain
+// versions as the single-block route is. Its bound is the same count of
+// operations; what sets its time is the same serial chain of steps, each
+// now a cluster barrier, three block barriers and a pivot row read through
+// distributed shared memory, and the sweep's sums passed through the C
+// blocks in turn. At ~130-220 KB a block one block fits an SM, so a
+// 256-shot bucket runs in waves of as many clusters as the card holds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -159,32 +177,16 @@ __device__ __forceinline__ void block_argmin(float& v, int& i, float* red_v, int
   }
 }
 
-// KW: the row words a candidate's test covers (8 for m <= 256, else 16),
-// fixed at compile time so that a warp issues all its loads at once.
-template <bool FUSED, int KW>
-__global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int m = a.m, n = a.n, W = a.W, Wp1 = W + 1, rank = a.rank;
-  const Layout L = make_layout(m, n, W, FUSED);
-  uint32_t* st = (uint32_t*)(smem + L.st);                      // [m, W+1]
-  unsigned long long* pairs = (unsigned long long*)(smem + L.st);  // sort only
-  uint16_t* ord = (uint16_t*)(smem + L.ord);                     // [n]
-  uint16_t* pcol = (uint16_t*)(smem + L.pcol);                   // [rank]
-  uint16_t* prow = (uint16_t*)(smem + L.prow);
-  int* test = (int*)(smem + L.test);  // [2 rounds][kWarps][kSlot]
-  __shared__ uint32_t unused[kRowWords];  // the rows not yet pivot rows
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = (m + 31) >> 5;
-
-  // 1. sort (key, column) once: the key's bits made unsigned-ordered
-  const int np2 = next_pow2(n);
+// The block's columns in (key, column) order into `ord` [n]: a bitonic sort
+// of (key bits made unsigned-ordered, column) pairs in `pairs`
+// [next_pow2(n)], -0.0 made +0.0 first. Ends with a barrier.
+__device__ void sort_columns(const float* keys, int n, unsigned long long* pairs,
+                             uint16_t* ord) {
+  const int tid = threadIdx.x, np2 = next_pow2(n);
   for (int j = tid; j < np2; j += kThreads) {
     unsigned long long v = ~0ull;  // padding sorts last
     if (j < n) {
-      const float k = a.keys[(long long)b * n + j];
+      const float k = keys[j];
       uint32_t u = __float_as_uint(k == 0.f ? 0.f : k);
       u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
       v = ((unsigned long long)u << 32) | (unsigned)j;
@@ -207,6 +209,163 @@ __global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
   }
   for (int j = tid; j < n; j += kThreads) ord[j] = (uint16_t)(pairs[j] & 0xffffu);
   __syncthreads();
+}
+
+// Warp 0: the `order_w` first non-pivot columns of the sorted order into
+// `top` (32 positions a ballot).
+__device__ void top_nonpivot(const uint16_t* ord, int n, const uint32_t* pivm, int order_w,
+                             int* top) {
+  const int lane = threadIdx.x & 31;
+  int got = 0;
+  for (int p0 = 0; p0 < n && got < order_w; p0 += 32) {
+    const int p = p0 + lane;
+    const int j = p < n ? ord[p] : 0;
+    uint32_t x = __ballot_sync(0xffffffffu, p < n && !((pivm[j >> 5] >> (j & 31)) & 1u));
+    while (x && got < order_w) {
+      const int src = __ffs(x) - 1;
+      x &= x - 1;
+      const int jj = __shfl_sync(0xffffffffu, j, src);
+      if (lane == 0) top[got] = jj;
+      ++got;
+    }
+  }
+}
+
+// OSD-CS's winner: whether a candidate beats OSD-0, whether it is a pair,
+// and its column(s).
+struct Winner {
+  bool use, is_pair;
+  int c1, c2;
+};
+
+// The sum of `llr` over the columns set in `mask` [W], in ascending column
+// from +0.0 (pm0, the OSD-0 metric). One thread.
+__device__ float support_sum(const uint32_t* mask, int W, const float* llr) {
+  float acc = 0.f;
+  for (int w = 0; w < W; ++w)
+    for (uint32_t x = mask[w]; x; x &= x - 1) acc = __fadd_rn(acc, llr[32 * w + __ffs(x) - 1]);
+  return acc;
+}
+
+// The OSD-CS candidates and their winner: weight 1, every non-pivot column
+// j at pm_w1 = (pm0 + a_j) + llr_j, ties to the lower column; weight 2, the
+// pairs of `top` at ((((pm0 + a_i) + a_j) - 2 g) + llr_i) + llr_j with
+// g = gram(p, i, j), ties to the lower pair. Sets the solution's support in
+// `solm` [W] as it is before the pivot bits flip (OSD-0's if no candidate
+// beats it). Every thread returns the winner; contains barriers.
+template <typename Gram>
+__device__ Winner pick_winner(const Args& a, int n, int W, float pm0, const uint32_t* pivm,
+                              const uint32_t* osdm, const float* aj, const int* top, Gram gram,
+                              uint32_t* solm, float* red_v, int* red_i) {
+  const int tid = threadIdx.x;
+  float best1 = INFINITY;
+  int col1 = n;
+  for (int j = tid; j < n; j += kThreads) {
+    if ((pivm[j >> 5] >> (j & 31)) & 1u) continue;
+    const float pm = __fadd_rn(__fadd_rn(pm0, aj[j]), a.llr[j]);
+    if (pm < best1) {  // j grows within a thread: ties keep the lower j
+      best1 = pm;
+      col1 = j;
+    }
+  }
+  block_argmin(best1, col1, red_v, red_i);
+  __syncthreads();
+  float best2 = INFINITY;
+  int pair = a.npairs;
+  for (int p = tid; p < a.npairs; p += kThreads) {
+    const int ci = top[a.pair_i[p]], cj = top[a.pair_j[p]];
+    float pm = __fadd_rn(__fadd_rn(pm0, aj[ci]), aj[cj]);
+    pm = __fsub_rn(pm, __fmul_rn(2.f, gram(p, ci, cj)));
+    pm = __fadd_rn(__fadd_rn(pm, a.llr[ci]), a.llr[cj]);
+    if (pm < best2) {
+      best2 = pm;
+      pair = p;
+    }
+  }
+  block_argmin(best2, pair, red_v, red_i);
+  Winner win;
+  win.is_pair = best2 < best1;
+  win.use = (win.is_pair ? best2 : best1) < pm0;
+  win.c1 = win.is_pair ? top[a.pair_i[pair]] : col1;
+  win.c2 = win.is_pair ? top[a.pair_j[pair]] : -1;
+  for (int w = tid; w < W; w += kThreads) {
+    uint32_t x = win.use ? 0u : osdm[w];
+    if (win.use && (win.c1 >> 5) == w) x |= 1u << (win.c1 & 31);
+    if (win.is_pair && win.use && (win.c2 >> 5) == w) x |= 1u << (win.c2 & 31);
+    solm[w] = x;
+  }
+  return win;
+}
+
+// The fused entry's stores for shot b: the OSD-0 and solution bytes, and
+// min_pm, the solution's metric taken anew (its support's llr summed in
+// float64 in ascending column, rounded once).
+__device__ void store_solution(const Args& a, int b, int n, int W, const uint32_t* osdm,
+                               const uint32_t* solm) {
+  uint8_t* sol_out = a.solution + (long long)b * n;
+  uint8_t* osd0_out = a.osd0 + (long long)b * n;
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    osd0_out[j] = (uint8_t)((osdm[j >> 5] >> (j & 31)) & 1u);
+    sol_out[j] = (uint8_t)((solm[j >> 5] >> (j & 31)) & 1u);
+  }
+  if (threadIdx.x == 0) {
+    double acc = 0.0;
+    for (int w = 0; w < W; ++w)
+      for (uint32_t x = solm[w]; x; x &= x - 1)
+        acc = __dadd_rn(acc, (double)a.llr[32 * w + __ffs(x) - 1]);
+    a.min_pm[b] = __double2float_rn(acc);
+  }
+}
+
+// One warp's test of column j on the block's `rows` rows of the state `st`
+// (KW row words, fixed at compile time so that the warp issues all its
+// loads at once): lane k gets in `mine` the rows of word k holding bit j;
+// returns the lowest of them that is unused (-1: none), on every lane.
+template <int KW>
+__device__ int test_column(const uint32_t* st, int Wp1, int rows, const uint32_t* unused, int j,
+                           uint32_t& mine) {
+  const int lane = threadIdx.x & 31, jw = j >> 5, js = j & 31;
+  uint32_t v[KW];
+#pragma unroll
+  for (int k = 0; k < KW; ++k) {
+    const int i = 32 * k + lane;
+    v[k] = i < rows ? st[i * Wp1 + jw] : 0u;
+  }
+  mine = 0;
+#pragma unroll
+  for (int k = 0; k < KW; ++k) {
+    const uint32_t h = __ballot_sync(0xffffffffu, (v[k] >> js) & 1u);
+    if (lane == k) mine = h;
+  }
+  const uint32_t live = lane < KW ? mine & unused[lane] : 0u;
+  const uint32_t words = __ballot_sync(0xffffffffu, live != 0u);
+  if (!words) return -1;
+  const int k = __ffs(words) - 1;
+  return 32 * k + __ffs(__shfl_sync(0xffffffffu, live, k)) - 1;
+}
+
+// KW: the row words a candidate's test covers (8 for m <= 256, else 16),
+// fixed at compile time so that a warp issues all its loads at once.
+template <bool FUSED, int KW>
+__global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m = a.m, n = a.n, W = a.W, Wp1 = W + 1, rank = a.rank;
+  const Layout L = make_layout(m, n, W, FUSED);
+  uint32_t* st = (uint32_t*)(smem + L.st);                      // [m, W+1]
+  unsigned long long* pairs = (unsigned long long*)(smem + L.st);  // sort only
+  uint16_t* ord = (uint16_t*)(smem + L.ord);                     // [n]
+  uint16_t* pcol = (uint16_t*)(smem + L.pcol);                   // [rank]
+  uint16_t* prow = (uint16_t*)(smem + L.prow);
+  int* test = (int*)(smem + L.test);  // [2 rounds][kWarps][kSlot]
+  __shared__ uint32_t unused[kRowWords];  // the rows not yet pivot rows
+  __shared__ float red_v[kWarps];
+  __shared__ int red_i[kWarps];
+
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int K = (m + 31) >> 5;
+
+  // 1. sort (key, column) once
+  sort_columns(a.keys + (long long)b * n, n, pairs, ord);
 
   // 2. the packed state
   for (int e = tid; e < m * Wp1; e += kThreads) {
@@ -227,25 +386,8 @@ __global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
     const int c = pos + warp;
     int first = -1;
     if (c < n) {
-      const int j = ord[c], jw = j >> 5, js = j & 31;
-      uint32_t v[KW];
-#pragma unroll
-      for (int k = 0; k < KW; ++k) {
-        const int i = 32 * k + lane;
-        v[k] = i < m ? st[i * Wp1 + jw] : 0u;
-      }
-      uint32_t mine = 0;  // lane k: the rows of word k that hold bit j
-#pragma unroll
-      for (int k = 0; k < KW; ++k) {
-        const uint32_t h = __ballot_sync(0xffffffffu, (v[k] >> js) & 1u);
-        if (lane == k) mine = h;
-      }
-      const uint32_t live = lane < KW ? mine & unused[lane] : 0u;
-      const uint32_t words = __ballot_sync(0xffffffffu, live != 0u);
-      if (words) {
-        const int k = __ffs(words) - 1;
-        first = 32 * k + __ffs(__shfl_sync(0xffffffffu, live, k)) - 1;
-      }
+      uint32_t mine;  // lane k: the rows of word k that hold the column's bit
+      first = test_column<KW>(st, Wp1, m, unused, ord[c], mine);
       if (lane < K) buf[warp * kSlot + 1 + lane] = (int)mine;
     }
     if (lane == 0) buf[warp * kSlot] = first;
@@ -334,14 +476,10 @@ __global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
   }
   __syncthreads();
 
-  // pm0 (one thread, ascending column) and a_j (a thread per column)
-  if (tid == 0) {
-    float acc = 0.f;
-    for (int w = 0; w < W; ++w)
-      for (uint32_t x = osdm[w]; x; x &= x - 1)
-        acc = __fadd_rn(acc, a.llr[32 * w + __ffs(x) - 1]);
-    s_pm0 = acc;
-  }
+  // pm0 (one thread, ascending column), the order_w most unreliable
+  // non-pivot columns (warp 0) and a_j (a thread per column)
+  if (tid == 0) s_pm0 = support_sum(osdm, W, a.llr);
+  if (warp == 0) top_nonpivot(ord, n, pivm, a.order_w, s_top);
   for (int j = tid; j < n; j += kThreads) {
     const int jw = j >> 5, js = j & 31;
     if ((pivm[jw] >> js) & 1u) continue;
@@ -352,95 +490,316 @@ __global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
     aj[j] = acc;
   }
   __syncthreads();
-  const float pm0 = s_pm0;
 
-  // weight-1 candidates: the argmin of pm_w1 over non-pivot columns
-  float best1 = INFINITY;
-  int col1 = n;
-  for (int j = tid; j < n; j += kThreads) {
-    if ((pivm[j >> 5] >> (j & 31)) & 1u) continue;
-    const float pm = __fadd_rn(__fadd_rn(pm0, aj[j]), a.llr[j]);
-    if (pm < best1) {  // j grows within a thread: ties keep the lower j
-      best1 = pm;
-      col1 = j;
-    }
-  }
-  // the order_w most unreliable non-pivot columns: the first ones in
-  // sorted order (warp 0, 32 positions a ballot)
-  if (warp == 0) {
-    int got = 0;
-    for (int p0 = 0; p0 < n && got < a.order_w; p0 += 32) {
-      const int p = p0 + lane;
-      const int j = p < n ? ord[p] : 0;
-      uint32_t x = __ballot_sync(0xffffffffu, p < n && !((pivm[j >> 5] >> (j & 31)) & 1u));
-      while (x && got < a.order_w) {
-        const int src = __ffs(x) - 1;
-        x &= x - 1;
-        const int jj = __shfl_sync(0xffffffffu, j, src);
-        if (lane == 0) s_top[got] = jj;
-        ++got;
-      }
-    }
-  }
-  block_argmin(best1, col1, red_v, red_i);
-  __syncthreads();
-
-  // weight-2 candidates: Gram term and pm_w2 per pair
-  float best2 = INFINITY;
-  int pair = a.npairs;
-  for (int p = tid; p < a.npairs; p += kThreads) {
-    const int ci = s_top[a.pair_i[p]], cj = s_top[a.pair_j[p]];
+  // the winner (a pair's Gram term: its rows holding both columns, in
+  // ascending row), then the flips of the pivot bits
+  const auto gram = [&](int, int ci, int cj) {
     const int iw = ci >> 5, is = ci & 31, jw = cj >> 5, js = cj & 31;
     float g = 0.f;
     for (int i = 0; i < m; ++i) {
       const uint32_t* row = st + i * Wp1;
       if ((row[iw] >> is) & (row[jw] >> js) & 1u) g = __fadd_rn(g, wrow[i]);
     }
-    float pm = __fadd_rn(__fadd_rn(pm0, aj[ci]), aj[cj]);
-    pm = __fsub_rn(pm, __fmul_rn(2.f, g));
-    pm = __fadd_rn(__fadd_rn(pm, a.llr[ci]), a.llr[cj]);
-    if (pm < best2) {
-      best2 = pm;
-      pair = p;
-    }
-  }
-  block_argmin(best2, pair, red_v, red_i);
-
-  // the winner, and the solution
-  const bool is_pair = best2 < best1;
-  const float best = is_pair ? best2 : best1;
-  const bool use = best < pm0;
-  const int c1 = is_pair ? s_top[a.pair_i[pair]] : col1;
-  const int c2 = is_pair ? s_top[a.pair_j[pair]] : -1;
-  for (int w = tid; w < W; w += kThreads) {
-    uint32_t x = use ? 0u : osdm[w];
-    if (use && (c1 >> 5) == w) x |= 1u << (c1 & 31);
-    if (is_pair && use && (c2 >> 5) == w) x |= 1u << (c2 & 31);
-    solm[w] = x;
-  }
+    return g;
+  };
+  const Winner win = pick_winner(a, n, W, s_pm0, pivm, osdm, aj, s_top, gram, solm, red_v, red_i);
   __syncthreads();
-  if (use) {
+  if (win.use) {
     for (int t = tid; t < r; t += kThreads) {
       const uint32_t* row = st + prow[t] * Wp1;
-      uint32_t y = (row[W] & 1u) ^ ((row[c1 >> 5] >> (c1 & 31)) & 1u);
-      if (is_pair) y ^= (row[c2 >> 5] >> (c2 & 31)) & 1u;
+      uint32_t y = (row[W] & 1u) ^ ((row[win.c1 >> 5] >> (win.c1 & 31)) & 1u);
+      if (win.is_pair) y ^= (row[win.c2 >> 5] >> (win.c2 & 31)) & 1u;
       if (y) atomicOr(&solm[pcol[t] >> 5], 1u << (pcol[t] & 31));
     }
   }
   __syncthreads();
-  uint8_t* sol_out = a.solution + (long long)b * n;
-  uint8_t* osd0_out = a.osd0 + (long long)b * n;
-  for (int j = tid; j < n; j += kThreads) {
-    osd0_out[j] = (uint8_t)((osdm[j >> 5] >> (j & 31)) & 1u);
-    sol_out[j] = (uint8_t)((solm[j >> 5] >> (j & 31)) & 1u);
+  store_solution(a, b, n, W, osdm, solm);
+}
+
+// ---------------------------------------------------------------------------
+// The cluster route: one shot per thread-block cluster of C blocks
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kMaxPairs = kMaxTop * (kMaxTop - 1) / 2;
+
+// Rows of the packed state a block of a C-block cluster holds.
+__host__ __device__ inline int cluster_rows(int m, int C) { return (m + C - 1) / C; }
+
+// Byte offsets of one cluster block's shared-memory arrays: its rows of the
+// state (or the sort's pairs, which come first), the whole sorted order and
+// pivot lists, the candidate tests, a copy of the step's pivot row and, when
+// fused, the running column and pair sums, the weights of its rows and four
+// column masks. `ops/gf2_cuda.py:cluster_smem_bytes` computes the same total.
+struct ClusterLayout {
+  size_t st, ord, pcol, prow, test, prbuf, a, gram, wrow, masks, total;
+};
+
+__host__ __device__ inline ClusterLayout make_cluster_layout(int m, int n, int W, int C,
+                                                             bool fused) {
+  ClusterLayout L;
+  size_t o = 0;
+  const size_t state = (size_t)cluster_rows(m, C) * (W + 1) * 4,
+               sort = (size_t)next_pow2(n) * 8;
+  L.st = o;     o = align16(o + (state > sort ? state : sort));
+  L.ord = o;    o = align16(o + (size_t)n * 2);
+  L.pcol = o;   o = align16(o + (size_t)m * 2);
+  L.prow = o;   o = align16(o + (size_t)m * 2);
+  L.test = o;   o = align16(o + (size_t)2 * kWarps * kSlot * 4);
+  L.prbuf = o;  o = align16(o + (size_t)(W + 1) * 4);
+  L.a = L.gram = L.wrow = L.masks = o;
+  if (fused) {
+    L.a = o;     o = align16(o + (size_t)n * 4);
+    L.gram = o;  o = align16(o + (size_t)kMaxPairs * 4);
+    L.wrow = o;  o = align16(o + (size_t)cluster_rows(m, C) * 4);
+    L.masks = o; o = align16(o + (size_t)W * 4 * 4);
   }
-  if (tid == 0) {  // min_pm: the solution's metric, ascending column
-    double acc = 0.0;
-    for (int w = 0; w < W; ++w)
-      for (uint32_t x = solm[w]; x; x &= x - 1)
-        acc = __dadd_rn(acc, (double)a.llr[32 * w + __ffs(x) - 1]);
-    a.min_pm[b] = __double2float_rn(acc);
+  L.total = o;
+  return L;
+}
+
+// The elimination and sweep of `gj_kernel` for shapes beyond one block's
+// shared memory. Block q of the cluster holds global rows [q R, q R + R) of
+// the state (R = cluster_rows), so ascending global row is ascending
+// (block, local row). Each block sorts the same (key, column) pairs and
+// keeps the whole order and pivot lists.
+//
+// Step r: each block tests the candidates pos + w on its own rows as
+// gj_kernel does and posts, per candidate, its lowest unused holding row
+// (global index) and its holding-row masks; one cluster barrier; warp 0 of
+// each block reads the C posts of every candidate through distributed
+// shared memory (the lowest block with a row has the lowest row) and takes
+// the first live candidate, so every block picks the same pivot column and
+// row; each block copies the pivot row from its owner's shared memory and
+// XORs it into its own holding rows. The owner changes that row again only
+// in a later step, after the next cluster barrier, when every block has
+// copied it. The posts are double-buffered by round, as in gj_kernel.
+//
+// Sweep (FUSED): a_j and the Gram terms are running sums passed from block
+// to block: block c adds its rows, in ascending order, to block c-1's sums
+// (read through distributed shared memory), one block at a time with a
+// cluster barrier between, so each sum takes gj_kernel's ascending-row
+// order and its bits. The last block then holds them and picks the winner
+// as gj_kernel does; each block flips the solution bits of its own pivot
+// rows into the last block's solution mask (shared-memory atomics across
+// the cluster), which stores the outputs.
+template <bool FUSED, int KW>
+__global__ void __launch_bounds__(kThreads) gj_cluster_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank(), last = C - 1;
+  const int m = a.m, n = a.n, W = a.W, Wp1 = W + 1, rank = a.rank;
+  const ClusterLayout L = make_cluster_layout(m, n, W, C, FUSED);
+  const int R = cluster_rows(m, C), r0 = q * R;
+  const int mr = max(0, min(m - r0, R));  // this block's rows: r0 .. r0 + mr - 1
+  const int KL = (mr + 31) >> 5;
+  uint32_t* st = (uint32_t*)(smem + L.st);                      // [mr, W+1]
+  unsigned long long* pairs = (unsigned long long*)(smem + L.st);  // sort only
+  uint16_t* ord = (uint16_t*)(smem + L.ord);                     // [n]
+  uint16_t* pcol = (uint16_t*)(smem + L.pcol);                   // [rank]
+  uint16_t* prow = (uint16_t*)(smem + L.prow);                   // global rows
+  int* test = (int*)(smem + L.test);  // [2 rounds][kWarps][kSlot]
+  uint32_t* prbuf = (uint32_t*)(smem + L.prbuf);                 // [W+1]
+  __shared__ uint32_t unused[kRowWords];  // this block's rows not yet pivot rows
+  __shared__ float red_v[kWarps];
+  __shared__ int red_i[kWarps];
+  __shared__ int s_win, s_piv, s_left;
+
+  const int b = blockIdx.x / C, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  sort_columns(a.keys + (long long)b * n, n, pairs, ord);
+
+  for (int e = tid; e < mr * Wp1; e += kThreads) {
+    const int i = e / Wp1, w = e - i * Wp1;
+    st[e] = (w < W) ? a.H[(r0 + i) * W + w]
+                    : (uint32_t)(a.synd[(long long)b * m + r0 + i] & 1);
   }
+  if (tid < kRowWords) {
+    const int rows = mr - 32 * tid;
+    unused[tid] = rows >= 32 ? 0xffffffffu : (rows > 0 ? (1u << rows) - 1u : 0u);
+  }
+  __syncthreads();
+
+  int pos = 0, r = 0, round = 0;
+  while (r < rank && pos < n) {
+    int* buf = test + (round & 1) * kWarps * kSlot;
+    ++round;
+    const int c = pos + warp;
+    int first = -1;
+    if (c < n) {
+      uint32_t mine;  // lane k: the local rows of word k that hold the column's bit
+      const int local = test_column<KW>(st, Wp1, mr, unused, ord[c], mine);
+      if (local >= 0) first = r0 + local;
+      if (lane < KL) buf[warp * kSlot + 1 + lane] = (int)mine;
+    }
+    if (lane == 0) buf[warp * kSlot] = first;
+    cluster.sync();  // every block's posts of this round are written
+
+    if (warp == 0) {
+      int f = -1;  // lane w < kWarps: candidate w's lowest unused row in the cluster
+      if (lane < kWarps) {
+        int g[kMaxCluster];
+#pragma unroll
+        for (int qq = 0; qq < kMaxCluster; ++qq)
+          g[qq] = qq < C ? cluster.map_shared_rank(buf, qq)[lane * kSlot] : -1;
+#pragma unroll
+        for (int qq = kMaxCluster - 1; qq >= 0; --qq)
+          if (g[qq] >= 0) f = g[qq];
+      }
+      const uint32_t any = __ballot_sync(0xffffffffu, f >= 0);
+      const int w0 = any ? __ffs(any) - 1 : 0;
+      const int pv = __shfl_sync(0xffffffffu, f, w0);
+      if (lane == 0) {
+        s_win = any ? w0 : -1;
+        s_piv = pv;
+      }
+    }
+    __syncthreads();
+    const int win = s_win, piv = s_piv;
+    if (win < 0) {  // every candidate of this round is dead in every block
+      pos += kWarps;
+      continue;
+    }
+    const int owner = piv / R, li = piv - owner * R;
+    const uint32_t* src = cluster.map_shared_rank(st, owner) + li * Wp1;
+    for (int w = tid; w < Wp1; w += kThreads) prbuf[w] = src[w];
+    __syncthreads();
+    for (int k = warp; k < KL; k += kWarps) {
+      uint32_t h = (uint32_t)buf[win * kSlot + 1 + k];
+      if (owner == q && k == (li >> 5)) h &= ~(1u << (li & 31));
+      while (h) {
+        uint32_t* row = st + (32 * k + __ffs(h) - 1) * Wp1;
+        h &= h - 1;
+        for (int w = lane; w < Wp1; w += 32) row[w] ^= prbuf[w];
+      }
+    }
+    if (tid == 0) {
+      if (owner == q) unused[li >> 5] &= ~(1u << (li & 31));
+      pcol[r] = ord[pos + win];
+      prow[r] = (uint16_t)piv;
+    }
+    ++r;
+    pos += win + 1;
+    __syncthreads();
+  }
+
+  // a syndrome bit left on an unused row of this block
+  int left = 0;
+  for (int i = tid; i < mr; i += kThreads)
+    left |= (int)(((unused[i >> 5] >> (i & 31)) & 1u) && (st[i * Wp1 + W] & 1u));
+  left = __syncthreads_or(left);
+  if (tid == 0) s_left = left;
+
+  if (!FUSED) {
+    uint32_t* out = a.state_out + ((long long)b * m + r0) * Wp1;
+    for (int e = tid; e < mr * Wp1; e += kThreads) out[e] = st[e];
+    if (q == 0) {
+      for (int t = tid; t < rank; t += kThreads) {
+        a.pcol_out[(long long)b * rank + t] = t < r ? pcol[t] : -1;
+        a.prow_out[(long long)b * rank + t] = t < r ? prow[t] : -1;
+      }
+    }
+    cluster.sync();  // every block's s_left is set
+    if (q == 0 && tid == 0) {
+      int any = 0;
+      for (int qq = 0; qq < C; ++qq) any |= *cluster.map_shared_rank(&s_left, qq);
+      a.incons[b] = (uint8_t)(any != 0);
+    }
+    cluster.sync();  // no block leaves while block 0 reads it
+    return;
+  }
+
+  float* aj = (float*)(smem + L.a);       // [n] running sums
+  float* gsum = (float*)(smem + L.gram);  // [npairs] running Gram sums
+  float* wrow = (float*)(smem + L.wrow);  // [mr], 0 on non-pivot rows
+  uint32_t* pivm = (uint32_t*)(smem + L.masks);  // [W] pivot columns
+  uint32_t* osdl = pivm + W;  // [W] OSD-0 bits of this block's pivot rows
+  uint32_t* osdm = osdl + W;  // [W] OSD-0 support (last block)
+  uint32_t* solm = osdm + W;  // [W] the solution's support (last block)
+  __shared__ float s_pm0;
+  __shared__ int s_top[kMaxTop];
+  __shared__ Winner s_best;  // (last block)
+
+  for (int w = tid; w < 2 * W; w += kThreads) pivm[w] = 0u;
+  for (int i = tid; i < mr; i += kThreads) wrow[i] = 0.f;
+  __syncthreads();
+  for (int t = tid; t < r; t += kThreads) {
+    const int j = pcol[t], i = prow[t] - r0;
+    atomicOr(&pivm[j >> 5], 1u << (j & 31));
+    if (0 <= i && i < mr) {
+      const bool sol = st[i * Wp1 + W] & 1u;
+      const float l = a.llr[j];
+      wrow[i] = sol ? -l : l;
+      if (sol) atomicOr(&osdl[j >> 5], 1u << (j & 31));
+    }
+  }
+  __syncthreads();
+  if (warp == 0) top_nonpivot(ord, n, pivm, a.order_w, s_top);
+  cluster.sync();  // pivm, osdl, s_top, wrow and s_left set in every block
+
+  // a_j and the Gram terms: block c continues block c-1's sums over its rows
+  for (int cc = 0; cc < C; ++cc) {
+    if (q == cc) {
+      const float* prev_a = cc ? cluster.map_shared_rank(aj, cc - 1) : nullptr;
+      const float* prev_g = cc ? cluster.map_shared_rank(gsum, cc - 1) : nullptr;
+      for (int j = tid; j < n; j += kThreads) {
+        const int jw = j >> 5, js = j & 31;
+        if ((pivm[jw] >> js) & 1u) continue;
+        float acc = cc ? prev_a[j] : 0.f;
+#pragma unroll 8
+        for (int i = 0; i < mr; ++i)
+          if ((st[i * Wp1 + jw] >> js) & 1u) acc = __fadd_rn(acc, wrow[i]);
+        aj[j] = acc;
+      }
+      for (int p = tid; p < a.npairs; p += kThreads) {
+        const int ci = s_top[a.pair_i[p]], cj = s_top[a.pair_j[p]];
+        const int iw = ci >> 5, is = ci & 31, jw = cj >> 5, js = cj & 31;
+        float g = cc ? prev_g[p] : 0.f;
+        for (int i = 0; i < mr; ++i) {
+          const uint32_t* row = st + i * Wp1;
+          if ((row[iw] >> is) & (row[jw] >> js) & 1u) g = __fadd_rn(g, wrow[i]);
+        }
+        gsum[p] = g;
+      }
+    }
+    cluster.sync();
+  }
+
+  if (q == last) {  // the winner, as gj_kernel picks it
+    for (int w = tid; w < W; w += kThreads) {
+      uint32_t x = 0u;
+      for (int qq = 0; qq < C; ++qq) x |= cluster.map_shared_rank(osdl, qq)[w];
+      osdm[w] = x;
+    }
+    if (tid == 0) {
+      int any = 0;
+      for (int qq = 0; qq < C; ++qq) any |= *cluster.map_shared_rank(&s_left, qq);
+      a.incons[b] = (uint8_t)(any != 0);
+    }
+    __syncthreads();
+    if (tid == 0) s_pm0 = support_sum(osdm, W, a.llr);
+    __syncthreads();
+    const Winner win = pick_winner(a, n, W, s_pm0, pivm, osdm, aj, s_top,
+                                   [&](int p, int, int) { return gsum[p]; }, solm, red_v,
+                                   red_i);
+    if (tid == 0) s_best = win;
+  }
+  cluster.sync();  // the winner and the last block's solution mask are set
+
+  const Winner win = *cluster.map_shared_rank(&s_best, last);
+  if (win.use) {  // flip the bits of this block's pivot rows
+    uint32_t* lsolm = cluster.map_shared_rank(solm, last);
+    for (int t = tid; t < r; t += kThreads) {
+      const int i = prow[t] - r0;
+      if (i < 0 || i >= mr) continue;
+      const uint32_t* row = st + i * Wp1;
+      uint32_t y = (row[W] & 1u) ^ ((row[win.c1 >> 5] >> (win.c1 & 31)) & 1u);
+      if (win.is_pair) y ^= (row[win.c2 >> 5] >> (win.c2 & 31)) & 1u;
+      if (y) atomicOr(&lsolm[pcol[t] >> 5], 1u << (pcol[t] & 31));
+    }
+  }
+  cluster.sync();  // every flip is in; from here each block reads only its own memory
+  if (q == last) store_solution(a, b, n, W, osdm, solm);
 }
 
 template <bool FUSED, int KW>
@@ -461,6 +820,45 @@ int launch(const Args& a, int B, void* stream) {
     return (int)cudaErrorInvalidValue;
   return a.m <= 256 ? launch_kw<FUSED, 8>(a, B, L.total, stream)
                     : launch_kw<FUSED, 16>(a, B, L.total, stream);
+}
+
+template <bool FUSED, int KW>
+int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream) {
+  void (*kern)(const Args) = gj_cluster_kernel<FUSED, KW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;  // it could never run
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool FUSED>
+int launch_cluster(const Args& a, int B, int C, void* stream) {
+  if (B == 0) return 0;
+  const ClusterLayout L = make_cluster_layout(a.m, a.n, a.W, C, FUSED);
+  const int R = cluster_rows(a.m, C);
+  if (C < 2 || C > kMaxCluster || R > 32 * kRowWords || a.m > 65536 || a.n > 65536 ||
+      a.order_w > kMaxTop || a.npairs > kMaxPairs || L.total > 232448)
+    return (int)cudaErrorInvalidValue;
+  return R <= 256 ? launch_cluster_kw<FUSED, 8>(a, B, C, L.total, stream)
+                  : launch_cluster_kw<FUSED, 16>(a, B, C, L.total, stream);
 }
 
 Args base_args(const void* H, const void* synd, const void* keys, void* incons, int m,
@@ -510,6 +908,37 @@ int osd_cs_fused(const void* H, const void* synd, const void* keys, const void* 
 // Shared memory of one block, as the launch computes it.
 long long gj_smem_bytes(int m, int n, int W, int fused) {
   return (long long)make_layout(m, n, W, fused != 0).total;
+}
+
+int gauss_jordan_key_cluster(const void* H, const void* synd, const void* keys,
+                             void* state_out, void* pcol, void* prow, void* incons,
+                             int m, int n, int W, int rank, int B, int C, void* stream) {
+  Args a = base_args(H, synd, keys, incons, m, n, W, rank);
+  a.state_out = (uint32_t*)state_out;
+  a.pcol_out = (int32_t*)pcol;
+  a.prow_out = (int32_t*)prow;
+  return launch_cluster<false>(a, B, C, stream);
+}
+
+int osd_cs_fused_cluster(const void* H, const void* synd, const void* keys, const void* llr,
+                         const void* pair_i, const void* pair_j, void* solution, void* osd0,
+                         void* min_pm, void* incons, int m, int n, int W, int rank,
+                         int order_w, int npairs, int B, int C, void* stream) {
+  Args a = base_args(H, synd, keys, incons, m, n, W, rank);
+  a.llr = (const float*)llr;
+  a.pair_i = (const int32_t*)pair_i;
+  a.pair_j = (const int32_t*)pair_j;
+  a.solution = (uint8_t*)solution;
+  a.osd0 = (uint8_t*)osd0;
+  a.min_pm = (float*)min_pm;
+  a.order_w = order_w;
+  a.npairs = npairs;
+  return launch_cluster<true>(a, B, C, stream);
+}
+
+// Shared memory of one block of a C-block cluster, as the launch computes it.
+long long gj_cluster_smem_bytes(int m, int n, int W, int C, int fused) {
+  return (long long)make_cluster_layout(m, n, W, C, fused != 0).total;
 }
 
 const char* swd_error_string(int code) {

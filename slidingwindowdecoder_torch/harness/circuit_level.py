@@ -1,4 +1,4 @@
-"""Circuit-level sliding-window Monte-Carlo experiments.
+"""Circuit-level Monte-Carlo experiments: sliding-window and whole-block.
 
 The counterpart of the JAX package's ``harness/circuit_level.py`` (the
 reference's ``sliding_window_decoder``, osd.py:15-194): build the BB code
@@ -6,7 +6,8 @@ reference's ``sliding_window_decoder``, osd.py:15-194): build the BB code
 sample detector data, run the window pipeline with a batched decoder per
 window (``decoders.BPOSD``, or ``decoders.OSDWindow`` when shortened; or
 ``decoders.GDG`` in ``sliding_window_gdg``, the reference's guessing.py),
-and report flagged / logical error rates per round.
+and report flagged / logical error rates per round. ``global_decoder``
+decodes the whole DEM at once instead (IBM.ipynb cells 3-5).
 """
 
 from __future__ import annotations
@@ -195,6 +196,122 @@ def sliding_window_decoder(
         print(f"logical error per round: {p_l_per_round:.3e}")
         print(
             f"decode: {decode_seconds:.2f}s ({result['shots_per_sec']:.1f} shots/s)"
+        )
+    return result
+
+
+def build_global_decoder(
+    dem,
+    shorten: bool = False,
+    *,
+    max_iter: int = 200,
+    osd_method: str = "osd_cs",
+    osd_order: int = 10,
+    ms_scaling_factor: float = 1.0,
+    device=None,
+):
+    """The decoder of ``global_decoder`` for the whole DEM ``dem``: BPOSD
+    with the flagship window path's execution knobs (bf16 messages, a
+    16-iteration phase A, 1024-shot phase-B buckets, 256-shot OSD
+    buckets), or with ``shorten`` the shortened ``OSDWindow`` (pre-BP 8,
+    post-BP ``max_iter``) at its defaults, as the JAX package builds them
+    (``harness/circuit_level.py:199-213``)."""
+    from ..decoders.bposd import BPOSD
+    from ..decoders.osd_window import OSDWindow
+
+    if shorten:
+        return OSDWindow(
+            dem.chk, dem.priors, pre_max_iter=8, post_max_iter=max_iter,
+            ms_scaling_factor=ms_scaling_factor, osd_method=osd_method,
+            osd_order=osd_order, device=device,
+        )
+    return BPOSD(
+        dem.chk, dem.priors, max_iter=max_iter, ms_scaling_factor=ms_scaling_factor,
+        osd_method=osd_method, osd_order=osd_order, msg_dtype="bfloat16",
+        phase_a_iters=16, bp_bucket=1024, osd_bucket=256, device=device,
+    )
+
+
+def global_decoder(
+    N: int = 144,
+    p: float = 0.004,
+    num_repeat: int = 12,
+    num_shots: int = 10000,
+    max_iter: int = 200,
+    *,
+    z_basis: bool = True,
+    osd_method: str = "osd_cs",
+    osd_order: int = 10,
+    ms_scaling_factor: float = 1.0,
+    shorten: bool = False,
+    seed: int | None = None,
+    verbose: bool = True,
+    batch_size: int = 8192,
+    device=None,
+):
+    """Whole-block (non-windowed) decoding of the full DEM check matrix.
+
+    The IBM.ipynb Fig.3 reproduction path (cells 3-5): BP+OSD-CS-10 on the
+    full 936x8784 matrix for [[144]]x12; ``shorten=True`` uses the
+    osd_window decoder instead (cell 5). The JAX package's function, plus
+    ``device`` (None means "cuda"; raises without a card). The samples are
+    ``sample_dem_numpy``'s, so both packages decode the same detector
+    data. Shots are decoded in ``batch_size`` chunks; each distinct chunk
+    size is decoded once outside the timed region first (the kernels are
+    built and loaded there). The syndrome and logical tests run on the
+    device, and the counts are read once at the end.
+    """
+    dev = resolve_device(device)
+    code, A_list, B_list = bb_code_by_n(N)
+    circuit = build_bb_memory_circuit(
+        code, A_list, B_list, p, num_repeat, z_basis=z_basis
+    )
+    dem = compile_dem(circuit)
+    rng = np.random.default_rng(seed)
+    det, obs, _ = sample_dem_numpy(dem, num_shots, rng)
+    dec = build_global_decoder(
+        dem, shorten, max_iter=max_iter, osd_method=osd_method, osd_order=osd_order,
+        ms_scaling_factor=ms_scaling_factor, device=dev,
+    )
+    chk_t = torch.as_tensor(dem.chk.T, dtype=torch.float32, device=dev)
+    obs_t = torch.as_tensor(dem.obs.T, dtype=torch.float32, device=dev)
+    det_dev = torch.as_tensor(det, device=dev)
+    obs_dev = torch.as_tensor(obs, device=dev)
+    chunks = [(lo, min(lo + batch_size, num_shots)) for lo in range(0, num_shots, batch_size)]
+    for size in sorted({hi - lo for lo, hi in chunks}):  # warm-up, one chunk a size
+        lo, hi = next(c for c in chunks if c[1] - c[0] == size)
+        dec.core(det_dev[lo:hi])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    failed = torch.zeros((), dtype=torch.int64, device=dev)
+    flagged = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo, hi in chunks:
+        det_c = det_dev[lo:hi]
+        e_hat = dec.core(det_c)["error"]
+        resid = (_gf2_matmul(e_hat, chk_t) ^ det_c).any(dim=1)
+        logical = (_gf2_matmul(e_hat, obs_t) ^ obs_dev[lo:hi]).any(dim=1)
+        failed += (resid | logical).sum()
+        flagged += resid.sum()
+    num_failed, num_flagged = (int(x) for x in torch.stack([failed, flagged]).tolist())
+    seconds = time.perf_counter() - t0
+    p_l = num_failed / num_shots
+    result = {
+        "N": N,
+        "p": p,
+        "num_shots": num_shots,
+        "num_flagged": num_flagged,
+        "num_failed": num_failed,
+        "ler": p_l,
+        "ler_per_round": 1 - (1 - p_l) ** (1 / num_repeat),
+        "decode_seconds": seconds,
+        "shots_per_sec": num_shots / seconds,
+    }
+    if verbose:
+        print(
+            f"global: {num_failed}/{num_shots} failed, "
+            f"LER/r {result['ler_per_round']:.3e} "
+            f"({result['shots_per_sec']:.1f} shots/s)"
         )
     return result
 

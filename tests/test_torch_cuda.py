@@ -323,6 +323,102 @@ def test_gj_smem_layout_matches_kernel(card):
             assert fn(m, n, W, int(fused)) == gf2_cuda.smem_bytes(m, n, W, fused)
 
 
+def _wide_spec(which: str):
+    """The shapes of the cluster route: an interior [[288]] W=4 window
+    (576x4896) or the [[144]] global DEM (936x8784), with its prior."""
+    from types import SimpleNamespace
+
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+
+    if which == "288w4":
+        return build_bb_window_experiment(288, 0.005, 6, 4, 1)[3].windows[1]
+    dem = build_bb_window_experiment(144, 0.004, 12, 3, 1)[2]
+    return SimpleNamespace(mat=dem.chk, prior=dem.priors)
+
+
+# (PCM, forced blocks per shot or None for the route's own choice, shots)
+CLUSTER_CASES = [("window", 2, 8), ("window", 4, 8), ("window", 8, 8), ("last", 4, 8),
+                 ("288w4", None, 4), ("global", None, 2)]
+
+
+def _cluster_spec(which):
+    return {"window": lambda: _window144(1), "last": lambda: _window144(-1)}.get(
+        which, lambda: _wide_spec(which))()
+
+
+@pytest.mark.parametrize("which, C, B", CLUSTER_CASES)
+def test_gj_cluster_bit_exact(card, which, C, B):
+    """The cluster route of the elimination, forced at the [[144]] window
+    shapes with 2, 4 and 8 blocks and taken by the route at 576x4896 (C=2)
+    and 936x8784 (C=8), on tie keys: every output equal to the plain
+    version's on the card."""
+    from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key
+    from slidingwindowdecoder_torch.ops.gf2_solve import ordered_gauss_jordan_key
+
+    c = _osd_case(card, _cluster_spec(which), B, 21 + B)
+    kw = dict(m=c["m"], n=c["n"], rank=c["rank"])
+    before = gauss_jordan_key.cluster_launches, gauss_jordan_key.launches
+    out = gauss_jordan_key(c["Hw"], c["synd"], c["key"], **kw, cluster_blocks=C)
+    assert (gauss_jordan_key.cluster_launches, gauss_jordan_key.launches) == (
+        before[0] + 1, before[1])
+    ref = ordered_gauss_jordan_key(c["Hw"], c["synd"], c["key"], **kw)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.parametrize("which, C, B", CLUSTER_CASES)
+def test_osd_cs_fused_cluster_bit_exact(card, which, C, B):
+    """The cluster route of the fused OSD-CS launch against the plain
+    elimination and sweep on the card: solution, OSD-0, inconsistency and
+    the bits of min_pm equal (the sums passed from block to block keep the
+    single block's orders)."""
+    from slidingwindowdecoder_torch.ops.gf2_cuda import osd_cs_fused
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        _osd_sweep_cs_sortless,
+        analyze_patterns,
+        ordered_gauss_jordan_key,
+        osd_candidate_patterns,
+    )
+
+    c = _osd_case(card, _cluster_spec(which), B, 31 + B)
+    m, n, rank = c["m"], c["n"], c["rank"]
+    meta = analyze_patterns(osd_candidate_patterns(n - rank, 10, "osd_cs"), n - rank)
+    pi, pj = (torch.as_tensor(meta[k], device=card) for k in ("pair_i", "pair_j"))
+    before = osd_cs_fused.cluster_launches, osd_cs_fused.launches
+    out = osd_cs_fused(c["Hw"], c["synd"], c["key"], c["llr"], pi, pj, m=m, n=n, rank=rank,
+                       order_w=meta["order_w"], cluster_blocks=C)
+    assert (osd_cs_fused.cluster_launches, osd_cs_fused.launches) == (before[0] + 1,
+                                                                      before[1])
+    gj = ordered_gauss_jordan_key(c["Hw"], c["synd"], c["key"], m=m, n=n, rank=rank)
+    sol, min_pm = _osd_sweep_cs_sortless(gj, c["key"], c["llr"], pi, pj,
+                                         order_w=meta["order_w"])
+    assert torch.equal(out["solution"], sol)
+    assert torch.equal(out["osd0"], gj["osd0"])
+    assert torch.equal(out["inconsistent"], gj["inconsistent"])
+    assert torch.equal(out["min_pm"].view(torch.int32), min_pm.view(torch.int32))
+
+
+def test_gj_cluster_layout_matches_kernel(card):
+    """The cluster gate's shared-memory count equals the kernel's own
+    layout (that the route's clusters fit the card, the launch checks with
+    ``cudaOccupancyMaxActiveClusters``: the bit-exact cases above launch
+    at 576x4896 and 936x8784)."""
+    import ctypes
+
+    from slidingwindowdecoder_torch.ops import gf2_cuda
+    from slidingwindowdecoder_torch.utils import cuda_build
+
+    fn = cuda_build.load(gf2_cuda.SOURCE).gj_cluster_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    for m, n in ((576, 4752), (576, 4896), (936, 8784), (216, 1728), (10, 300)):
+        W = -(-n // 32)
+        for C in gf2_cuda.CLUSTER_SIZES:
+            for fused in (False, True):
+                assert fn(m, n, W, C, int(fused)) == gf2_cuda.cluster_smem_bytes(
+                    m, n, W, C, fused)
+
+
 def _cc_inputs(p, shots, seed):
     from slidingwindowdecoder_torch.codes import bb_code_by_n
 
@@ -340,7 +436,9 @@ def _launches():
     return {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
             "cn_update": cn.launches + cn.pinned_launches,
             "gauss_jordan_key": gf2_cuda.gauss_jordan_key.launches,
-            "osd_cs_fused": gf2_cuda.osd_cs_fused.launches}
+            "osd_cs_fused": gf2_cuda.osd_cs_fused.launches,
+            "cluster": gf2_cuda.gauss_jordan_key.cluster_launches
+            + gf2_cuda.osd_cs_fused.cluster_launches}
 
 
 @pytest.mark.parametrize("mode", ["loop", "spans"])

@@ -12,6 +12,7 @@ share.
     python3 tools/torch_profile_main_path.py --path gdg [--gdg-bucket 256]
     python3 tools/torch_profile_main_path.py --path gdg_spans
     python3 tools/torch_profile_main_path.py --path cc_bpgd
+    python3 tools/torch_profile_main_path.py --path global
 
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
@@ -29,7 +30,12 @@ of 2048 at most, lane dormancy); its stages add the compaction's gathers.
 no pre-BP, 12 masked iterations a step at ``gd_factor`` 0.8, max_step
 100, spans mode; stages the bursts, the decision's ``vn_set_values``, the
 peels (sweeps, a host read each) and the rest (the argmax, the step's
-finished read, the compaction). Seed 2024, as ``chip_smoke.py``.
+finished read, the compaction). ``global``: ``global_decoder``'s decoder
+(BP+OSD-CS-10 with the bench knobs and bf16 messages) on the whole [[144]]
+DEM (936x8784) at p=0.004, 16384 shots in two 8192-shot ``core`` calls as
+``global_decoder`` chunks them; stages as ``bposd`` (BP runs the per-op
+loop with ``cn_update.cu``, OSD the cluster route of kernel B); the
+profiled decode covers the first chunk. Seed 2024, as ``chip_smoke.py``.
 
 Prints one JSON line with the stage seconds and the kernel launches of the
 timed decode, then one with the top kernels by device time, the busy
@@ -58,6 +64,7 @@ BURST_STAGE = "ensemble bursts (masked bp_run, one bp_span_pinned launch each)"
 PROFILED_GDG_SHOTS = 1024
 PROFILED_CC_SHOTS = 16384
 CC_SHOTS, CC_P = 65536, 0.04
+GLOBAL_BATCH = 8192
 
 
 
@@ -68,8 +75,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("bposd", "osd_window", "gdg", "gdg_spans", "cc_bpgd"),
-                    default="bposd")
+    ap.add_argument("--path", choices=("bposd", "osd_window", "gdg", "gdg_spans", "cc_bpgd",
+                                       "global"), default="bposd")
     ap.add_argument("--gdg-bucket", type=int, default=512,
                     help="GDG ensemble_bucket (shots per ensemble bucket)")
     args = ap.parse_args()
@@ -88,6 +95,7 @@ def main() -> int:
     )
     from slidingwindowdecoder_torch.harness.circuit_level import (
         build_bb_window_experiment,
+        build_global_decoder,
         gdg_window_factory,
         window_decoder_factory,
     )
@@ -109,6 +117,8 @@ def main() -> int:
         _, _, dem, plan = build_bb_window_experiment(144, p, 12, 3, 1)
         det, _, _ = sample_dem_numpy(dem, shots, np.random.default_rng(SEED))
         det = torch.as_tensor(det, device="cuda")
+        if args.path == "global":
+            dec = build_global_decoder(dem, device="cuda")
     # (owner, attribute, stage name from the call's arguments) to time; the
     # last one is also the profiled stage
     ranged = OSD_STAGE
@@ -137,13 +147,14 @@ def main() -> int:
             (gdg, "_ensemble_reduce", lambda *a: "reduce"),
             (gdg, "bp_run", lambda *a, **k: BURST_STAGE),
         ]
-    elif args.path == "bposd":
+    elif args.path in ("bposd", "global"):
         factory = window_decoder_factory(
             False, bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
             phase_b_spans=(48, 136), msg_dtype="bfloat16", device="cuda")
+        full = GLOBAL_BATCH if args.path == "global" else shots
         patches = [
             (BPOSD, "_run_bp", lambda self, mv, synds, *_, **__: (
-                "bp phase A (full batch)" if synds.shape[0] == shots
+                "bp phase A (full batch)" if synds.shape[0] == full
                 else "bp phase B (buckets)")),
             (bposd, "osd_decode", lambda *a, **k: OSD_STAGE),
         ]
@@ -170,6 +181,8 @@ def main() -> int:
     def run(d=det):
         if args.path == "cc_bpgd":
             out = dec.core(d)
+        elif args.path == "global":
+            out = [dec.core(d[lo:lo + GLOBAL_BATCH]) for lo in range(0, len(d), GLOBAL_BATCH)]
         else:
             out = decode_sliding_window(plan, d, factory, device="cuda", verbose=False,
                                         collect_window_stats=False)
@@ -181,14 +194,16 @@ def main() -> int:
     gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
     for k in (cn, span, gj, osd):
         k.launches = 0
-    cn.pinned_launches = span.pinned_launches = 0
+    cn.pinned_launches = span.pinned_launches = gj.cluster_launches = osd.cluster_launches = 0
     sweeps[0] = 0
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
-                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches}
+                "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
+                "gauss_jordan_key_cluster": gj.cluster_launches,
+                "osd_cs_fused_cluster": osd.cluster_launches}
     n_sweeps = sweeps[0]
 
     # per-stage wall time: wrap the decoder's stages with synchronizing
@@ -250,10 +265,10 @@ def main() -> int:
     setattr(r_owner, r_attr, stage_ranged)
     # the profiler's cost grows with the op count: on the GDG paths it
     # traces the first PROFILED_GDG_SHOTS shots (two full ensemble buckets
-    # a window at the default bucket), on cc_bpgd PROFILED_CC_SHOTS, the
-    # others the whole batch
+    # a window at the default bucket), on cc_bpgd PROFILED_CC_SHOTS, on
+    # global its first chunk, the others the whole batch
     prof_shots = {"gdg": PROFILED_GDG_SHOTS, "gdg_spans": PROFILED_GDG_SHOTS,
-                  "cc_bpgd": PROFILED_CC_SHOTS}.get(args.path, shots)
+                  "cc_bpgd": PROFILED_CC_SHOTS, "global": GLOBAL_BATCH}.get(args.path, shots)
     sub_wall = wall
     if prof_shots < shots:  # the same shots unprofiled, for the busy share
         t0 = time.perf_counter()
