@@ -80,6 +80,15 @@ Phases (any failure exits non-zero; nothing is caught):
    correction and flag equal to the host-stepped form's, with its shots/s
    beside that form's and the columns stepped in each span as a share of
    the ensemble's columns;
+9b. ``[gdg_bf16]``: the GDG path at the JAX package's GDG parity knobs
+   (bf16 messages and history ring, the spans form, 512-shot ensemble
+   buckets) over the same 8192 shots: exactly ``GDG_BF16_FAILED`` failures
+   (and within 3 sigma of 400/5000), launching only ``bp_span`` and
+   ``bp_span_pinned`` with the bf16 ring, and its first 32 shots on the
+   card and by the plain versions on the CPU (no shot may differ);
+   ``[gdg_serial]``: the serial work queue (``GDG(multi_thread=False)``) on
+   window 0's PCM over 256 of its syndromes, on the card (``bp_span`` and
+   ``bp_span_pinned`` only) and on the CPU, no shot differing;
 10. code capacity on the [[882,24]] QC-GHP code (``Misc.ipynb`` cell 10)
    at p=0.04, 65536 shots from seed 2024: first kernel B at 441x882 on
    the first OSD bucket of the BP+OSD-0 and BP+OSD-CS-10 decodes of the
@@ -124,8 +133,34 @@ Phases (any failure exits non-zero; nothing is caught):
    (576x4896, 2 blocks) and of the global decode (936x8784, 8 blocks), with
    times and bounds; ``[global_slice]``: 32 global shots on the card and on
    the CPU, no shot differing;
-12. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+11b. ``[gdg_wide]``: gdg-last-osd ([[288,12,18]] W=4, r=6, p=0.005, the
+   JAX rows' knobs: 47 branches, 60 steps, bf16) through
+   ``sliding_window_gdg`` on 512 seed-2024 shots: exactly
+   ``GDG_WIDE_FAILED`` failures and ``GDG_WIDE_OSD_FAILED`` with the
+   last-window BP+OSD-CS-10 (each within 3 sigma of 136 and 85 /20000),
+   launching ``bp_span``, ``bp_span_pinned`` with the bf16 ring and the
+   cluster route of ``osd_cs_fused`` only; the fused BP kernel on the first
+   pre-BP call of each window shape (576x4896 and 576x4752, unmasked bf16,
+   512 shots, 16 iterations, one shot a block) against the plain loop on
+   the CPU over 32 shots, bit-exact; then 16 shots on the card and by the
+   plain versions on the CPU (no shot may differ);
+   ``[bp_span_bf16_ring]``: the fused kernel with a bf16 history ring on the
+   card against the plain loop on the CPU, bit-exact (ring, error, done,
+   iterations, ``synd_hat``), on the GDG bursts captured at depth 4 in
+   ``[gdg_bf16]`` and ``[gdg_wide]`` at every window width (216x1656 and
+   216x1728; 576x4896 and 576x4752, one shot a block), and on an unmasked
+   call (the window-0 pre-BP, 8192 shots), each timed beside the same
+   input with an f32 ring, with both bounds;
+12. the CPU halves of every card-vs-CPU phase (``run_cpu_halves``);
+13. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
+
+The card-vs-CPU phases run their card halves in place and defer their CPU
+halves (the 256 shortened, 32 GDG, 32 bf16 GDG and 16 [[288]] GDG shots,
+the 256 serial syndromes, the 32 global and 256 [[882]] shots, the small
+[[72]] inputs) to step 12, after every timed phase, so that no rate or
+time the script reports is read under their load; they run there in eight
+single-threaded worker processes, which end on any exit.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -796,9 +831,11 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
                ring_times: bool = True):
     """One ``bp_span`` input on the card against the plain loop on the CPU
     (``_span_diff``; over the first ``cpu_shots`` shots where given: BP is
-    per shot), then its time, the per-op CUDA loop's time and the bound;
-    with ``ring_times`` also its time with the history ring written at
-    every iteration and at none."""
+    per shot), then its time, the per-op CUDA loop's time and the bound
+    (the ring's writes counted at its element size); with ``ring_times``
+    also its time with the history ring written at every iteration and at
+    none; with a bf16 ring also its time and bound with the same input's
+    ring in f32."""
     import torch
 
     from slidingwindowdecoder_torch.ops import bp_cuda
@@ -848,7 +885,8 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     # read nor compared): its message block read and written, its int32
     # syndrome and sign seed, its VN state and error, and the ring's writes
     live = int((~args[8]).sum())
-    nbytes = live * (2 * dc * m_pad * t + 8 * m_pad + 2 * n) + 4 * hist_writes
+    ring_t = args[6].element_size()
+    nbytes = live * (2 * dc * m_pad * t + 8 * m_pad + 2 * n) + ring_t * hist_writes
     # all at the float32 rate, though the sign counts run at the integer one
     ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     # shared-memory traffic of one shot-iteration, from the code: CN two
@@ -870,9 +908,23 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
         hist_ms = cuda_time_ms(lambda: bp_cuda.bp_span(
             *card_args, **{**kw, "hist_from": hist_from}), reps)
         log(f"[bp_span] {label}: history from iteration {hist_from} -> {hist_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err,
-            "shape": f"[{dc},{m_pad},{B}] {str(mv.dtype)[6:]}, {longest} iterations"}
+    res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err,
+           "shape": f"[{dc},{m_pad},{B}] {str(mv.dtype)[6:]}, {longest} iterations, "
+                    f"{str(args[6].dtype)[6:]} ring"}
+    if ring_t == 2:  # the same input with an f32 ring, timed in turns: bf16 f32 bf16 f32
+        f32_args = (*card_args[:6], card_args[6].float(), *card_args[7:])
+        turns = {"bf16": [ms], "f32": []}
+        for ring, a in (("f32", f32_args), ("bf16", card_args), ("f32", f32_args)):
+            turns[ring].append(cuda_time_ms(lambda: bp_cuda.bp_span(*a, **kw), reps))
+        ms, f32_ms = (sum(turns[r]) / 2 for r in ("bf16", "f32"))
+        f32_bytes_ms = (nbytes + 2 * hist_writes) / HBM_BYTES_PER_S * 1e3
+        res.update(ms=ms, f32_ring_ms=f32_ms, f32_ring_bound_ms=max(ops_ms, f32_bytes_ms))
+        log(f"[bp_span] {label}: in turns, bf16 ring {turns['bf16']} ms, f32 ring "
+            f"{turns['f32']} ms: {ms:.4f} against {f32_ms:.4f} ms (bounds "
+            f"{max(ops_ms, bytes_ms):.5f} and {max(ops_ms, f32_bytes_ms):.5f} ms, bytes {nbytes} "
+            f"and {nbytes + 2 * hist_writes})")
+    return res
 
 
 def phase_bp_span(plan, det):
@@ -1034,18 +1086,25 @@ def reset_counts():
 
     for k in (bp_cuda.cn_update, bp_cuda.bp_span):
         k.launches = k.pinned_launches = k.plain_calls = 0
+    bp_cuda.bp_span.bf16_ring_launches = bp_cuda.bp_span.pinned_bf16_ring_launches = 0
     for k in (gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused):
         k.launches = k.cluster_launches = k.plain_calls = 0
 
 
 def read_counts():
-    """(launches by kernel, plain calls by wrapper) since ``reset_counts``."""
+    """(launches by kernel, plain calls by wrapper) since ``reset_counts``;
+    ``bp_span_bf16_ring`` and ``bp_span_pinned_bf16_ring`` count the
+    unmasked and the masked ``bp_span`` launches that took a bf16 history
+    ring."""
     from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
 
     cn, span = bp_cuda.cn_update, bp_cuda.bp_span
     gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
-                "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
+                "bp_span_bf16_ring": span.bf16_ring_launches,
+                "bp_span_pinned_bf16_ring": span.pinned_bf16_ring_launches,
+                "cn_update": cn.launches,
+                "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
                 "osd_cs_fused_cluster": osd.cluster_launches}
@@ -1121,29 +1180,51 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact, kerne
     }
 
 
-def phase_card_vs_cpu(name, plan, det, obs, make_factory):
-    """Decode ``det`` on the card and by the plain versions on the CPU. BP,
-    the kernels and the plain versions' f32 sums are bit-exact between the
-    two devices, so the failure counts must be equal and no shot may
-    differ."""
+def window_decode(plan, det, obs, factory, dev):
+    """(corrections as numpy, failures, seconds) of ``det`` decoded window
+    by window with ``factory`` on ``dev``."""
     from slidingwindowdecoder_torch.windows.pipeline import (
         decode_sliding_window,
         evaluate_logical_errors,
     )
 
-    res = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        out = decode_sliding_window(plan, det, make_factory(dev), device=dev, verbose=False)
-        ev = evaluate_logical_errors(plan, det, obs, out["total_e_hat"], device=dev)
-        res[dev] = (out["total_e_hat"].cpu().numpy(), ev["num_failed"],
-                    time.perf_counter() - t0)
-    diff = int((res["cuda"][0] != res["cpu"][0]).any(axis=1).sum())
-    log(f"[{name}] card vs CPU plain over {det.shape[0]} shots: failed {res['cuda'][1]} vs "
-        f"{res['cpu'][1]}, shots differing {diff}; {res['cuda'][2]:.1f}s card, "
-        f"{res['cpu'][2]:.1f}s CPU")
-    if res["cuda"][1] != res["cpu"][1] or diff:
-        raise SystemExit(f"{name}: the card disagrees with the CPU plain path")
+    t0 = time.perf_counter()
+    out = decode_sliding_window(plan, det, factory, device=dev, verbose=False)
+    ev = evaluate_logical_errors(plan, det, obs, out["total_e_hat"], device=dev)
+    return out["total_e_hat"].cpu().numpy(), ev["num_failed"], time.perf_counter() - t0
+
+
+def phase_card_vs_cpu(name, exp, plan, det, obs, kind: str, kw: dict):
+    """Decode ``det`` window by window with ``window_factory(kind, kw)`` on
+    the card now; return the same decode by the plain versions on the CPU
+    as a deferred CPU half (``run_cpu_halves``) in ``CPU_PIECES`` pieces of
+    consecutive shots (a shot decodes alike in any batch; each worker
+    builds its plan from ``exp``, the experiment of ``plan``) with its
+    comparison. BP, the kernels and the plain versions' f32 sums are
+    bit-exact between the two devices, so the failure counts must be
+    equal and no shot may differ."""
+    card = window_decode(plan, det, obs, window_factory(kind, kw, "cuda"), "cuda")
+    pieces = np.array_split(np.arange(det.shape[0]), CPU_PIECES)
+
+    def compare(refs):
+        e_hat, failed = np.concatenate([r[0] for r in refs]), sum(r[1] for r in refs)
+        diff = int((card[0] != e_hat).any(axis=1).sum())
+        log(f"[{name}] card vs CPU plain over {det.shape[0]} shots: failed {card[1]} vs "
+            f"{failed}, shots differing {diff}; {card[2]:.1f}s card, "
+            f"{sum(r[2] for r in refs):.1f}s CPU in {len(refs)} pieces")
+        if card[1] != failed or diff:
+            raise SystemExit(f"{name}: the card disagrees with the CPU plain path")
+
+    return name, cpu_window_decode, [(exp, det[i], obs[i], kind, kw) for i in pieces], compare
+
+
+def results_differ(a, b, shots: int):
+    """Per shot, whether two ``DecodeResult``s differ in error,
+    convergence, iterations or min_pm."""
+    differ = np.zeros(shots, bool)
+    for k in ("error", "converged", "iterations", "min_pm"):
+        differ |= (getattr(a, k) != getattr(b, k)).reshape(shots, -1).any(axis=1)
+    return differ
 
 
 def phase_gdg_spans(plan, det, obs, num_repeat: int, host_res):
@@ -1244,6 +1325,18 @@ def phase_global(captured: dict):
     return res
 
 
+def fused_bp_call(garr, mv, prior, synd, *_, num_iter, msg_dtype="float32", **__):
+    """``first_calls`` key of a batch-major ``bp_run`` call that the fused
+    BP kernel takes: (m, n, B, num_iter); None for one it does not take."""
+    from slidingwindowdecoder_torch.ops.bp import msg_torch_dtype
+    from slidingwindowdecoder_torch.ops.bp_cuda import bp_span_supported
+
+    B = synd.shape[0]
+    if prior.ndim == 1 and bp_span_supported(garr, B, msg_torch_dtype(msg_dtype)):
+        return garr["m"], garr["n"], B, num_iter
+    return None
+
+
 def phase_sw_wide(captured: dict):
     """``[sw_wide]``: the wide sliding windows (``SW_WIDE``), each through
     ``phase_path`` with ``sliding_window_decoder``'s decoder (BP+OSD-CS-10,
@@ -1266,14 +1359,7 @@ def phase_sw_wide(captured: dict):
         window_decoder_factory,
     )
     from slidingwindowdecoder_torch.ops import gf2_cuda
-    from slidingwindowdecoder_torch.ops.bp import msg_torch_dtype, span_inputs
-    from slidingwindowdecoder_torch.ops.bp_cuda import bp_span_supported
-
-    def fused_bp_call(garr, mv, prior, synd, *_, num_iter, msg_dtype="float32", **__):
-        B = synd.shape[0]
-        if prior.ndim == 1 and bp_span_supported(garr, B, msg_torch_dtype(msg_dtype)):
-            return garr["m"], garr["n"], B, num_iter
-        return None
+    from slidingwindowdecoder_torch.ops.bp import span_inputs
 
     res, checks = {}, {"bp_span": {}, "osd_cs_fused": {}, "osd_cs_fused_cluster": {}}
     for name, (N, p, rounds, W, ref, exact, kernels) in SW_WIDE.items():
@@ -1383,11 +1469,10 @@ def phase_gj_cluster(plan, cap288, cap_global):
     return res
 
 
-def phase_global_slice():
-    """``[global_slice]``: the first ``GLOBAL_SLICE_SHOTS`` seed-2024 global
-    shots decoded by ``global_decoder``'s decoder (BP+OSD-CS-10) on the card
-    and by the plain versions on the CPU: no shot may differ in error,
-    convergence, iterations or OSD use."""
+def global_core(dev: str):
+    """The first ``GLOBAL_SLICE_SHOTS`` seed-2024 global shots decoded by
+    ``global_decoder``'s decoder (BP+OSD-CS-10) on ``dev``: its outputs as
+    numpy, and seconds."""
     import torch
 
     from slidingwindowdecoder_torch.circuits import sample_dem_numpy
@@ -1398,20 +1483,31 @@ def phase_global_slice():
 
     dem = build_bb_window_experiment(144, 0.004, 12, 3, 1)[2]
     det, _, _ = sample_dem_numpy(dem, GLOBAL_SLICE_SHOTS, np.random.default_rng(SEED))
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        out = build_global_decoder(dem, device=dev).core(torch.as_tensor(det, device=dev))
-        outs[dev] = ({k: out[k].cpu() for k in ("error", "converged", "iterations",
-                                                 "osd_applied")}, time.perf_counter() - t0)
-    (a, ta), (b, tb) = outs["cuda"], outs["cpu"]
-    differ = torch.zeros(len(det), dtype=torch.bool)
-    for k in a:
-        differ |= (a[k] != b[k]).reshape(len(det), -1).any(dim=1)
-    log(f"[global_slice] card vs CPU plain over {len(det)} shots: {int(a['osd_applied'].sum())} "
-        f"through OSD, shots differing {int(differ.sum())}; {ta:.1f}s card, {tb:.1f}s CPU")
-    if differ.any():
-        raise SystemExit(f"[global_slice] {int(differ.sum())} shots differ")
+    t0 = time.perf_counter()
+    out = build_global_decoder(dem, device=dev).core(torch.as_tensor(det, device=dev))
+    return ({k: out[k].cpu().numpy() for k in ("error", "converged", "iterations",
+                                               "osd_applied")}, time.perf_counter() - t0)
+
+
+def phase_global_slice():
+    """``[global_slice]``: ``global_core`` on the card now, and on the CPU
+    by the plain versions as a deferred CPU half: no shot may differ in
+    error, convergence, iterations or OSD use."""
+    a, ta = global_core("cuda")
+
+    def compare(refs):
+        (b, tb), = refs
+        shots = len(a["error"])
+        differ = np.zeros(shots, bool)
+        for k in a:
+            differ |= (a[k] != b[k]).reshape(shots, -1).any(axis=1)
+        log(f"[global_slice] card vs CPU plain over {shots} shots: "
+            f"{int(a['osd_applied'].sum())} through OSD, shots differing {int(differ.sum())}; "
+            f"{ta:.1f}s card, {tb:.1f}s CPU")
+        if differ.any():
+            raise SystemExit(f"[global_slice] {int(differ.sum())} shots differ")
+
+    return "global_slice", global_core, [("cpu",)], compare
 
 
 
@@ -1537,39 +1633,377 @@ def phase_cc_device(code882):
     return res
 
 
-def phase_cc_slice(code, synd):
+def cc_decode(which: str, kw: dict, synd, dev: str):
+    """``synd`` decoded by the [[882]] parity decoder ``which`` (at CC_P,
+    overrides ``kw``) on ``dev``: the ``DecodeResult``, and seconds."""
+    from slidingwindowdecoder_torch.harness.code_capacity import parity_code, parity_decoder
+
+    t0 = time.perf_counter()
+    r = parity_decoder(parity_code(882), CC_P, which, kw, device=dev).decode_batch(synd)
+    return r, time.perf_counter() - t0
+
+
+def phase_cc_slice(synd):
     """``[cc_slice]``: the first ``CC_SLICE_SHOTS`` [[882]] syndromes
-    decoded by BPGD (max_step 100) and by GDG's spans form (the cc882-gdg
-    row's knobs) on the card and by the plain versions on the CPU, and by
-    BPGD's loop form and its spans form with 64-row buckets on the card:
-    no shot may differ in error, convergence, iterations or min_pm."""
-    from slidingwindowdecoder_torch.harness.code_capacity import PARITY_ROWS, parity_decoder
+    decoded by BPGD's loop form and its spans form with 64-row buckets on
+    the card now, and by BPGD (max_step 100) and GDG's spans form (the
+    cc882-gdg row's knobs) on the card now and by the plain versions on the
+    CPU as deferred CPU halves (returned): no shot may differ in error,
+    convergence, iterations or min_pm."""
+    from slidingwindowdecoder_torch.harness.code_capacity import PARITY_ROWS
 
     first = synd[:CC_SLICE_SHOTS]
     bpgd_kw = {"max_step": 100}
-    cases = [
-        ("BPGD card vs CPU", "bpgd", bpgd_kw, ("cuda", {}), ("cpu", {})),
-        ("BPGD loop vs spans (64-row buckets), card", "bpgd", bpgd_kw,
-         ("cuda", {"mode": "loop"}), ("cuda", {"row_bucket": 64})),
-        ("GDG spans card vs CPU", "gdg",
-         {**PARITY_ROWS["cc882-gdg"][4], "ensemble_mode": "spans"}, ("cuda", {}),
-         ("cpu", {})),
-    ]
-    for label, which, kw, (dev_a, kw_a), (dev_b, kw_b) in cases:
-        out = []
-        for dev, extra in ((dev_a, kw_a), (dev_b, kw_b)):
-            t0 = time.perf_counter()
-            r = parity_decoder(code, CC_P, which, {**kw, **extra}, device=dev).decode_batch(first)
-            out.append((r, time.perf_counter() - t0))
-        (ra, ta), (rb, tb) = out
-        differ = np.zeros(len(first), bool)
-        for k in ("error", "converged", "iterations", "min_pm"):
-            a, b = getattr(ra, k), getattr(rb, k)
-            differ |= (a != b).reshape(len(first), -1).any(axis=1)
+
+    def check(label, a, bs):
+        (ra, ta), ((rb, tb),) = a, bs
+        differ = results_differ(ra, rb, len(first))
         log(f"[cc_slice] {label}, {len(first)} shots: converged {int(ra.converged.sum())}, "
             f"shots differing {int(differ.sum())}; {ta:.1f}s and {tb:.1f}s")
         if differ.any():
             raise SystemExit(f"[cc_slice] {label}: {int(differ.sum())} shots differ")
+
+    check("BPGD loop vs spans (64-row buckets), card",
+          cc_decode("bpgd", {**bpgd_kw, "mode": "loop"}, first, "cuda"),
+          [cc_decode("bpgd", {**bpgd_kw, "row_bucket": 64}, first, "cuda")])
+    pending = []
+    for label, which, kw in (
+            ("BPGD card vs CPU", "bpgd", bpgd_kw),
+            ("GDG spans card vs CPU", "gdg",
+             {**PARITY_ROWS["cc882-gdg"][4], "ensemble_mode": "spans"})):
+        card = cc_decode(which, kw, first, "cuda")
+        pending.append((f"cc_slice {which}", cc_decode, [(which, kw, first, "cpu")],
+                        functools.partial(check, label, card)))
+    return pending
+
+
+# ---------------------------------------------------------------------------
+# The CPU halves of the card-vs-CPU phases are deferred: each phase runs its
+# card half in place and returns (name, worker function, the arguments of
+# each of its worker tasks, comparison of the tasks' results). They run
+# after the last timed phase, so that no rate or time the script reports is
+# read under their load: one single-threaded worker process a core of the
+# machine (8), the largest halves first (their CPU seconds on two threads:
+# about 250, 210, 162 and 133; the rest under 100 each), the window decodes
+# cut into CPU_PIECES tasks each.
+CPU_WORKERS, CPU_WORKER_THREADS, CPU_PIECES = 8, 1, 4
+CPU_LARGEST_FIRST = ("osd_window_slice", "gdg_wide_slice", "gdg_slice", "gdg_bf16_slice")
+
+
+def _cpu_worker_init():
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def run_cpu_halves(pending):
+    """Run the tasks of every deferred CPU half of ``pending`` in the worker
+    pool and hold each half against its card half as it ends; on any exit,
+    cancel what has not started and wait for the rest, so no worker
+    outlives the call."""
+    import concurrent.futures
+    import multiprocessing
+
+    rank = {name: i for i, name in enumerate(CPU_LARGEST_FIRST)}
+    pending = sorted(pending, key=lambda t: rank.get(t[0], len(rank)))
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init)
+    try:
+        futures = [([pool.submit(fn, *args) for args in tasks], compare)
+                   for _, fn, tasks, compare in pending]
+        for tasks, compare in futures:
+            compare([f.result() for f in tasks])
+    finally:
+        pool.shutdown(cancel_futures=True)
+    log(f"[cpu_halves] {len(pending)} CPU halves, {sum(len(t) for t, _ in futures)} tasks, on "
+        f"{CPU_WORKERS} workers of {CPU_WORKER_THREADS} thread: "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def experiment_plan(exp):
+    """The window plan of ``exp`` = (N, p, rounds, W, F)."""
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+
+    return build_bb_window_experiment(*exp)[3]
+
+
+def window_factory(kind: str, kw: dict, dev):
+    """The per-window decoder factory of a path: "bposd" (BP+OSD,
+    ``sliding_window_decoder``'s), "osd_window" (the shortened decoder) or
+    "gdg" (``sliding_window_gdg``'s)."""
+    from slidingwindowdecoder_torch.harness.circuit_level import (
+        gdg_window_factory,
+        window_decoder_factory,
+    )
+
+    if kind == "gdg":
+        return gdg_window_factory(device=dev, **kw)
+    return window_decoder_factory(kind == "osd_window", device=dev, **kw)
+
+
+def cpu_window_decode(exp, det, obs, kind: str, kw: dict):
+    """Worker task: ``window_decode`` by the plain versions on the CPU."""
+    return window_decode(experiment_plan(exp), det, obs, window_factory(kind, kw, "cpu"), "cpu")
+
+
+def gdg_serial_decode(spec, synd, dev):
+    """``GDG(multi_thread=False)`` with ``sliding_window_gdg``'s window knobs
+    (pre-BP 8, the reference's defaults) on one window's syndromes: the
+    decode result as numpy, and seconds."""
+    from slidingwindowdecoder_torch.decoders import GDG
+
+    t0 = time.perf_counter()
+    r = GDG(spec.mat, spec.prior, max_iter=8, multi_thread=False, device=dev).decode_batch(synd)
+    return r, time.perf_counter() - t0
+
+
+def cpu_gdg_serial(exp, window: int, synd):
+    """Worker task: ``gdg_serial_decode`` on the CPU."""
+    return gdg_serial_decode(experiment_plan(exp).windows[window], synd, "cpu")
+
+
+# the GDG path at the JAX package's GDG parity knobs (bf16 messages and
+# history ring, the span-compacted ensemble, 512-shot ensemble buckets;
+# tools/validate_parity.py:88-112) on the GDG path's samples; the port's
+# own count at seed 2024 (its first run on the card, PERF.md); the shots
+# its card-vs-CPU slice takes
+GDG_BF16_KNOBS = dict(max_iter=8, ensemble_bucket=512, ensemble_mode="spans",
+                      msg_dtype="bfloat16", hist_dtype="bfloat16")
+GDG_BF16_FAILED = 668
+GDG_BF16_SLICE_SHOTS = 32
+# gdg-last-osd: [[288,12,18]] W=4, r=6, p=0.005 at the JAX rows' knobs (SW
+# GDG.ipynb cell ccb3047b: pre-BP 16, 60 steps, tree 4 / side 20, branch
+# steps 40; 47 branches), then BP+OSD-CS-10 on the last window; the
+# reference's 136/20000 and, with the last-window OSD, 85/20000; the
+# port's own counts at seed 2024 over GDG_WIDE_SHOTS shots (its first run
+# on the card, PERF.md); the shots of its card-vs-CPU slice
+GDG_WIDE_EXP = (288, 0.005, 6, 4, 1)
+GDG_WIDE_KNOBS = dict(GDG_BF16_KNOBS, max_iter=16, max_step=60, max_tree_depth=4,
+                      max_side_depth=20, max_tree_branch_step=40, max_side_branch_step=40)
+GDG_WIDE_SHOTS, GDG_WIDE_SLICE_SHOTS = 512, 16
+REF_GDG_WIDE, REF_GDG_WIDE_OSD = (136, 20000), (85, 20000)
+GDG_WIDE_FAILED, GDG_WIDE_OSD_FAILED = 4, 3
+# the serial work queue on window 0 of the GDG path's samples
+GDG_SERIAL_SHOTS = 256
+
+
+@contextlib.contextmanager
+def burst_capture(store: dict, depth: int = 4):
+    """Record in ``store``, under the window graph's n, the arguments of the
+    first GDG ensemble burst (the ``bp_run`` of ``_ensemble_step``) at
+    ``depth`` on each graph while the block runs (``first_calls``: cloned;
+    no kernel runs for it). Depth 4 is the step after the tree-side
+    branches restarted their messages."""
+    from slidingwindowdecoder_torch.decoders import gdg
+
+    step = gdg._ensemble_step
+
+    def tagged(garr, *a, **k):
+        if a[5] != depth or garr["n"] in store:
+            return step(garr, *a, **k)
+        with first_calls(gdg, "bp_run", lambda *_, **__: garr["n"], store):
+            return step(garr, *a, **k)
+
+    gdg._ensemble_step = tagged
+    try:
+        yield
+    finally:
+        gdg._ensemble_step = step
+
+
+def phase_gdg_bf16(exp, plan, det, obs, num_repeat: int, captured: dict):
+    """``[gdg_bf16]``: the GDG path at the JAX package's parity knobs
+    (``GDG_BF16_KNOBS``) through ``phase_path``: exactly ``GDG_BF16_FAILED``
+    failures, within 3 sigma of the reference's 400/5000, launching only
+    ``bp_span`` (the pre-BP, with an f32 ring) and ``bp_span_pinned`` with a
+    bf16 ring (every pinned launch took one). Each window width's burst at
+    depth 4 goes into ``captured``. Then the first ``GDG_BF16_SLICE_SHOTS``
+    shots through ``phase_card_vs_cpu``: returns the results and the
+    deferred CPU half."""
+    factory = window_factory("gdg", GDG_BF16_KNOBS, "cuda")
+    with burst_capture(captured):
+        res = phase_path("gdg_bf16", plan, det, obs, factory, num_repeat,
+                         (REF_GDG_FAILED, REF_GDG_SHOTS), GDG_BF16_FAILED,
+                         ("bp_span", "bp_span_pinned", "bp_span_pinned_bf16_ring"))
+    la = res["launches"]
+    if la["bp_span_pinned_bf16_ring"] != la["bp_span_pinned"]:
+        raise SystemExit(f"[gdg_bf16] a burst ran without the bf16 ring: {la}")
+    res.pop("e_hat")
+    res["ensemble_bucket"] = GDG_BF16_KNOBS["ensemble_bucket"]
+    k = GDG_BF16_SLICE_SHOTS
+    return res, phase_card_vs_cpu("gdg_bf16_slice", exp, plan, det[:k], obs[:k], "gdg",
+                                  GDG_BF16_KNOBS)
+
+
+def phase_gdg_serial(exp, plan, det):
+    """``[gdg_serial]``: ``GDG(multi_thread=False)`` on window 0's PCM over
+    its first ``GDG_SERIAL_SHOTS`` syndromes of the GDG path's samples, on
+    the card with the launch counts read around it (``bp_span`` for the
+    pre-BP, ``bp_span_pinned`` for every step); returns the results and the
+    same decode by the plain versions on the CPU as a deferred CPU half, in
+    which no shot may differ in error, convergence, iterations or
+    min_pm."""
+    import torch
+
+    spec = plan.windows[0]
+    synd = det[:GDG_SERIAL_SHOTS, spec.row_start:spec.row_end]
+    reset_counts()
+    rc, tc = gdg_serial_decode(spec, synd, "cuda")
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    queued = int((rc.iterations > 8).sum())
+    log(f"[gdg_serial] window 0 ({spec.mat.shape[0]}x{spec.mat.shape[1]}), {len(synd)} "
+        f"syndromes, {queued} past the pre-BP: converged {int(rc.converged.sum())}; "
+        f"{tc:.2f}s card ({len(synd) / tc:.1f} shots/s); launches {launches}; plain calls "
+        f"{plain}")
+    check_kernels("[gdg_serial]", launches, plain, ("bp_span", "bp_span_pinned"))
+    if not queued:
+        raise SystemExit("[gdg_serial] no syndrome reached the queue")
+
+    def compare(refs):
+        (rp, tp), = refs
+        differ = results_differ(rc, rp, len(synd))
+        log(f"[gdg_serial] card vs CPU plain over {len(synd)} syndromes: shots differing "
+            f"{int(differ.sum())}; {tc:.2f}s card, {tp:.1f}s CPU")
+        if differ.any():
+            raise SystemExit(f"[gdg_serial] {int(differ.sum())} shots differ")
+
+    return ({"shots": len(synd), "seconds": tc, "shots_per_s": len(synd) / tc,
+             "past_pre_bp": queued, "converged": int(rc.converged.sum()),
+             "launches": launches},
+            ("gdg_serial", cpu_gdg_serial, [(exp, 0, synd)], compare))
+
+
+def phase_gdg_wide(captured: dict, plan, det, obs):
+    """``[gdg_wide]``: gdg-last-osd through ``sliding_window_gdg`` (its
+    warm-up decode included in the launch counts) on ``GDG_WIDE_SHOTS``
+    seed-2024 shots: the GDG and last-window-OSD failures equal to the
+    port's own counts and within 3 sigma of the reference's rates, the
+    launches ``bp_span`` (the pre-BP, f32 ring), ``bp_span_pinned`` with a
+    bf16 ring and the cluster route of ``osd_cs_fused`` (the last window's
+    OSD on 576x4752) only. Each window width's burst at depth 4 goes into
+    ``captured``. The first pre-BP call of each window shape (unmasked bf16,
+    512 shots, 16 iterations, one shot a block) is recorded during the run
+    (``first_calls``) and held after it through ``_span_case``, against the
+    plain loop on the CPU over its first ``SW_WIDE_CPU_SHOTS`` shots. Then
+    ``det`` (the first ``GDG_WIDE_SLICE_SHOTS`` shots) through
+    ``phase_card_vs_cpu``. Returns the results, the ``_span_case`` results
+    by case, and the deferred CPU half."""
+    import torch
+
+    from slidingwindowdecoder_torch.harness.circuit_level import sliding_window_gdg
+    from slidingwindowdecoder_torch.ops import bp as bp_ops
+    from slidingwindowdecoder_torch.ops.bp import span_inputs
+    from slidingwindowdecoder_torch.utils.metrics import rates_compatible
+
+    N, p, rounds, W, F = GDG_WIDE_EXP
+    pre_calls = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with burst_capture(captured), first_calls(bp_ops, "bp_run", fused_bp_call, pre_calls):
+        r = sliding_window_gdg(N, p, rounds, GDG_WIDE_SHOTS, W=W, F=F, last_win_osd=True,
+                               seed=SEED, verbose=False, device="cuda", **GDG_WIDE_KNOBS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    nf, nfo = r["num_failed"], r["last_win_osd"]["num_failed"]
+    ok = rates_compatible(nf, GDG_WIDE_SHOTS, *REF_GDG_WIDE)
+    ok_osd = rates_compatible(nfo, GDG_WIDE_SHOTS, *REF_GDG_WIDE_OSD)
+    log(f"[gdg_wide] [[288]] W=4 r=6: GDG failed {nf} flagged {r['num_flagged']} of "
+        f"{GDG_WIDE_SHOTS} (reference {REF_GDG_WIDE[0]}/{REF_GDG_WIDE[1]}, within 3 sigma: "
+        f"{ok}); with the last-window OSD {nfo} (reference {REF_GDG_WIDE_OSD[0]}/"
+        f"{REF_GDG_WIDE_OSD[1]}, within 3 sigma: {ok_osd}); {r['shots_per_sec']:.2f} shots/s "
+        f"({r['decode_seconds']:.2f}s timed, {wall:.1f}s with the warm-up decode); launches "
+        f"{launches} (the warm-up's included); plain calls {plain}")
+    if (nf, nfo) != (GDG_WIDE_FAILED, GDG_WIDE_OSD_FAILED) or not (ok and ok_osd):
+        raise SystemExit(f"[gdg_wide] {nf} / {nfo} failures, want {GDG_WIDE_FAILED} / "
+                         f"{GDG_WIDE_OSD_FAILED} within 3 sigma")
+    check_kernels("[gdg_wide]", launches, plain, ("bp_span", "bp_span_pinned",
+                                                  "bp_span_pinned_bf16_ring",
+                                                  "osd_cs_fused_cluster"))
+    if launches["bp_span_pinned_bf16_ring"] != launches["bp_span_pinned"]:
+        raise SystemExit(f"[gdg_wide] a burst ran without the bf16 ring: {launches}")
+    shapes = {tuple(w.mat.shape) for w in plan.windows}
+    if {(m, n) for m, n, _, _ in pre_calls} != shapes:
+        raise SystemExit(f"[gdg_wide] pre-BP calls recorded at {sorted(pre_calls)}, want one "
+                         f"at each window shape {sorted(shapes)}")
+    checks = {}
+    for (m, n, B, it), (a, k) in sorted(pre_calls.items()):
+        args, kw = span_inputs(*a, **k)
+        label = f"gdg_wide pre-BP {m}x{n} {k.get('msg_dtype', 'float32')} B={B}, {it} iterations"
+        cpu_garr = {x: v.cpu() if torch.is_tensor(v) else v for x, v in a[0].items()}
+        checks[label] = _span_case(label, args, kw, cpu_garr, 5, cpu_shots=SW_WIDE_CPU_SHOTS,
+                                   ring_times=False)
+    res = {"shots": GDG_WIDE_SHOTS, "num_failed": nf, "num_flagged": r["num_flagged"],
+           "last_win_osd_failed": nfo, "within_3_sigma": ok, "osd_within_3_sigma": ok_osd,
+           "seconds": r["decode_seconds"], "shots_per_s": r["shots_per_sec"],
+           "wall_with_warmup_s": wall, "launches": launches,
+           "windows": [list(w.mat.shape) for w in plan.windows]}
+    return res, checks, phase_card_vs_cpu("gdg_wide_slice", GDG_WIDE_EXP, plan, det, obs, "gdg",
+                                          GDG_WIDE_KNOBS)
+
+
+# columns of a captured GDG burst that the plain loop also takes on the
+# machine's CPU (every column of the bursts seen so far)
+BURST_CPU_COLUMNS = 2048
+
+
+def phase_bp_span_bf16_ring(plans, gdet, captured: dict):
+    """``[bp_span_bf16_ring]``: the fused kernel with a bf16 history ring on
+    the card against the plain loop on the CPU (``_span_case``), ring,
+    error, done, iterations and ``synd_hat`` bit-exact, each timed beside
+    the same input with an f32 ring: the GDG bursts at depth 4 captured at
+    every window width of ``plans`` (``[gdg_bf16]``'s [[144]] W=3 windows:
+    bf16 messages, transposed state, tail history, 6 iterations, a row
+    bucket of the spans form; ``[gdg_wide]``'s [[288]] W=4 windows,
+    576x4896 and 576x4752, one shot a block; the CPU over the first
+    ``BURST_CPU_COLUMNS`` columns), and one unmasked case: the window-0
+    pre-BP of ``[gdg_bf16]`` (``gdet``: 8192 shots, 8 bf16 iterations) with
+    a bf16 ring written at every iteration (the CPU over its first
+    ``SLICE_SHOTS`` shots)."""
+    import torch
+
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, span_inputs
+
+    res = {}
+    drop = ("return_synd", "hist_update", "state_layout", "hist_dtype")
+    widths = sorted({w.mat.shape[1] for plan in plans for w in plan.windows})
+    if set(captured) != set(widths):
+        raise SystemExit(f"[bp_span_bf16_ring] bursts captured at widths {sorted(captured)}, "
+                         f"want {widths}")
+    for n in widths:
+        a, k = captured[n]
+        args, kw = span_inputs(*a, **{x: v for x, v in k.items() if x not in drop},
+                               transposed=True)
+        kw["return_synd"] = True
+        B = args[1].shape[2]
+        label = f"{a[0]['m']}x{n}"
+        cpu_garr = {x: v.cpu() if torch.is_tensor(v) else v for x, v in a[0].items()}
+        log(f"[bp_span] {label} GDG burst: {B} columns, {int((~args[8]).sum())} active, "
+            f"{float((args[5] != -1).float().mean()):.3f} of the VNs decided")
+        res[f"GDG burst {label}"] = _span_case(
+            f"GDG burst {label} masked bf16 B={B}", args, kw, cpu_garr, 10,
+            cpu_shots=min(B, BURST_CPU_COLUMNS), ring_times=False)
+    spec = plans[0].windows[0]
+    dec = window_factory("gdg", GDG_BF16_KNOBS, "cuda")(spec)
+    garr, llr = dec.garr, torch.as_tensor(dec.llr, device="cuda")
+    synd = torch.as_tensor(gdet[:, spec.row_start:spec.row_end], device="cuda")
+    B, n = synd.shape[0], spec.mat.shape[1]
+    args, kw = span_inputs(
+        garr, bp_init_messages_sm(garr, llr, B, "bfloat16"), llr, synd,
+        torch.zeros((n, 4, B), dtype=torch.bfloat16, device="cuda"),
+        torch.zeros((B, n), dtype=torch.int8, device="cuda"),
+        torch.zeros((B,), dtype=torch.bool, device="cuda"),
+        torch.zeros((B,), dtype=torch.int32, device="cuda"), num_iter=8,
+        msg_dtype="bfloat16", io_layout="slot_major")
+    res["pre-BP unmasked"] = _span_case(
+        f"pre-BP unmasked bf16 B={B}, 8 iterations, bf16 ring", args, kw,
+        graph_tensors(compile_graph(spec.mat), "cpu"), 10, cpu_shots=SLICE_SHOTS,
+        ring_times=False)
+    return res
 
 
 def main() -> int:
@@ -1590,7 +2024,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     phase_build()
     num_repeat = 12
-    _, _, dem, plan = build_bb_window_experiment(144, 0.004, num_repeat, 3, 1)
+    exp = (144, 0.004, num_repeat, 3, 1)
+    _, _, dem, plan = build_bb_window_experiment(*exp)
     log(f"[setup] DEM {dem.chk.shape}, windows {[w.mat.shape for w in plan.windows]}")
     cn = phase_cn(plan)
     cnp = phase_cn_pinned(plan)
@@ -1604,26 +2039,28 @@ def main() -> int:
                           window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS),
                           num_repeat, (REF_FAILED, REF_SHOTS), REF_FAILED,
                           ("bp_span", "osd_cs_fused"))
-    _, _, dem72, plan72 = build_bb_window_experiment(72, 0.01, 3, 2, 1)
+    exp72 = (72, 0.01, 3, 2, 1)
+    _, _, dem72, plan72 = build_bb_window_experiment(*exp72)
     det72, obs72, _ = sample_dem_numpy(dem72, 128, np.random.default_rng(SEED))
-    phase_card_vs_cpu("small", plan72, det72, obs72, lambda dev: window_decoder_factory(
-        False, max_iter=30, osd_order=2, phase_a_iters=None, phase_b_spans=None,
-        device=dev))
+    pending = [phase_card_vs_cpu(  # the deferred CPU halves, run after the last phase
+        "small", exp72, plan72, det72, obs72, "bposd",
+        dict(max_iter=30, osd_order=2, phase_a_iters=None, phase_b_spans=None))]
     main_res.pop("e_hat")
     log(json.dumps({"main_path": main_res}))
     short_res = phase_path("osd_window", plan, det, obs,
                            window_decoder_factory(True, device="cuda"), num_repeat,
                            (REF_SHORT_FAILED, REF_SHORT_SHOTS), SHORT_FAILED,
                            ("bp_span_pinned", "osd_cs_fused"))
-    phase_card_vs_cpu("osd_window_slice", plan, det[:SLICE_SHOTS], obs[:SLICE_SHOTS],
-                      lambda dev: window_decoder_factory(True, device=dev))
-    phase_card_vs_cpu("osd_window_small", plan72, det72, obs72,
-                      lambda dev: window_decoder_factory(True, max_iter=30, osd_order=2,
-                                                         device=dev))
+    pending += [
+        phase_card_vs_cpu("osd_window_slice", exp, plan, det[:SLICE_SHOTS], obs[:SLICE_SHOTS],
+                          "osd_window", {}),
+        phase_card_vs_cpu("osd_window_small", exp72, plan72, det72, obs72, "osd_window",
+                          dict(max_iter=30, osd_order=2))]
     short_res.pop("e_hat")
     log(json.dumps({"osd_window_path": short_res}))
 
-    _, _, gdem, gplan = build_bb_window_experiment(144, GDG_P, num_repeat, 3, 1)
+    gexp = (144, GDG_P, num_repeat, 3, 1)
+    _, _, gdem, gplan = build_bb_window_experiment(*gexp)
     gdet, gobs, _ = sample_dem_numpy(gdem, GDG_SHOTS, np.random.default_rng(SEED))
     gdg_burst = phase_bp_span_gdg(gplan, gdet, GDG_BUCKET)
     gdg_res = phase_path("gdg", gplan, gdet, gobs,
@@ -1633,13 +2070,20 @@ def main() -> int:
                          ("bp_span", "bp_span_pinned"))
     gdg_res["ensemble_bucket"] = GDG_BUCKET
     k = GDG_SLICE_SHOTS
-    phase_card_vs_cpu("gdg_slice", gplan, gdet[:k], gobs[:k], lambda dev: gdg_window_factory(
-        max_iter=8, ensemble_bucket=GDG_SLICE_BUCKET, device=dev))
-    phase_card_vs_cpu("gdg_small", plan72, det72, obs72,
-                      lambda dev: gdg_window_factory(max_iter=8, device=dev))
+    pending += [
+        phase_card_vs_cpu("gdg_slice", gexp, gplan, gdet[:k], gobs[:k], "gdg",
+                          dict(max_iter=8, ensemble_bucket=GDG_SLICE_BUCKET)),
+        phase_card_vs_cpu("gdg_small", exp72, plan72, det72, obs72, "gdg", dict(max_iter=8))]
     log(json.dumps({"gdg_path": {k: v for k, v in gdg_res.items() if k != "e_hat"}}))
     spans_res = phase_gdg_spans(gplan, gdet, gobs, num_repeat, gdg_res)
     log(json.dumps({"gdg_spans_path": spans_res}))
+    bursts = {}
+    bf16_res, half = phase_gdg_bf16(gexp, gplan, gdet, gobs, num_repeat, bursts)
+    pending.append(half)
+    log(json.dumps({"gdg_bf16_path": bf16_res}))
+    serial_res, half = phase_gdg_serial(gexp, gplan, gdet)
+    pending.append(half)
+    log(json.dumps({"gdg_serial": serial_res}))
 
     from slidingwindowdecoder_torch.harness.code_capacity import parity_code
 
@@ -1649,7 +2093,7 @@ def main() -> int:
     bpgd_burst = phase_bp_span_bpgd(code882, cc_synd[:CC_SHOTS])
     cc_res = phase_cc_host(code882)
     cc_dev = phase_cc_device(code882)
-    phase_cc_slice(code882, cc_synd)
+    pending += phase_cc_slice(cc_synd)
     log(json.dumps({"code_capacity": cc_res, "code_capacity_device": cc_dev}))
 
     captured = {}
@@ -1660,13 +2104,22 @@ def main() -> int:
     if set(captured) != {(936, 8784), (576, 4896)}:
         raise SystemExit("[gj_cluster] a path ran no OSD bucket at 936x8784 or 576x4896")
     gj_cluster = phase_gj_cluster(plan, captured[576, 4896], captured[936, 8784])
-    phase_global_slice()
+    pending.append(phase_global_slice())
+    _, _, wdem, wplan = build_bb_window_experiment(*GDG_WIDE_EXP)
+    wdet, wobs, _ = sample_dem_numpy(wdem, GDG_WIDE_SLICE_SHOTS, np.random.default_rng(SEED))
+    wide_gdg, wide_gdg_checks, half = phase_gdg_wide(bursts, wplan, wdet, wobs)
+    pending.append(half)
+    log(json.dumps({"gdg_wide": wide_gdg}))
+    ring = phase_bp_span_bf16_ring((gplan, wplan), gdet, bursts)
+    run_cpu_halves(pending)
 
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
     cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
     gj_src = "slidingwindowdecoder_torch/csrc/gauss_jordan.cu"
     by_path = {k: {"main": main_res["launches"][k], "osd_window": short_res["launches"][k],
                    "gdg": gdg_res["launches"][k], "gdg_spans": spans_res["launches"][k],
+                   "gdg_bf16": bf16_res["launches"][k], "gdg_serial": serial_res["launches"][k],
+                   "gdg_wide": wide_gdg["launches"][k],
                    "code_capacity": sum(r["launches"][k] for r in (*cc_res.values(),
                                                                    *cc_dev.values())),
                    "global": sum(r["launches"][k] for r in global_res.values()),
@@ -1677,11 +2130,22 @@ def main() -> int:
         res["sw_wide"] = wide_checks[name]
         res["max_abs_err"] = max([res["max_abs_err"],
                                   *(r["max_abs_err"] for r in wide_checks[name].values())])
+    span["bp_span"]["gdg_wide"] = wide_gdg_checks
     span["bp_span_pinned"]["gdg_burst"] = gdg_burst
     span["bp_span_pinned"]["bpgd_burst"] = bpgd_burst
+    span["bp_span_pinned"]["bf16_ring"] = {k: v for k, v in ring.items() if "GDG" in k}
+    span["bp_span"]["bf16_ring"] = {k: v for k, v in ring.items() if "GDG" not in k}
     span["bp_span_pinned"]["max_abs_err"] = max(span["bp_span_pinned"]["max_abs_err"],
                                                 gdg_burst["max_abs_err"],
                                                 bpgd_burst["max_abs_err"])
+    for name, counter, checks in (
+            ("bp_span", "bp_span_bf16_ring", ("bf16_ring", "gdg_wide")),
+            ("bp_span_pinned", "bp_span_pinned_bf16_ring", ("bf16_ring",))):
+        span[name]["ring_dtypes"] = ["float32", "bfloat16"]
+        span[name]["max_abs_err"] = max([span[name]["max_abs_err"], *(
+            r["max_abs_err"] for c in checks for r in span[name][c].values())])
+        span[name]["bf16_ring_launches"] = sum(by_path[counter].values())
+        span[name]["bf16_ring_launches_by_path"] = by_path[counter]
     kernels = [
         {"name": "bp_span", "route": "cuda", "source": span_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package) with the XLA ops "

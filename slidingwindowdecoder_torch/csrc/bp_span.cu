@@ -16,7 +16,9 @@
 //               slot adding an explicit +0.0 (the zero fill row); the
 //               posterior rounded to the message dtype (decided VNs pinned
 //               to -/+pin in masked mode) stays in shared memory, the f32
-//               posterior goes to the history ring from `hist_from` on;
+//               posterior goes to the history ring from `hist_from` on,
+//               rounded once to the ring's type HT (float or bfloat16:
+//               the JAX `posterior.astype(hist.dtype)`);
 //   edge stage  mv = post_edge - mc (pin where |post_edge| >= thresh in
 //               masked mode) and the parity of each check's non-positive
 //               posteriors, compared with the syndrome;
@@ -114,7 +116,7 @@ struct Args {
   const int32_t* parity;        // [m_pad, B] CN sign seed
   const int32_t* synd;          // [m_pad, B] syndrome (pad rows 0)
   const int8_t* vn_state;       // [B, n] -1/0/1, or null: all undecided
-  float* hist;                  // [n, 4, B], written from hist_from on
+  void* hist;                   // [n, 4, B] of HT, written from hist_from on
   const int8_t* err_in;         // [B, n]
   int8_t* err_out;
   const uint8_t* done_in;       // [B] bool
@@ -130,7 +132,7 @@ struct Args {
   float alpha, clip, big, thresh, pin;
 };
 
-template <typename T, bool MASKED>
+template <typename T, bool MASKED, typename HT>
 __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = a.S, n = a.n, m_pad = a.m_pad, dc = a.dc, dv = a.dv;
@@ -239,7 +241,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
     // VN stage: posterior, its rounded (and pinned) copy, history
     if (active) {
       const bool hist_on = it >= a.hist_from;
-      float* hist = a.hist + (long long)(it & 3) * B + b;
+      HT* hist = (HT*)a.hist + (long long)(it & 3) * B + b;
       for (int v = r0; v < n; v += step) {
         const int16_t* vf = vfc + v * dv;
         float acc = to_f(msg[vf[0] * S + shot]);
@@ -255,7 +257,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
           }
         }
         post[v * S + shot] = pf;
-        if (hist_on && undecided) hist[(long long)v * 4 * B] = p;
+        if (hist_on && undecided) hist[(long long)v * 4 * B] = from_f<HT>(p);
       }
     }
     __syncthreads();
@@ -323,7 +325,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   }
 }
 
-template <typename T, bool MASKED>
+template <typename T, bool MASKED, typename HT>
 int launch(const Args& a, int threads, void* stream) {
   if (a.B == 0) return 0;
   const Layout L = make_layout(sizeof(T), a.n, a.m_pad, a.dc, a.dv, a.S);
@@ -331,10 +333,11 @@ int launch(const Args& a, int threads, void* stream) {
       L.total > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      bp_span_kernel<T, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+      bp_span_kernel<T, MASKED, HT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (a.B + a.S - 1) / a.S;
-  bp_span_kernel<T, MASKED>
+  bp_span_kernel<T, MASKED, HT>
       <<<(unsigned)blocks, threads, L.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -357,7 +360,7 @@ Args make_args(const void* mv_in, long long st_s, long long st_i, long long st_b
   a.parity = (const int32_t*)parity;
   a.synd = (const int32_t*)synd;
   a.vn_state = (const int8_t*)vn_state;
-  a.hist = (float*)hist;
+  a.hist = hist;
   a.err_in = (const int8_t*)err_in;
   a.err_out = (int8_t*)err_out;
   a.done_in = (const uint8_t*)done_in;
@@ -388,10 +391,10 @@ Args make_args(const void* mv_in, long long st_s, long long st_i, long long st_b
 
 extern "C" {
 
-// One entry point per (message dtype, mode). alpha, clip, big, thresh and
-// pin arrive already rounded to the storage dtype; the unmasked entry
-// points ignore thresh, pin and vn_state. synd_hat may be null.
-#define BP_SPAN_ENTRY(NAME, T, MASKED)                                              \
+// One entry point per (message dtype, mode, ring dtype). alpha, clip, big,
+// thresh and pin arrive already rounded to the message dtype; the unmasked
+// entry points ignore thresh, pin and vn_state. synd_hat may be null.
+#define BP_SPAN_ENTRY(NAME, T, MASKED, HT)                                          \
   int NAME(const void* mv_in, long long st_s, long long st_i, long long st_b,       \
            void* mv_out, const void* prior, const void* parity, const void* synd,   \
            const void* vn_state, void* hist, const void* err_in, void* err_out,     \
@@ -405,13 +408,17 @@ extern "C" {
                              iters_in, iters_out, cn_vn, vfc, deg, synd_hat, n,     \
                              m_pad, dc, dv, B, S, num_iter, hist_from, alpha, clip, \
                              big, thresh, pin);                                     \
-    return launch<T, MASKED>(a, threads, stream);                                   \
+    return launch<T, MASKED, HT>(a, threads, stream);                               \
   }
 
-BP_SPAN_ENTRY(bp_span_f32, float, false)
-BP_SPAN_ENTRY(bp_span_bf16, __nv_bfloat16, false)
-BP_SPAN_ENTRY(bp_span_pinned_f32, float, true)
-BP_SPAN_ENTRY(bp_span_pinned_bf16, __nv_bfloat16, true)
+BP_SPAN_ENTRY(bp_span_f32, float, false, float)
+BP_SPAN_ENTRY(bp_span_bf16, __nv_bfloat16, false, float)
+BP_SPAN_ENTRY(bp_span_pinned_f32, float, true, float)
+BP_SPAN_ENTRY(bp_span_pinned_bf16, __nv_bfloat16, true, float)
+BP_SPAN_ENTRY(bp_span_f32_ring_bf16, float, false, __nv_bfloat16)
+BP_SPAN_ENTRY(bp_span_bf16_ring_bf16, __nv_bfloat16, false, __nv_bfloat16)
+BP_SPAN_ENTRY(bp_span_pinned_f32_ring_bf16, float, true, __nv_bfloat16)
+BP_SPAN_ENTRY(bp_span_pinned_bf16_ring_bf16, __nv_bfloat16, true, __nv_bfloat16)
 
 // Shared memory of one block, as the launch computes it.
 long long bp_span_smem_bytes(int elem_size, int n, int m_pad, int dc, int dv, int S) {

@@ -14,7 +14,9 @@ mutex race for the best path metric becomes a per-shot argmin.
 
 Layout: the carry is batch-minor ("transposed"), each shot's NB branch
 columns consecutive: messages slot-major [dc, m_pad, BN] in the message
-dtype, history [n, 4, BN] f32, VN arrays [n, BN], CN arrays [m_pad, BN]
+dtype, history [n, 4, BN] in the ring's dtype (``hist_dtype``, f32 or
+bf16: each write rounds the f32 posterior once; every reader takes f32
+images), VN arrays [n, BN], CN arrays [m_pad, BN]
 with inert pad rows. Each decimation step is one masked ``bp_run`` burst
 (on the card one launch of the pinned fused kernel ``csrc/bp_span.cu``),
 the select and aggressive decimation, the guess, two peels and the
@@ -27,17 +29,24 @@ before each, sorts the finished columns out of the walk (row
 compaction); a side or tree-side column stays dormant until its
 activation depth and then copies its source column (lane dormancy).
 
-Not ported (``NotImplementedError``): ``multi_thread=False`` (the serial
-work queue ``gdg_serial``) and the bfloat16 history ring.
+``multi_thread=False`` runs the reference's default, the serial work
+queue ``gdg_serial`` (bp_guessing_decoder.pyx:254-338): batch-major state,
+all shots in lockstep, a host loop over the main branch's depths and then
+over the queue's slots and each side branch's steps, one host read of
+whether to go on each time. Each step's BP is one masked ``bp_run`` call
+(on the card one ``bp_span_pinned`` launch).
 
-Path metrics (``min_pm`` and the per-shot choice among converged branches)
-are the priors of the correction's support summed in float64. Every
-partial sum of these priors is exact in float64 (f32 values of bounded
-exponent range, at most n of them), so the sum is that of any order,
-ascending VN order included, on either device; ``min_pm`` is it rounded
-once to float32. The JAX package sums in float32 in XLA's order, so its
-``min_pm`` may differ in the last bits, and where two branches' supports
-differ but weigh the same, its rounding may pick the other one.
+Path metrics (``min_pm``, the per-shot choice among converged branches and
+the serial queue's ``pm < min_pm``) are the priors of the correction's
+support summed in float64. Every partial sum of these priors is exact in
+float64 (f32 values of bounded exponent range, at most n of them), so the
+sum is that of any order, ascending VN order included, on either device;
+``min_pm`` is it rounded once to float32. The JAX package sums in float32
+in XLA's order, so its ``min_pm`` may differ in the last bits. Under
+jittered priors both pick the same branch; under uniform priors a partial
+sum of k equal terms is k times one term on both sides, so the serial
+queue's comparisons go the same way too. Where two ensemble branches'
+supports differ but weigh the same, the JAX rounding may pick the other.
 """
 
 from __future__ import annotations
@@ -46,11 +55,20 @@ import numpy as np
 import torch
 
 from ..graphs.tanner import compile_graph, graph_tensors
-from ..ops.bp import bp_init_messages_sm, bp_run, decode_bp, msg_torch_dtype
+from ..ops.bp import (
+    bp_init_messages,
+    bp_init_messages_sm,
+    bp_run,
+    decode_bp,
+    fresh_bp_state,
+    hist_torch_dtype,
+    msg_torch_dtype,
+)
 from ..ops.decimation import (
     init_decimation_state,
     peel,
     peel_t,
+    unsatisfied_counts,
     unsatisfied_counts_t,
     vn_set_values,
     vn_set_values_t,
@@ -152,18 +170,77 @@ def tile_branch_tables(tables, BK: int, device):
     }
 
 
-def _hist_stats_sm(hist_t):
-    """(min, max, sum, all_neg), each [n, B], from the slot-major history
-    [n, 4, B]. The sum runs slot by slot, the order of XLA's reduce on the
-    CPU (``ops.bp.history_sum``), so that exact ties of the guess key are
-    the JAX package's."""
-    h = hist_t.float()
-    return (
-        h.amin(dim=1),
-        h.amax(dim=1),
-        h[:, 0] + h[:, 1] + h[:, 2] + h[:, 3],
-        (h <= 0.0).all(dim=1),
-    )
+def _hist_stats(hist, dim: int):
+    """(min, max, sum, all_neg) over the ring's slot axis ``dim`` of the
+    history (f32 or bf16): each [n, B] from the slot-major [n, 4, B] (dim
+    1), [B, n] from the batch-major [B, n, 4] (dim -1). Every stat is taken
+    on the f32 images of the stored values (min and max of bf16 values are
+    bf16 values, as in JAX). The sum runs slot by slot in f32, the order of
+    XLA's reduce on the CPU (``ops.bp.history_sum``), so that exact ties of
+    the guess key are the JAX package's."""
+    h = hist.float()
+    s = [h.select(dim, k) for k in range(4)]
+    return (h.amin(dim=dim), h.amax(dim=dim), s[0] + s[1] + s[2] + s[3],
+            (h <= 0.0).all(dim=dim))
+
+
+def _select_and_decimate(
+    garr,
+    hist_stats,
+    error,
+    synd,
+    vn_state,
+    cn_state,
+    cn_degree,
+    dead,
+    active,
+    A_row,
+    A_sum_row,
+    c_allowed,
+    *,
+    low_error_mode: bool,
+    scan_rank,
+):
+    """Batch-major ``_select_and_decimate_t`` (the JAX
+    ``_select_and_decimate``), the serial work queue's select: the same
+    decisions on [B, n] / [B, m] state. ``hist_stats`` [B, n] each;
+    ``error`` [B, n] gives ``num_flip``'s decoded syndrome; ``active``,
+    ``A_row``, ``A_sum_row`` and ``c_allowed`` (the depth < 4 gate of the C
+    rule) [B]; ``scan_rank`` [B, n]. Returns (vn_state, cn_state,
+    cn_degree, dead, guess_vn, favor, has_cand)."""
+    C_thr, D_thr = 30.0, 3.0
+    hist_min, hist_max, hist_sum, all_neg = hist_stats
+    eligible = (vn_state == -1) & (garr["vn_degree"][None, :] > 2) & active[:, None]
+
+    if low_error_mode:
+        mA = torch.zeros_like(eligible)
+        agg = mA
+    else:
+        num_flip = unsatisfied_counts(garr, error, synd, cn_state)
+        mC = eligible & (hist_min >= C_thr) & c_allowed[:, None]
+        mD = eligible & ~mC & (num_flip >= 3) & (hist_min >= D_thr)
+        mA = (eligible & ~mC & ~mD & (hist_max <= A_row[:, None])
+              & (hist_sum < A_sum_row[:, None]))
+        agg = mC | mD | mA
+
+    cand = eligible & ~agg
+    big = torch.tensor(MAX_PM, dtype=torch.float32, device=vn_state.device)
+    key_any = torch.where(cand, hist_sum, big)
+    key_neg = torch.where(cand & all_neg, hist_sum, big)
+    has_neg = (key_neg < big).any(dim=1)
+    has_any = (key_any < big).any(dim=1)
+    big_i = torch.tensor(1 << 30, dtype=scan_rank.dtype, device=vn_state.device)
+    kmin_neg = key_neg.amin(dim=1, keepdim=True)
+    kmin_any = key_any.amin(dim=1, keepdim=True)
+    vn_neg = torch.where(key_neg <= kmin_neg, scan_rank, big_i).argmin(dim=1)
+    vn_any = torch.where(key_any <= kmin_any, scan_rank, big_i).argmin(dim=1)
+    guess_vn = torch.where(has_neg, vn_neg, vn_any)
+    favor = torch.where(has_neg, True, kmin_any[:, 0] <= 0.0).to(torch.int8)
+
+    vn_state, cn_state, cn_degree, dead = vn_set_values(
+        garr, vn_state, cn_state, cn_degree, dead, agg, mA.to(torch.int8))
+    vn_state, cn_state, cn_degree, dead = peel(garr, vn_state, cn_state, cn_degree, dead)
+    return vn_state, cn_state, cn_degree, dead, guess_vn, favor, has_neg | has_any
 
 
 def _select_and_decimate_t(
@@ -232,11 +309,12 @@ def _select_and_decimate_t(
 
 
 def _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0, cn_state0, cn_degree0,
-                   dead0, NB: int, msg_dtype: str = "float32"):
+                   dead0, NB: int, msg_dtype: str = "float32", hist_dtype: str = "float32"):
     """Tile per-shot state over the NB branch columns (each shot's columns
     consecutive). ``syndrome`` [BK, m]; ``scan_rank``, ``vn_state0`` [BK,
-    n]; ``cn_state0``, ``cn_degree0`` [BK, m]; ``dead0`` [BK]. Returns
-    (carry, synd [m_pad, BN] int8, scan rank [n, BN])."""
+    n]; ``cn_state0``, ``cn_degree0`` [BK, m]; ``dead0`` [BK]. The history
+    ring is allocated in ``hist_dtype``. Returns (carry, synd [m_pad, BN]
+    int8, scan rank [n, BN])."""
     BK, m = syndrome.shape
     n, m_pad = garr["n"], garr["m_pad"]
     dev = syndrome.device
@@ -254,7 +332,7 @@ def _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0, cn_state0, cn_degr
     carry = {
         # a broadcast view: bp_span reads it through its strides
         "mv": bp_init_messages_sm(garr, llr, BN, msg_dtype),
-        "history": torch.zeros((n, 4, BN), dtype=torch.float32, device=dev),
+        "history": torch.zeros((n, 4, BN), dtype=hist_torch_dtype(hist_dtype), device=dev),
         "error": torch.zeros((n, BN), dtype=torch.int8, device=dev),
         "vn": tile_t(vn_state0.T.to(torch.int8)),
         "cn": tile_t(pad_cn_t(cn_state0, -1, torch.int8)),
@@ -272,7 +350,7 @@ def _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0, cn_state0, cn_degr
 
 def _ensemble_step(garr, llr, synd, scan_rank, tt, reinit_any, d: int, carry, *,
                    num_iter: int, alpha: float, clip: float, low_error_mode: bool,
-                   msg_dtype: str, start_row=None):
+                   msg_dtype: str, hist_dtype: str = "float32", start_row=None):
     """One ensemble decimation step (the JAX ``_ensemble_step``): masked BP
     burst, select_vn, decimate, peel, side-branch message reinit. Updates
     ``carry`` in place of its entries. ``reinit_any``: whether any branch
@@ -291,7 +369,7 @@ def _ensemble_step(garr, llr, synd, scan_rank, tt, reinit_any, d: int, carry, *,
         num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
         return_synd=True, io_layout="slot_major", history_mode="tail",
         hist_update="slice", state_layout="transposed", vn_state=c["vn"],
-        cn_state=c["cn"], masked=True,
+        cn_state=c["cn"], masked=True, hist_dtype=hist_dtype,
     )
     newly_conv = bp_done & active
     conv_error = torch.where(newly_conv[None, :], error, c["conv_error"])
@@ -300,7 +378,7 @@ def _ensemble_step(garr, llr, synd, scan_rank, tt, reinit_any, d: int, carry, *,
     active = active & ~newly_conv
 
     vn, cn, deg, dead, guess_vn, favor, has_cand = _select_and_decimate_t(
-        garr, _hist_stats_sm(history), synd, c["vn"], c["cn"], c["deg"], c["dead"],
+        garr, _hist_stats(history, 1), synd, c["vn"], c["cn"], c["deg"], c["dead"],
         active, tt["AT"][d], tt["AsumT"][d], d < 4, low_error_mode=low_error_mode,
         synd_hat_t=synd_hat, scan_rank_t=scan_rank,
     )
@@ -405,6 +483,7 @@ def gdg_ensemble_spans(
     clip: float,
     low_error_mode: bool,
     msg_dtype: str = "float32",
+    hist_dtype: str = "float32",
     spans: tuple,
     row_bucket: int | None = None,
     copy_plan=None,
@@ -440,7 +519,8 @@ def gdg_ensemble_spans(
     NB = tables["num_branches"]
     dev = syndrome.device
     carry, synd, rank_b = _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0,
-                                         cn_state0, cn_degree0, dead0, NB, msg_dtype)
+                                         cn_state0, cn_degree0, dead0, NB, msg_dtype,
+                                         hist_dtype)
     tt = tile_branch_tables(tables, BK, dev)
     reinit_any = tables["reinit"].any(axis=0)
     BN = BK * NB
@@ -456,7 +536,7 @@ def gdg_ensemble_spans(
         start_np = np.maximum(copy_at[lanes], 0)
         start_row = torch.as_tensor(start_np, device=dev)
     kw = dict(num_iter=num_iter, alpha=alpha, clip=clip, low_error_mode=low_error_mode,
-              msg_dtype=msg_dtype)
+              msg_dtype=msg_dtype, hist_dtype=hist_dtype)
     bucket = BN if row_bucket is None else _divisor_bucket(BN, row_bucket)
     if bucket < BN:  # the walk writes into the carry: no broadcast view
         carry["mv"] = carry["mv"].contiguous()
@@ -496,9 +576,193 @@ def gdg_ensemble_spans(
     return _ensemble_reduce(carry, llr, BK, NB)
 
 
+def gdg_serial(
+    garr,
+    llr,
+    syndrome,
+    scan_rank,
+    vn_state0,
+    cn_state0,
+    cn_degree0,
+    dead0,
+    *,
+    num_iter: int,
+    max_step: int,
+    max_tree_depth: int,
+    max_side_depth: int,
+    max_side_branch_step: int,
+    max_guess: int,
+    alpha: float,
+    clip: float,
+    low_error_mode: bool,
+    msg_dtype: str = "float32",
+):
+    """The reference's serial GDG (``bpgdg_decoder.gdg``,
+    bp_guessing_decoder.pyx:254-338; the JAX ``gdg_serial``) over ``B``
+    shots in lockstep, batch-major: ``syndrome`` [B, m]; ``scan_rank``,
+    ``vn_state0`` [B, n]; ``cn_state0``, ``cn_degree0`` [B, m]; ``dead0``
+    [B].
+
+    Phase 1 grows the main (all-favored) branch for up to ``max_step``
+    depths, pushing one anti-decision snapshot a depth (below
+    ``max_side_depth``) onto each shot's queue of ``max_guess`` slots.
+    Phase 2 walks the queue in push order: a snapshot deeper than the
+    shot's ``min_conv_depth`` is pruned; otherwise its state is restored,
+    the messages restart from the priors, the anti-decision is applied and
+    the branch runs up to ``max_side_branch_step`` steps. A converging
+    branch with a smaller path metric takes over (error, ``min_pm``,
+    ``min_conv_depth``); a branch deeper than ``min_conv_depth + 2``
+    stops; a branch no deeper than ``max_tree_depth`` pushes snapshots too.
+    The history ring (f32, as in JAX) and the running error carry over
+    from step to step and from branch to branch.
+
+    The loops run on the host: one read of whether any shot is unfinished
+    per main-branch depth (from depth 1 on: a step in which every shot is
+    halted changes nothing), of the queue's fill per slot, and of whether
+    any branch is active per side-branch step. Each step's BP is one
+    masked ``bp_run`` call. Path metrics are ``path_metric``'s exact f64
+    sums (module docstring).
+
+    Returns error [B, n] uint8, converged, ``min_pm`` (f32), iterations,
+    and the queue trace: ``q_guess``, ``q_val``, ``q_depth`` [B, G] (the
+    pushed VN, its anti-value and depth, 1 << 30 where none), ``q_used``
+    [B], ``explored`` [B, G] (slots run, not pruned) and ``min_conv_depth``
+    [B].
+    """
+    B, m = syndrome.shape
+    n = garr["n"]
+    G = max_guess
+    dev = syndrome.device
+    rows = torch.arange(B, device=dev)
+    vn_cols = torch.arange(n, device=dev)
+    # the queues hold a trash slot G: a row that does not push writes there
+    q_vn = torch.zeros((B, G + 1, n), dtype=torch.int8, device=dev)
+    q_cn = torch.zeros((B, G + 1, m), dtype=torch.int8, device=dev)
+    q_deg = torch.zeros((B, G + 1, m), dtype=torch.int32, device=dev)
+    q_guess = torch.zeros((B, G + 1), dtype=torch.int32, device=dev)
+    q_val = torch.zeros((B, G + 1), dtype=torch.int8, device=dev)
+    q_depth = torch.full((B, G + 1), 1 << 30, dtype=torch.int32, device=dev)
+    used = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def push_snapshot(push, vn_state, cn_state, cn_degree, guess_vn, favor, depth):
+        slot = torch.where(push, used, G).long()
+        q_vn[rows, slot] = vn_state
+        q_cn[rows, slot] = cn_state.to(torch.int8)
+        q_deg[rows, slot] = cn_degree.to(torch.int32)
+        q_guess[rows, slot] = guess_vn.to(torch.int32)
+        q_val[rows, slot] = (1 - favor).to(torch.int8)
+        q_depth[rows, slot] = torch.as_tensor(depth, dtype=torch.int32, device=dev).expand(B)
+        return used + push.to(torch.int32)
+
+    def decide_and_peel(vn_state, cn_state, cn_degree, dead, do_set, guess_vn, value):
+        onehot = (vn_cols[None, :] == guess_vn[:, None]) & do_set[:, None]
+        state = vn_set_values(garr, vn_state, cn_state, cn_degree, dead, onehot,
+                              value[:, None].expand(B, n))
+        return peel(garr, *state)
+
+    def select(history, error, state, active, A: float, A_sum: float, c_allowed):
+        def fill(x):
+            return torch.full((B,), x, dtype=torch.float32, device=dev)
+
+        return _select_and_decimate(
+            garr, _hist_stats(history, -1), error, syndrome, *state, active, fill(A),
+            fill(A_sum), c_allowed, low_error_mode=low_error_mode, scan_rank=scan_rank)
+
+    def bp(mv, history, error, done, iters, vn_state, cn_state):
+        return bp_run(garr, mv, llr, syndrome, history, error, done, iters,
+                      num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
+                      vn_state=vn_state, cn_state=cn_state, masked=True)
+
+    mv = bp_init_messages(garr, llr, B)
+    history, error, _, iters = fresh_bp_state(garr, B)
+    state = (vn_state0, cn_state0, cn_degree0, dead0)
+    halted = dead0.clone()
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+    min_pm = torch.full((B,), MAX_PM, dtype=torch.float64, device=dev)
+    best_err = torch.zeros((B, n), dtype=torch.int8, device=dev)
+    min_conv_depth = torch.full((B,), max_step, dtype=torch.int32, device=dev)
+
+    # phase 1: the main branch
+    for d in range(max_step):
+        if d and bool(halted.all()):
+            break
+        active = ~halted
+        mv, history, error, bp_done, iters = bp(mv, history, error, ~active, iters, *state[:2])
+        newly = bp_done & active
+        min_pm = torch.where(newly, path_metric(llr, error.T), min_pm)
+        best_err = torch.where(newly[:, None], error, best_err)
+        min_conv_depth = torch.where(newly, d, min_conv_depth)
+        converged = converged | newly
+        halted = halted | newly
+        active = active & ~newly
+        *state, guess_vn, favor, has_cand = select(
+            history, error, state, active, -3.0, -16.0 if d == 0 else -12.0,
+            torch.full((B,), d < 4, dtype=torch.bool, device=dev))
+        do_set = active & ~state[3] & has_cand
+        used = push_snapshot(do_set & (d < max_side_depth) & (used < G), *state[:3],
+                             guess_vn, favor, d + 1)
+        state = decide_and_peel(*state, do_set, guess_vn, favor)
+        halted = halted | state[3] | (active & ~has_cand)
+        error = torch.where(state[0] != -1, state[0], error)
+
+    # unconverged shots keep the main branch's decisions (pyx:293-296)
+    best_err = torch.where(converged[:, None], best_err, error)
+
+    # phase 2: the side branches, in push order, with depth pruning
+    explored = torch.zeros((B, G), dtype=torch.bool, device=dev)
+    i = 0
+    while i < G and i < int(used.max()):
+        alt_depth = q_depth[:, i]
+        valid = (i < used) & (alt_depth <= min_conv_depth)
+        explored[:, i] = valid
+        state = decide_and_peel(q_vn[:, i], q_cn[:, i], q_deg[:, i], ~valid, valid,
+                                q_guess[:, i], q_val[:, i])
+        b_active = valid & ~state[3]
+        mv = bp_init_messages(garr, llr, B)  # set_masks -> init()
+        j = 0
+        while j < max_side_branch_step and bool(b_active.any()):
+            cur_depth = alt_depth + j
+            mv, history, error, bp_done, iters = bp(mv, history, error, ~b_active, iters,
+                                                    *state[:2])
+            newly = bp_done & b_active
+            pm = path_metric(llr, error.T)
+            better = newly & (pm < min_pm)
+            min_pm = torch.where(better, pm, min_pm)
+            best_err = torch.where(better[:, None], error, best_err)
+            min_conv_depth = torch.where(better & (cur_depth < min_conv_depth), cur_depth,
+                                         min_conv_depth)
+            converged = converged | newly
+            b_active = b_active & ~newly
+            b_active = b_active & ~(cur_depth > min_conv_depth + 2)  # pyx:325-326
+            *state, guess_vn, favor, has_cand = select(
+                history, error, state, b_active, 0.0, -10.0, cur_depth < 4)
+            do_set = b_active & ~state[3] & has_cand
+            used = push_snapshot(do_set & (cur_depth <= max_tree_depth)
+                                 & (cur_depth <= min_conv_depth) & (used < G),
+                                 *state[:3], guess_vn, favor, cur_depth + 1)
+            state = decide_and_peel(*state, do_set, guess_vn, favor)
+            b_active = do_set & ~state[3]
+            error = torch.where(state[0] != -1, state[0], error)
+            j += 1
+        i += 1
+
+    return {
+        "error": best_err.to(torch.uint8),
+        "converged": converged,
+        "min_pm": min_pm.to(torch.float32),
+        "iterations": iters,
+        "q_guess": q_guess[:, :G],
+        "q_val": q_val[:, :G],
+        "q_depth": q_depth[:, :G],
+        "q_used": used,
+        "explored": explored,
+        "min_conv_depth": min_conv_depth,
+    }
+
+
 class GDG:
     """Batched GDG decoder mirroring ``bpgdg_decoder``
-    (bp_guessing_decoder.pyx:160-338), multi-thread form.
+    (bp_guessing_decoder.pyx:160-338).
 
     The constructor is the JAX package's, less ``cn_engine`` (the kernels
     are chosen by shape) and ``ensemble_early_exit`` (the host-stepped form
@@ -509,8 +773,11 @@ class GDG:
     ``ensemble_spans`` (default ``default_spans``) in buckets of
     ``row_bucket`` columns, with lane dormancy unless a user schedule
     misses an activation depth (then each lane recomputes its prefix).
-    ``multi_thread=False`` and ``hist_dtype="bfloat16"`` raise
-    ``NotImplementedError``.
+    ``hist_dtype`` ("float32" or "bfloat16", else ``ValueError``) is the
+    ensemble's history ring. ``multi_thread=False`` runs the reference's
+    default serial work queue ``gdg_serial`` instead of the ensemble (its
+    ring is f32 whatever ``hist_dtype``, as in JAX), with ``max_guess``
+    queue slots (pyx:181).
 
     Shortening decides the n - new_n most reliable columns (by the pre-BP
     history sum) to 0 on the full masked graph, then peels.
@@ -544,11 +811,8 @@ class GDG:
     ):
         if ensemble_mode not in ("fused", "host_loop", "spans"):
             raise ValueError("ensemble_mode must be 'fused', 'host_loop' or 'spans'")
-        if not multi_thread:
-            raise NotImplementedError("multi_thread=False (gdg_serial) is not ported")
-        if hist_dtype != "float32":
-            raise NotImplementedError("only the float32 history ring is ported")
         msg_torch_dtype(msg_dtype)  # validates
+        hist_torch_dtype(hist_dtype)
         self.device = resolve_device(device)
         pcm = np.asarray(pcm)
         self.m, self.n = pcm.shape
@@ -564,6 +828,15 @@ class GDG:
         self.num_iter_per_step = int(max_iter_per_step)
         self.low_error_mode = bool(low_error_mode)
         self.msg_dtype = str(msg_dtype)
+        self.hist_dtype = str(hist_dtype)
+        self.multi_thread = bool(multi_thread)
+        self.max_step = int(max_step)
+        self.max_tree_depth = int(max_tree_depth)
+        self.max_side_depth = int(max_side_depth)
+        self.max_side_branch_step = int(max_side_branch_step)
+        # the reference's max_guess (bp_guessing_decoder.pyx:181)
+        self.max_guess = 2 * (2**self.max_tree_depth - 1) + self.max_side_depth \
+            - self.max_tree_depth
         self.new_n = min(self.n, 2 * self.m) if new_n is None else min(new_n, self.n)
         self.ensemble_bucket = int(ensemble_bucket)
         self.ensemble_mode = ensemble_mode
@@ -616,9 +889,9 @@ class GDG:
         on the whole batch, then a host walk over buckets of the
         non-converged shots (sorted by syndrome weight, so that a bucket's
         columns finish together), each bucket shortened and run through the
-        ensemble. One host read of how many shots are left, then one per
-        ensemble step (host-stepped form) or per span (spans form), besides
-        the peels' reads.
+        ensemble (or ``gdg_serial``). One host read of how many shots are
+        left, then one per ensemble step (host-stepped form) or per span
+        (spans form), or the serial queue's, besides the peels' reads.
 
         Returns dict: error [B, n] uint8, converged [B] bool, iterations
         [B] int32 (pre-BP plus all branches' burst iterations), min_pm [B]
@@ -640,7 +913,7 @@ class GDG:
         n_todo = int((~converged).sum())
         kw = dict(num_iter=self.num_iter_per_step, alpha=self.gdg_factor, clip=self.clip,
                   low_error_mode=self.low_error_mode, msg_dtype=self.msg_dtype,
-                  spans=(1,) * self.D_max)
+                  hist_dtype=self.hist_dtype, spans=(1,) * self.D_max)
         if self.ensemble_mode == "spans":
             kw.update(spans=self.ensemble_spans, row_bucket=self.row_bucket,
                       copy_plan=self._copy_plan)
@@ -649,8 +922,17 @@ class GDG:
             s = synds[idx]
             done_c = converged[idx]
             vn0, cn0, cd0, dead0, rank_pos = self._shorten_state(s, llr_sum[idx])
-            out = gdg_ensemble_spans(self.garr, self._llr_dev, s, rank_pos, vn0, cn0, cd0,
-                                     dead0, self.tables, **kw)
+            if self.multi_thread:
+                out = gdg_ensemble_spans(self.garr, self._llr_dev, s, rank_pos, vn0, cn0,
+                                         cd0, dead0, self.tables, **kw)
+            else:
+                out = gdg_serial(
+                    self.garr, self._llr_dev, s, rank_pos, vn0, cn0, cd0, dead0,
+                    num_iter=self.num_iter_per_step, max_step=self.max_step,
+                    max_tree_depth=self.max_tree_depth, max_side_depth=self.max_side_depth,
+                    max_side_branch_step=self.max_side_branch_step,
+                    max_guess=self.max_guess, alpha=self.gdg_factor, clip=self.clip,
+                    low_error_mode=self.low_error_mode, msg_dtype=self.msg_dtype)
             # boundary buckets may straddle converged shots: keep theirs
             error[idx] = torch.where(done_c[:, None], error[idx], out["error"])
             converged[idx] = done_c | out["converged"]

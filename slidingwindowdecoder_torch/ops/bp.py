@@ -10,7 +10,8 @@ of the decimation decoders. Semantics reproduced exactly:
   update only, normalization factor applied after the sign;
 - VN rule: posterior = prior + sum of incoming, outgoing = posterior − own;
 - posterior LLR history ring of length 4 indexed by ``iteration % 4``
-  (the iteration counter is local to each ``bp_run`` call);
+  (the iteration counter is local to each ``bp_run`` call), float32 or
+  bfloat16: the f32 posterior rounded once to the ring's dtype;
 - hard decision ``posterior <= 0``; convergence = full-PCM syndrome
   match; per-shot freeze after convergence, whole-batch early exit.
 
@@ -59,6 +60,14 @@ def msg_torch_dtype(msg_dtype: str) -> torch.dtype:
         return _DTYPES[str(msg_dtype)]
     except KeyError:
         raise ValueError(f"unsupported msg_dtype {msg_dtype!r}") from None
+
+
+def hist_torch_dtype(hist_dtype: str) -> torch.dtype:
+    """The torch dtype of a history ring: "float32" or "bfloat16"."""
+    try:
+        return _DTYPES[str(hist_dtype)]
+    except KeyError:
+        raise ValueError(f"unsupported hist_dtype {hist_dtype!r}") from None
 
 
 def bp_init_messages(garr, prior_llr, batch: int):
@@ -162,8 +171,10 @@ def bp_loop(
     ``mv_sm`` [dc, m_pad, B] in the message dtype (a broadcast view is
     fine); ``prior`` [n] or [B, n] f32; ``parity`` (the CN sign seed) and
     ``synd_t`` [m_pad, B] int32; ``vn_state`` [B, n] int8 or None (all
-    undecided; masked mode only); ``hist_t`` [n, 4, B] f32, written in
-    place at slot ``i % 4`` from iteration ``hist_from`` on; ``error``
+    undecided; masked mode only); ``hist_t`` [n, 4, B] f32 or bf16, written
+    in place at slot ``i % 4`` from iteration ``hist_from`` on (the f32
+    posterior rounded once to nearest even in bf16, as the kernel's
+    ``__float2bfloat16_rn`` and the JAX ``astype``); ``error``
     [B, n] int8, ``done`` [B] bool, ``iters`` [B] int32. Returns
     ``(mv_sm, hist_t, error, done, iters)``, and with ``return_synd`` also
     ``synd_hat`` [m_pad, B] int8: each shot's decoded syndrome at its last
@@ -279,7 +290,7 @@ def _bp_iterations(garr, mv_sm, prior, parity, synd_t, vn_t, hist_t, err_t, done
         if i >= hist_from:
             slot = hist_t[:, i % 4, :]
             write = active & vn_undecided if masked else active
-            slot.copy_(torch.where(write, posterior, slot))
+            slot.copy_(torch.where(write, posterior.to(slot.dtype), slot))
         err_t = torch.where(active, err_new, err_t)
         sodd = torch.where(active, synd_odd, sodd)
         iters = iters + active.to(torch.int32)
@@ -365,8 +376,10 @@ def bp_run(
     for every row and VN, and its comment notes that no reader sees the
     extra entries (frozen rows' and decided VNs'). Here ``"slice"`` runs
     the masked write: the ring equals JAX's on (active rows x undecided
-    VNs), and elsewhere keeps its entry values. ``hist_dtype`` must be
-    ``"float32"``: the bfloat16 ring is not ported.
+    VNs), and elsewhere keeps its entry values. ``hist_dtype`` ("float32"
+    or "bfloat16") is the ring's dtype and must be ``history``'s: in
+    bfloat16 each write stores the f32 posterior rounded once (the JAX
+    ``bp_run`` takes the ring's dtype from its ``history`` array).
 
     Returns ``(mv, history, error, done, iters)`` in the input layouts,
     then ``synd_hat`` if ``return_synd``.
@@ -375,9 +388,8 @@ def bp_run(
 
     if hist_update not in ("masked", "slice"):
         raise ValueError(f"unknown hist_update {hist_update!r}")
-    if hist_dtype != "float32":
-        raise NotImplementedError(f"hist_dtype={hist_dtype!r}: only the float32 "
-                                  "history ring is ported")
+    if history.dtype != hist_torch_dtype(hist_dtype):
+        raise ValueError(f"history is {history.dtype}, hist_dtype={hist_dtype!r}")
     if state_layout not in ("batch_major", "transposed"):
         raise ValueError(f"unknown state_layout {state_layout!r}")
     transposed = state_layout == "transposed"
@@ -492,10 +504,11 @@ def span_inputs(
 
 
 def history_sum(hist):
-    """[n, 4, B] posterior history ring -> [B, n] sum of its 4 slots, taken
-    slot by slot: the order of the JAX (XLA) reduce on the CPU (a torch
-    ``.sum(dim=1)`` rounds differently)."""
-    return (hist[:, 0] + hist[:, 1] + hist[:, 2] + hist[:, 3]).T
+    """[n, 4, B] posterior history ring (f32 or bf16) -> [B, n] f32 sum of
+    its 4 slots, taken slot by slot in f32: the order of the JAX (XLA)
+    reduce on the CPU (a torch ``.sum(dim=1)`` rounds differently)."""
+    h = hist.float()
+    return (h[:, 0] + h[:, 1] + h[:, 2] + h[:, 3]).T
 
 
 def fresh_bp_state(garr, batch: int):

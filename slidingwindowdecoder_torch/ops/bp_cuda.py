@@ -7,7 +7,8 @@ The counterparts of the JAX package's ``ops/bp_pallas.py``:
   ``ops.bp._cn_update_sm``.
 - ``bp_span`` (``csrc/bp_span.cu``): a whole ``bp_run`` call, every
   iteration of it in one launch with the message block in shared memory,
-  unmasked or pinned. Plain version ``ops.bp.bp_loop``.
+  unmasked or pinned, with a float32 or bfloat16 history ring. Plain
+  version ``ops.bp.bp_loop``.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises — there is no fallback.
@@ -175,9 +176,10 @@ def bp_span_supported(garr, B: int, dtype: torch.dtype) -> bool:
     posteriors and states with the graph's tables within ``SMEM_MAX`` bytes
     of shared memory. The flagship windows (dc 35, m_pad 224, n <= 1728)
     hold 4 shots per block in f32 and 8 in bf16; an interior [[288]] W=4
-    window (576x4896, m_pad 608) fits no f32 shot (232,960 B) and the
-    [[144]] global DEM graph (m_pad 960) none in either dtype. ``bp_run``
-    runs ``bp_loop`` for those."""
+    window (576x4896, m_pad 608) fits one bf16 shot (180,608 B) and no f32
+    one (232,960 B), and the [[144]] global DEM graph (m_pad 960) none in
+    either dtype. ``bp_run`` runs ``bp_loop`` for those. The history ring
+    lives in device memory, so its dtype does not enter the gate."""
     return (
         dtype in _ENTRY
         and 0 < B < 2**31
@@ -194,9 +196,10 @@ def shots_per_block(garr, B: int, dtype: torch.dtype, num_sms: int) -> int:
 
 
 @functools.cache
-def _span_entry(dtype: torch.dtype, masked: bool):
+def _span_entry(dtype: torch.dtype, masked: bool, ring: torch.dtype):
     lib = cuda_build.load(SPAN_SOURCE)
-    fn = getattr(lib, f"bp_span_{'pinned_' if masked else ''}{_ENTRY[dtype]}")
+    suffix = "_ring_bf16" if ring == torch.bfloat16 else ""
+    fn = getattr(lib, f"bp_span_{'pinned_' if masked else ''}{_ENTRY[dtype]}{suffix}")
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, ll, ll, ll, *[p] * 16, i, i, i, i, ll, i, i, i, i, *[f] * 5, p]
     fn.restype = ctypes.c_int
@@ -217,9 +220,13 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
     must be 1-D, ``posterior_matmul`` False and the graph admitted by
     ``bp_span_supported``. The kernel freezes every done shot, which
     ``freeze_messages=False`` permits; either way its outputs equal
-    ``bp_loop``'s with ``freeze_messages=True``. ``hist`` [n, 4, B] is
-    written in place. A block holds ``shots_per_block`` shots and the most
-    threads, up to 1024, that are a multiple of them.
+    ``bp_loop``'s with ``freeze_messages=True``. ``hist`` [n, 4, B], f32
+    or bf16 (the ring's type selects the kernel's entry point; a bf16 ring
+    stores each f32 posterior rounded once to nearest even), is written in
+    place; ``bp_span.bf16_ring_launches`` and
+    ``bp_span.pinned_bf16_ring_launches`` count the unmasked and the masked
+    launches that took a bf16 ring. A block holds ``shots_per_block`` shots
+    and the most threads, up to 1024, that are a multiple of them.
     """
     if mv.device.type == "cpu":
         bp_span.plain_calls += 1
@@ -245,8 +252,11 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
     ]
     if masked and vn_state is not None:
         checks.append(("vn_state", vn_state, (B, n), torch.int8))
+    ring = hist.dtype if write_hist else torch.float32
     if write_hist:
-        checks.append(("hist", hist, (n, 4, B), torch.float32))
+        if ring not in _ENTRY:
+            raise ValueError(f"bp_span: hist must be float32 or bfloat16, got {ring}")
+        checks.append(("hist", hist, (n, 4, B), ring))
     for name, t, shape, dtype in checks:
         if t.device != mv.device or tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(
@@ -267,7 +277,7 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
     synd_hat = (torch.empty((m_pad, B), dtype=torch.int8, device=mv.device)
                 if return_synd else None)
     consts = [_storage_round(x, mv.dtype) for x in (alpha, clip, BIG, PIN_THRESH, PIN)]
-    lib, fn = _span_entry(mv.dtype, masked)
+    lib, fn = _span_entry(mv.dtype, masked, ring)
     stream = torch.cuda.current_stream(mv.device).cuda_stream
     with torch.cuda.device(mv.device):
         code = fn(
@@ -280,14 +290,19 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
             n, m_pad, dc, dv, B, shots, threads, num_iter, hist_from, *consts, stream,
         )
     cuda_build.check(lib, code, "bp_span kernel")
+    bf16_ring = ring == torch.bfloat16
     if masked:
         bp_span.pinned_launches += 1
+        bp_span.pinned_bf16_ring_launches += bf16_ring
     else:
         bp_span.launches += 1
+        bp_span.bf16_ring_launches += bf16_ring
     out = (mv_out, hist, err_out, done_out, iters_out)
     return out + (synd_hat,) if return_synd else out
 
 
 bp_span.launches = 0
 bp_span.pinned_launches = 0
+bp_span.bf16_ring_launches = 0
+bp_span.pinned_bf16_ring_launches = 0
 bp_span.plain_calls = 0

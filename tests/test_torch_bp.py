@@ -427,7 +427,8 @@ def test_bp_run_transposed_bf16_decisions_equal(rng):
 
 def test_bp_run_transposed_equals_batch_major(rng):
     """The transposed state layout and ``return_synd`` give the batch-major
-    call's results, transposed; the bf16 history ring is not ported."""
+    call's results, transposed; ``hist_dtype`` must name the ring's dtype
+    (the bf16 ring: ``test_torch_gdg_bf16.py``)."""
     g, prior, synds, vn, cn, dead = _masked_inputs(rng, _low_degree_graph(rng), 64)
     garr = graph_tensors(g, "cpu")
     B, m = 64, g.m
@@ -448,7 +449,7 @@ def test_bp_run_transposed_equals_batch_major(rng):
     for a, b in ((tr[0], bm[0]), (tr[1], bm[1]), (tr[2].T, bm[2]), (tr[3], bm[3]),
                  (tr[4], bm[4]), (tr[5][:m].T, bm[5])):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(ValueError, match="hist_dtype"):  # an f32 ring named bfloat16
         tbp.bp_run(garr, tbp.bp_init_messages_sm(garr, prior, B), prior,
                    torch.from_numpy(synds), torch.from_numpy(hist), torch.from_numpy(err_t.T),
                    torch.from_numpy(done), torch.zeros(B, dtype=torch.int32), num_iter=2,

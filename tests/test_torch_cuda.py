@@ -227,6 +227,49 @@ def test_bp_span_pinned_synd_hat_matches_plain_loop(card, dtype):
     assert torch.equal(sh_k[:, done0], synd_t[:, done0]) and not sh_k[m:].any()
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bp_span_bf16_ring_matches_plain_loop(card, masked, dtype):
+    """The four entry points with a bf16 history ring (message dtype x
+    mode): ``bp_run`` with ``hist_dtype="bfloat16"`` on the card (one
+    launch, counted in ``bf16_ring_launches`` unmasked and in
+    ``pinned_bf16_ring_launches`` masked) against the plain loop on
+    the CPU, B=300, the ring written from the first iteration over random
+    entry values: the ring bit-equal as bf16, error, done and iterations
+    equal, and the messages of every shot not done."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, bp_run
+    from slidingwindowdecoder_torch.ops.bp_cuda import bp_span
+
+    B = 300
+    H, prior, synds, err0, done0, kw = _bp_span_case(masked, dtype, B, 13)
+    n = H.shape[1]
+    kw.update(history_mode="full", hist_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(13)
+    ring0 = (torch.randn((n, 4, B), generator=gen) * 8).to(torch.bfloat16)
+    outs = []
+    for dev in ("cpu", card):
+        garr = graph_tensors(compile_graph(H), dev)
+        to = (lambda t: t.to(dev) if torch.is_tensor(t) else t)
+        counts = (lambda: (bp_span.bf16_ring_launches, bp_span.pinned_bf16_ring_launches,
+                           bp_span.plain_calls))
+        before = counts()
+        outs.append([x.cpu() for x in bp_run(
+            garr, bp_init_messages_sm(garr, prior, B, dtype), prior, synds.to(dev),
+            ring0.to(dev), err0.to(dev), done0.to(dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            **{k: to(v) for k, v in kw.items()})])
+        ran = tuple(a - b for a, b in zip(counts(), before))
+        assert ran == ((0, 0, 1) if dev == "cpu" else (0, 1, 0) if masked else (1, 0, 0))
+    (mv_p, hist_p, err_p, done_p, it_p), (mv_k, hist_k, err_k, done_k, it_k) = outs
+    assert hist_k.dtype == torch.bfloat16 and 0 < int(done_p.sum()) < B
+    assert torch.equal(hist_k.view(torch.int16), hist_p.view(torch.int16))
+    assert not torch.equal(hist_p.view(torch.int16), ring0.view(torch.int16))
+    assert torch.equal(err_k, err_p) and torch.equal(done_k, done_p)
+    assert torch.equal(it_k, it_p)
+    assert torch.equal(mv_k[:, :, ~done_p], mv_p[:, :, ~done_p])
+
+
 def _window144(which: int):
     from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
 
@@ -480,5 +523,27 @@ def test_gdg_spans_card_matches_cpu(card):
     assert ran["bp_span"] == 1 and ran["bp_span_pinned"] > 0
     assert not (ran["cn_update"] or ran["gauss_jordan_key"] or ran["osd_cs_fused"])
     rp = GDG(code.hx, probs, device="cpu", **kw).decode_batch(synds)
+    for k in ("error", "converged", "iterations", "min_pm"):
+        np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)
+
+
+def test_gdg_serial_card_matches_cpu(card):
+    """The serial work queue (``multi_thread=False``) with bf16 messages on
+    bb72 syndromes: every step's BP is one pinned fused launch, the pre-BP
+    one unmasked launch, and the card's decode equals the plain one on the
+    CPU, shot for shot."""
+    from slidingwindowdecoder_torch.decoders import GDG
+
+    code, probs, synds = _cc_inputs(0.13, 64, 7)
+    kw = dict(max_iter=24, max_iter_per_step=6, max_step=40, max_tree_depth=3,
+              max_side_depth=10, max_tree_branch_step=20, max_side_branch_step=20,
+              multi_thread=False, ensemble_bucket=16, msg_dtype="bfloat16")
+    before = _launches()
+    rc = GDG(code.hx, probs, device=card, **kw).decode_batch(synds)
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran["bp_span"] == 1 and ran["bp_span_pinned"] > 0
+    assert not (ran["cn_update"] or ran["gauss_jordan_key"] or ran["osd_cs_fused"])
+    rp = GDG(code.hx, probs, device="cpu", **kw).decode_batch(synds)
+    assert (rp.iterations > kw["max_iter"]).sum() >= 16
     for k in ("error", "converged", "iterations", "min_pm"):
         np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)

@@ -163,14 +163,31 @@ def test_gdg_bucket_invariance_and_modes(bb72):
                                   res[0].error[3])
 
 
-@pytest.mark.parametrize("kw,match", [
-    # the spans form is ported; its bfloat16 history ring is not
-    pytest.param(dict(ensemble_mode="spans", hist_dtype="bfloat16"), "float32",
-                 id="kw0-spans"),
-    (dict(multi_thread=False), "gdg_serial"), (dict(hist_dtype="bfloat16"), "float32")])
-def test_gdg_unported_forms_raise(bb72, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        GDG(bb72.hx, np.full(bb72.N, 0.05), device="cpu", **kw)
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(ensemble_mode="spans", hist_dtype="bfloat16"), id="spans-bf16-ring"),
+    pytest.param(dict(multi_thread=False), id="serial"),
+    pytest.param(dict(hist_dtype="bfloat16"), id="bf16-ring"),
+    pytest.param(dict(hist_dtype="float16"), id="float16-ring-raises"),
+    pytest.param(dict(hist_dtype="int8", multi_thread=False), id="int8-ring-raises")])
+def test_gdg_forms_and_ring_dtype(bb72, kw):
+    """The bf16 history ring (host-stepped and spans) and the serial work
+    queue construct and decode: 16 shots at p=0.05, every converged
+    correction matching its syndrome. A ring dtype other than float32 or
+    bfloat16 raises ``ValueError``."""
+    probs = np.full(bb72.N, 0.05)
+    if kw.get("hist_dtype") in ("float16", "int8"):
+        with pytest.raises(ValueError, match="hist_dtype"):
+            GDG(bb72.hx, probs, device="cpu", **kw)
+        return
+    rng = np.random.default_rng(3)
+    errs = (rng.random((16, bb72.N)) < 0.05).astype(np.uint8)
+    synds = ((errs @ bb72.hx.T) % 2).astype(np.uint8)
+    with _torch_threads(1):
+        res = GDG(bb72.hx, probs, device="cpu", **kw).decode_batch(synds)
+    assert res.error.shape == (16, bb72.N) and res.converged.sum() >= 12
+    conv = res.converged
+    np.testing.assert_array_equal((res.error[conv].astype(np.int64) @ bb72.hx.T) % 2,
+                                  synds[conv])
 
 
 def test_gdg_entry_points_need_a_card_by_default(bb72, monkeypatch):

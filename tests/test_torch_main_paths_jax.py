@@ -6,7 +6,9 @@ seed-2024 samples that the smoke script decodes (16384 and 8192 shots
 drawn; a draw's first rows do not depend on its size); and the
 whole-block decode of the 936x8784 DEM (``global_decoder``'s decoders,
 both forms) on the first 64 shots of its 16384, and the shortened form on
-all 16384 of seed 7, in 1024-shot ranges (~15 min each).
+all 16384 of seed 7, in 1024-shot ranges (~15 min each); and GDG at the
+JAX package's parity knobs (bf16 messages and ring, spans form) on the
+first 64 seed-7 shots of ``gdg-144-w3``.
 
 Marked ``slow`` (tens of minutes on the CPU): run it with
 ``JAX_PLATFORMS=cpu python -m pytest -m slow tests/test_torch_main_paths_jax.py``.
@@ -81,6 +83,40 @@ def test_gdg_path_matches_jax_per_shot():
              jp.CachingDecoderFactory(lambda s: JGDG(
                  s.mat, s.prior, max_iter=8, ensemble_bucket=32,
                  ensemble_mode="host_loop")))
+
+
+def test_gdg_bf16_path_matches_jax_per_shot():
+    """``gdg-144-w3`` at the JAX package's GDG parity knobs (bf16 messages
+    and ring, the spans form in 512-shot ensemble buckets,
+    tools/validate_parity.py:88-112): the first 64 of 8192 seed-7 shots, the
+    port's plain path against the JAX package. A differing shot must be an
+    exact tie: both corrections give the same detector syndrome at equal
+    f64 weight under the DEM's priors."""
+    _, _, dem, plan = tcl.build_bb_window_experiment(144, 0.005, 12, 3, 1)
+    det, obs, _ = sample_dem_numpy(dem, 8192, np.random.default_rng(7))
+    det, obs = det[:64], obs[:64]
+    kw = dict(max_iter=8, ensemble_bucket=512, ensemble_mode="spans",
+              msg_dtype="bfloat16", hist_dtype="bfloat16")
+    with _torch_threads(4):
+        out_t = tp.decode_sliding_window(plan, det, tcl.gdg_window_factory(**kw, device="cpu"),
+                                         device="cpu", verbose=False)
+    out_j = jp.decode_sliding_window(
+        plan, det, jp.CachingDecoderFactory(lambda s: JGDG(s.mat, s.prior, **kw)),
+        verbose=False)
+    ev_t = tp.evaluate_logical_errors(plan, det, obs, out_t["total_e_hat"], device="cpu")
+    ev_j = jp.evaluate_logical_errors(plan, det, obs, out_j["total_e_hat"])
+    e_t, e_j = out_t["total_e_hat"].numpy(), np.asarray(out_j["total_e_hat"])
+    differ = np.nonzero((e_t != e_j).any(axis=1))[0]
+    print(f"failed {ev_t['num_failed']} (JAX {ev_j['num_failed']}), flagged "
+          f"{ev_t['num_flagged']} (JAX {ev_j['num_flagged']}), shots differing "
+          f"{differ.tolist()}")
+    llr = np.log((1 - dem.priors) / dem.priors).astype(np.float32).astype(np.float64)
+    for b in differ:
+        np.testing.assert_array_equal((plan.chk @ e_t[b]) % 2, (plan.chk @ e_j[b]) % 2)
+        assert llr @ e_t[b] == llr @ e_j[b], b
+    if not len(differ):
+        assert (ev_t["num_failed"], ev_t["num_flagged"]) == (ev_j["num_failed"],
+                                                              ev_j["num_flagged"])
 
 
 @functools.cache

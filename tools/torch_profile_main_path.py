@@ -11,6 +11,7 @@ share.
     python3 tools/torch_profile_main_path.py --path osd_window
     python3 tools/torch_profile_main_path.py --path gdg [--gdg-bucket 256]
     python3 tools/torch_profile_main_path.py --path gdg_spans
+    python3 tools/torch_profile_main_path.py --path gdg_288_41
     python3 tools/torch_profile_main_path.py --path cc_bpgd
     python3 tools/torch_profile_main_path.py --path global
 
@@ -24,6 +25,13 @@ bursts, select and aggressive decimation, the guess's ``vn_set_values_t``,
 the transposed peels (sweeps, each ending in one host read), reduce.
 ``gdg_spans``: the same decoder with ``ensemble_mode="spans"`` (row buckets
 of 2048 at most, lane dormancy); its stages add the compaction's gathers.
+``gdg_288_41``: the gdg-288-41 parity row's decoder ([[288,12,18]], 18
+rounds, (W,F) = (4,1), p=0.005; pre-BP 16, 60 steps, tree 4 / side 20,
+branch steps 40: 47 branches; the JAX tool's knobs, bf16 messages and
+ring, spans form, 512-shot buckets) over its first 512 shots (one bucket
+a window, as in the row's 4096-shot decode); stages as ``gdg_spans``; no
+``torch.profiler`` run (it ran over 14 minutes on this decode's ~3100
+steps), so no device time or busy share.
 ``cc_bpgd``: code capacity on the [[882,24]] QC-GHP code at p=0.04, one
 ``BPGD.core`` call on 65536 syndromes (the first batch that
 ``data_qubit_noise_decoding`` draws from seed 2024 at that batch size):
@@ -62,6 +70,12 @@ SEED = 2024
 OSD_STAGE = "osd_decode (fused GJ + CS kernel)"
 BURST_STAGE = "ensemble bursts (masked bp_run, one bp_span_pinned launch each)"
 PROFILED_GDG_SHOTS = 1024
+# the gdg-288-41 row (tools/torch_validate_circuit_level.py): experiment
+# (N, p, rounds, W, F), shots (one ensemble bucket a window) and GDG knobs
+GDG_288_EXP, GDG_288_SHOTS = (288, 0.005, 18, 4, 1), 512
+GDG_288_KNOBS = dict(max_iter=16, max_step=60, max_tree_depth=4, max_side_depth=20,
+                     max_tree_branch_step=40, max_side_branch_step=40, msg_dtype="bfloat16",
+                     hist_dtype="bfloat16", ensemble_mode="spans")
 PROFILED_CC_SHOTS = 16384
 CC_SHOTS, CC_P = 65536, 0.04
 GLOBAL_BATCH = 8192
@@ -75,8 +89,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("bposd", "osd_window", "gdg", "gdg_spans", "cc_bpgd",
-                                       "global"), default="bposd")
+    ap.add_argument("--path", choices=("bposd", "osd_window", "gdg", "gdg_spans", "gdg_288_41",
+                                       "cc_bpgd", "global"), default="bposd")
     ap.add_argument("--gdg-bucket", type=int, default=512,
                     help="GDG ensemble_bucket (shots per ensemble bucket)")
     args = ap.parse_args()
@@ -103,7 +117,7 @@ def main() -> int:
     from slidingwindowdecoder_torch.ops import bp_cuda, decimation, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
-    gdg_paths = ("gdg", "gdg_spans")
+    gdg_paths = ("gdg", "gdg_spans", "gdg_288_41")
     if args.path == "cc_bpgd":
         code = parity_code(882)
         shots = CC_SHOTS
@@ -113,8 +127,11 @@ def main() -> int:
                               device="cuda")
         dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
     else:
-        p, shots = (0.005, 8192) if args.path in gdg_paths else (0.004, 16384)
-        _, _, dem, plan = build_bb_window_experiment(144, p, 12, 3, 1)
+        exp, shots = {"gdg_288_41": (GDG_288_EXP, GDG_288_SHOTS),
+                      "gdg": ((144, 0.005, 12, 3, 1), 8192),
+                      "gdg_spans": ((144, 0.005, 12, 3, 1), 8192)}.get(
+                          args.path, ((144, 0.004, 12, 3, 1), 16384))
+        _, _, dem, plan = build_bb_window_experiment(*exp)
         det, _, _ = sample_dem_numpy(dem, shots, np.random.default_rng(SEED))
         det = torch.as_tensor(det, device="cuda")
         if args.path == "global":
@@ -131,9 +148,10 @@ def main() -> int:
             (bpgd, "bp_run", lambda *a, **k: BURST_STAGE),
         ]
     elif args.path in gdg_paths:
-        mode = "spans" if args.path == "gdg_spans" else "fused"
-        factory = gdg_window_factory(max_iter=8, ensemble_bucket=args.gdg_bucket,
-                                     ensemble_mode=mode, device="cuda")
+        knobs = {"gdg": dict(max_iter=8, ensemble_mode="fused"),
+                 "gdg_spans": dict(max_iter=8, ensemble_mode="spans"),
+                 "gdg_288_41": GDG_288_KNOBS}[args.path]
+        factory = gdg_window_factory(ensemble_bucket=args.gdg_bucket, device="cuda", **knobs)
         ranged = BURST_STAGE
         patches = [
             (gdg, "_take_cols", lambda *a: "compaction and activation gathers"),
@@ -195,11 +213,14 @@ def main() -> int:
     for k in (cn, span, gj, osd):
         k.launches = 0
     cn.pinned_launches = span.pinned_launches = gj.cluster_launches = osd.cluster_launches = 0
+    span.bf16_ring_launches = span.pinned_bf16_ring_launches = 0
     sweeps[0] = 0
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
+                "bp_span_bf16_ring": span.bf16_ring_launches,
+                "bp_span_pinned_bf16_ring": span.pinned_bf16_ring_launches,
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
@@ -252,6 +273,8 @@ def main() -> int:
         res.update(peel_sweeps=n_sweeps, bursts=launches["bp_span_pinned"],
                    spans=len(dec.decim_spans))
     print(json.dumps(res), flush=True)
+    if args.path == "gdg_288_41":
+        return 0
 
     # the ranged stage as one profiler range: its kernels' device time and
     # its calls' CPU time
