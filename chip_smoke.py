@@ -15,14 +15,15 @@ Phases (any failure exits non-zero; nothing is caught):
    at the flagship window shape [35, 224, B], B in {1024, 16384}, f32 and
    bf16, at the global DEM graph's bf16 blocks [35, 960, B], B in {8192,
    1024}, and at a [[288]] W=4 interior window's f32 blocks [35, 608, B],
-   B in {16384, 512}, with forced ties, clipping and padding: bit-exact;
+   B in {16384, 512}, with forced ties, clipping and padding: bit-exact
+   (no path launches kernel A now: it is the CN stage of the per-op loop,
+   the plain version the fused kernel's cases are timed beside);
 3. the pinned kernel A (masked BP) against its plain version at [35, 224,
    B], B in {512, 16384}, on a [[288]] W=4 window (m_pad 608) and on the
    [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, and on
    the global graph at the shortened global decode's f32 blocks, B in
    {8192, 512}, with ~30 % of the edges and whole checks pinned:
-   bit-exact (kernel A now serves only the graphs outside the fused
-   kernel's gate);
+   bit-exact;
 4. kernel B's elimination entry point (``gauss_jordan_key``: the
    reliability-ordered GF(2) Gauss-Jordan) against its plain version on a
    216x1728 and the rank-deficient 216x1656 window PCM at B=256, with keys
@@ -116,23 +117,36 @@ Phases (any failure exits non-zero; nothing is caught):
    76/10000, and the shortened ``OSDWindow``, held to its own count (its
    verdicts against the reference's 90/10000 and the JAX package's
    98/16384 printed), and 8192 shots with BP+OSD-0 (its own count, no shot
-   flagged), with the launch counts read around it (``cn_update`` or
-   ``cn_update_pinned``, and the cluster route of ``osd_cs_fused`` or
-   ``gauss_jordan_key``); ``[sw_wide]``: the [[144]] W=4 and W=5 windows at
+   flagged), with the launch counts read around it (the fused BP kernel's
+   wide route, ``bp_span_wide`` or ``bp_span_wide_pinned``, and the cluster
+   route of ``osd_cs_fused`` or ``gauss_jordan_key``); ``[sw_wide]``: the
+   [[144]] W=4 and W=5 windows at
    p=0.004 and the [[288,12,18]] W=4 windows (r=6, p=0.005), BP+OSD-CS-10 at
    the default knobs, 16384 shots each, each held to its own count and
-   within 3 sigma of 131, 107 and 70 /10000; then the fused BP kernel on
-   the first call of each window shape, batch and span it took there,
-   against the plain loop on the CPU over 32 shots, and kernel B's fused
-   entry point on the first OSD bucket of each window shape, against the
-   plain versions on the card, bit-exact;
+   within 3 sigma of 131, 107 and 70 /10000 ([[288]] W=4 launching
+   ``bp_span`` on its edge windows and ``bp_span_wide`` on its interior
+   ones); then the fused BP kernel on the first call of each window shape,
+   batch and span it took there, on the route it took (and a [[288]] edge
+   window's 48-iteration span also on the wide route), against the plain loop on
+   the CPU over 32 shots, and kernel B's fused entry point on the first
+   OSD bucket of each window shape, against the plain versions on the
+   card, bit-exact; ``[bp_span_wide]``: the wide route on the first call
+   of each batch and span of the global decode's BP+OSD-CS form (bf16:
+   phase A at 8192 shots, the two phase-B spans at 1024) and of its
+   shortened form (pinned f32: the pre-BP chunk and the first post-BP
+   bucket), against the plain loop on the CPU over 32 shots, bit-exact,
+   each timed beside the per-op loop with kernel A on the card and its
+   bound;
    ``[gj_cluster]``: kernel B's cluster route (both entry points) against
    the plain elimination and sweep, on the card over the bucket and on the
    CPU over its first shots, bit-exact: tie keys at 216x1728 forced to 4
    blocks, and the first OSD buckets of a [[288]] W=4 interior window
    (576x4896, 2 blocks) and of the global decode (936x8784, 8 blocks), with
-   times and bounds; ``[global_slice]``: 32 global shots on the card and on
-   the CPU, no shot differing;
+   times and bounds beside the times before the redesign, the measured
+   split (steps, rounds and dead rounds a shot, waves of clusters, time a
+   round, the sweep's share) and, at 576x4896, the fused launch on
+   clusters of 4 and 8; ``[global_slice]``: 32 global shots on the card and
+   on the CPU, no shot differing;
 11b. ``[gdg_wide]``: gdg-last-osd ([[288,12,18]] W=4, r=6, p=0.005, the
    JAX rows' knobs: 47 branches, 60 steps, bf16) through
    ``sliding_window_gdg`` on 512 seed-2024 shots: exactly
@@ -240,8 +254,8 @@ CC_KERNELS = {"bpgd": ("bp_span_pinned",), "osd0": ("bp_span", "gauss_jordan_key
 # shots, the rates its count is compared with (failed, shots), whether it
 # must lie within 3 sigma of the first, the port's own count at seed 2024
 # (its first run on the card) and the kernels it may launch (BP on the
-# per-op loop with kernel A: the graph is outside ``bp_span``'s gate; OSD
-# on kernel B's cluster route). BP+OSD-CS is held to the reference's rate
+# fused kernel's wide route: the graph's tables and messages do not fit one
+# block together; OSD on kernel B's cluster route). BP+OSD-CS is held to the reference's rate
 # (docs/PARITY.md, IBM.ipynb cell 3). The shortened form is held to its
 # exact count alone: it lies outside 3 sigma of the reference's 90/10000
 # (IBM.ipynb cell 5) at seeds 2024 and 7 (78 and 84 of 16384, the port's
@@ -251,25 +265,26 @@ CC_KERNELS = {"bpgd": ("bp_span_pinned",), "osd0": ("bp_span", "gauss_jordan_key
 # no syndrome unmatched.
 GLOBAL_FORMS = {
     "bposd": ({}, 16384, {"reference": (76, 10000)}, True, 152,
-              ("cn_update", "osd_cs_fused_cluster")),
+              ("bp_span_wide", "osd_cs_fused_cluster")),
     "shortened": ({"shorten": True}, 16384,
                   {"reference": (90, 10000), "JAX package, seed 7": (98, 16384)}, False, 78,
-                  ("cn_update_pinned", "osd_cs_fused_cluster")),
+                  ("bp_span_wide_pinned", "osd_cs_fused_cluster")),
     "osd0": ({"osd_method": "osd_0"}, 8192, {}, False, 151,
-             ("cn_update", "gauss_jordan_key_cluster")),
+             ("bp_span_wide", "gauss_jordan_key_cluster")),
 }
 # the wide sliding windows, BP+OSD-CS-10 at the default knobs (f32), 16384
 # shots from seed 2024 each: (N, p, rounds, W, reference (failed, shots),
 # the port's own count (its first run on the card), kernels); [[144]] W=4/5
 # (288x2376/2448, 360x3096/3168) fit both fused kernels; [[288]] W=4
-# (576x4752/4896) runs its interior windows' BP on kernel A and all its OSD
+# (576x4752/4896) runs its interior windows' f32 BP on the fused kernel's
+# wide route (its edge windows' on the shared-table route) and all its OSD
 # on the cluster route
 SW_WIDE_SHOTS = 16384
 SW_WIDE = {
     "144-w4": (144, 0.004, 12, 4, (131, 10000), 196, ("bp_span", "osd_cs_fused")),
     "144-w5": (144, 0.004, 12, 5, (107, 10000), 167, ("bp_span", "osd_cs_fused")),
     "288-w4": (288, 0.005, 6, 4, (70, 10000), 91,
-               ("bp_span", "cn_update", "osd_cs_fused_cluster")),
+               ("bp_span", "bp_span_wide", "osd_cs_fused_cluster")),
 }
 # shots of each recorded [sw_wide] BP call that the plain loop also takes
 # on the machine's CPU
@@ -310,16 +325,29 @@ def card_line() -> str:
 
 
 def phase_build():
+    """Build the three kernel sources (one ``nvcc`` each, started together)
+    and, beside them, the probe copy of ``gauss_jordan.cu`` that
+    ``[gj_cluster]`` times (``tools/torch_probe_gj_cluster.py``); returns
+    the probe build's future."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
     from slidingwindowdecoder_torch.utils import cuda_build
 
+    sys.path.insert(0, str(cuda_build.CSRC.parents[1] / "tools"))
+    import torch_probe_gj_cluster as probe_tool
+
     t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    probe = pool.submit(probe_tool.build_probe, cuda_build.CSRC / gf2_cuda.SOURCE, "pr9")
+    pool.shutdown(wait=False)
     secs = cuda_build.build([bp_cuda.SOURCE, bp_cuda.SPAN_SOURCE, gf2_cuda.SOURCE])
     log(f"[build] {time.perf_counter() - t0:.1f}s wall; per source {secs}")
     for src, text in cuda_build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {src}: {line.strip()}")
+    return probe
 
 
 @functools.cache
@@ -478,6 +506,12 @@ def _gj_ops(m: int, n: int, W: int, rank: int, B: int, xor_rows: int) -> int:
 # kernel B (csrc/gauss_jordan.cu) per 256-shot bucket at 216x1728 before
 # the fused design (PERF.md, PR 3's chip runs)
 GJ_BEFORE_MS = 1.928
+# kernel B's cluster route before its redesign (the first cluster design,
+# PERF.md): the fused launch and the elimination alone on the first OSD
+# bucket of each path shape, timed by tools/torch_probe_gj_cluster.py on an
+# H100 80GB HBM3 at 700 W
+GJ_CLUSTER_BEFORE_MS = {"936x8784": {"fused": 78.114, "alone": 66.893},
+                        "576x4896": {"fused": 17.609, "alone": 14.759}}
 
 
 def _tie_keys(gen, B: int, n: int):
@@ -732,7 +766,7 @@ def _osd_cs_case(label, Hw, s, key, llr, *, m: int, n: int, rank: int, meta: dic
         f.launches = f.cluster_launches = 0
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "shape": f"{m}x{n} B={Bc}" + (f", C={C}" if C else "")}
+            "elimination_ms": gj_ms, "shape": f"{m}x{n} B={Bc}" + (f", C={C}" if C else "")}
 
 
 def phase_osd_cs(plan, det):
@@ -828,14 +862,15 @@ def _span_diff(label, out, ref):
 
 
 def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = None,
-               ring_times: bool = True):
-    """One ``bp_span`` input on the card against the plain loop on the CPU
+               ring_times: bool = True, route: str | None = None):
+    """One ``bp_span`` input on the card (on the table route ``span_route``
+    names, or on ``route``) against the plain loop on the CPU
     (``_span_diff``; over the first ``cpu_shots`` shots where given: BP is
-    per shot), then its time, the per-op CUDA loop's time and the bound
-    (the ring's writes counted at its element size); with ``ring_times``
-    also its time with the history ring written at every iteration and at
-    none; with a bf16 ring also its time and bound with the same input's
-    ring in f32."""
+    per shot), then its time, the per-op CUDA loop's time (its CN stage
+    kernel A) and the bound (the ring's writes counted at its element
+    size); with ``ring_times`` also its time with the history ring written
+    at every iteration and at none; with a bf16 ring also its time and
+    bound with the same input's ring in f32."""
     import torch
 
     from slidingwindowdecoder_torch.ops import bp_cuda
@@ -843,8 +878,10 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
 
     garr, mv = args[0], args[1]
     masked = kw["masked"]
-    counter = "pinned_launches" if masked else "launches"
     B, n, dc, m_pad, dv = mv.shape[2], garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
+    route = route or bp_cuda.span_route(garr, B, mv.dtype)
+    counter = f"{'pinned_' if masked else ''}{'wide_' if route == bp_cuda.WIDE else ''}launches"
+    loop_kw, kw = kw, {**kw, "route": route}
 
     def inputs(dev, k=None):  # the history ring is written in place: a copy each
         a = [t.to(dev) if torch.is_tensor(t) else t for t in args[1:]]
@@ -864,7 +901,7 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     if getattr(bp_cuda.bp_span, counter) != before + 1:
         raise SystemExit(f"[bp_span] {label}: the kernel was not launched once")
     t0 = time.perf_counter()
-    ref = bp_cuda.bp_span(*inputs("cpu", cpu_shots), **kw)  # CPU tensors: the plain loop
+    ref = bp_cuda.bp_span(*inputs("cpu", cpu_shots), **loop_kw)  # CPU: the plain loop
     cpu_s = time.perf_counter() - t0
     k = B if cpu_shots is None else cpu_shots
     head = [out[0][:, :, :k], out[1][:, :, :k], *(x[:k] for x in out[2:5]),
@@ -872,7 +909,7 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     err = _span_diff(label if k == B else f"{label}, first {k} shots", head, ref)
 
     ms = cuda_time_ms(lambda: bp_cuda.bp_span(*card_args, **kw), reps)
-    plain_ms = cuda_time_ms(lambda: bp_loop(*card_args, **kw), 2)  # per-op loop
+    plain_ms = cuda_time_ms(lambda: bp_loop(*card_args, **loop_kw), 2)  # per-op loop
     ran = out[4] - args[9].cpu()  # iterations each shot ran in this call
     shot_iters, longest = int(ran.sum()), int(ran.max())
     edges = int(garr["cn_valid_sm"].sum())
@@ -895,12 +932,12 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     # message read and write; degrees, sign seeds and syndrome per check
     smem = shot_iters * (edges * (6 * t + 2) + n * dv * (t + 2) + n * (4 + t) + 6 * m_pad)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    S = bp_cuda.shots_per_block(garr, B, mv.dtype, sms)
-    log(f"[bp_span] {label}: {live} of {B} rows not done at entry, {shot_iters} "
+    S = bp_cuda.shots_per_block(garr, B, mv.dtype, sms, route)
+    log(f"[bp_span] {label} ({route} route): {live} of {B} rows not done at entry, {shot_iters} "
         f"shot-iterations, longest {longest}; kernel "
         f"{ms:.4f} ms ({ms / max(longest, 1):.5f} ms per iteration, {S} shots x "
         f"{bp_cuda.MAX_THREADS // S * S} threads per block, {-(-B // S)} blocks, "
-        f"{bp_cuda.span_smem_bytes(garr, mv.dtype, S)} B shared), per-op loop {plain_ms:.4f} "
+        f"{bp_cuda.span_smem_bytes(garr, mv.dtype, S, route)} B shared), per-op loop {plain_ms:.4f} "
         f"ms, bound {max(ops_ms, bytes_ms):.5f} ms (ops {ops} -> {ops_ms:.5f} ms, bytes "
         f"{nbytes} -> {bytes_ms:.5f} ms), shared memory {smem / ms / 1e9:.1f} TB/s; CPU "
         f"plain {cpu_s:.1f}s")
@@ -908,7 +945,7 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
         hist_ms = cuda_time_ms(lambda: bp_cuda.bp_span(
             *card_args, **{**kw, "hist_from": hist_from}), reps)
         log(f"[bp_span] {label}: history from iteration {hist_from} -> {hist_ms:.4f} ms")
-    res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+    res = {"table_route": route, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err,
            "shape": f"[{dc},{m_pad},{B}] {str(mv.dtype)[6:]}, {longest} iterations, "
                     f"{str(args[6].dtype)[6:]} ring"}
@@ -1087,15 +1124,18 @@ def reset_counts():
     for k in (bp_cuda.cn_update, bp_cuda.bp_span):
         k.launches = k.pinned_launches = k.plain_calls = 0
     bp_cuda.bp_span.bf16_ring_launches = bp_cuda.bp_span.pinned_bf16_ring_launches = 0
+    bp_cuda.bp_span.wide_launches = bp_cuda.bp_span.pinned_wide_launches = 0
     for k in (gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused):
         k.launches = k.cluster_launches = k.plain_calls = 0
 
 
 def read_counts():
     """(launches by kernel, plain calls by wrapper) since ``reset_counts``;
+    ``bp_span`` / ``bp_span_pinned`` count the fused kernel's shared-table
+    route, ``bp_span_wide`` / ``bp_span_wide_pinned`` its wide route;
     ``bp_span_bf16_ring`` and ``bp_span_pinned_bf16_ring`` count the
-    unmasked and the masked ``bp_span`` launches that took a bf16 history
-    ring."""
+    unmasked and the masked launches of either route that took a bf16
+    history ring."""
     from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
 
     cn, span = bp_cuda.cn_update, bp_cuda.bp_span
@@ -1103,6 +1143,8 @@ def read_counts():
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "bp_span_bf16_ring": span.bf16_ring_launches,
                 "bp_span_pinned_bf16_ring": span.pinned_bf16_ring_launches,
+                "bp_span_wide": span.wide_launches,
+                "bp_span_wide_pinned": span.pinned_wide_launches,
                 "cn_update": cn.launches,
                 "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
@@ -1279,7 +1321,7 @@ def phase_gdg_spans(plan, det, obs, num_repeat: int, host_res):
     return res
 
 
-def phase_global(captured: dict):
+def phase_global(captured: dict, bp_calls: dict):
     """``[global]``: ``global_decoder`` on the whole [[144]] DEM from seed
     2024 in each of ``GLOBAL_FORMS``, each with the launch counts set to 0
     just before and read just after: its failures equal to its own count,
@@ -1287,10 +1329,12 @@ def phase_global(captured: dict):
     flagged where no rate is given, only its kernels launched and no plain
     call. The 3-sigma verdict against each rate is printed. The first OSD
     bucket of the BP+OSD-CS form goes into ``captured`` (under its shape,
-    936x8784)."""
+    936x8784), and the first ``bp_run`` call of each batch and span of the
+    BP+OSD-CS and shortened forms into ``bp_calls`` (under the form's name,
+    then ``fused_bp_call``'s key) for ``[bp_span_wide]``."""
     import torch
 
-    from slidingwindowdecoder_torch.decoders import bposd
+    from slidingwindowdecoder_torch.decoders import bposd, osd_window
     from slidingwindowdecoder_torch.harness.circuit_level import global_decoder
     from slidingwindowdecoder_torch.utils.metrics import rates_compatible
 
@@ -1298,7 +1342,10 @@ def phase_global(captured: dict):
     for name, (kw, shots, rates, held, exact, kernels) in GLOBAL_FORMS.items():
         reset_counts()
         t0 = time.perf_counter()
-        with first_calls(bposd, "osd_decode", osd_shape, captured):
+        calls = bp_calls.setdefault(name, {}) if name != "osd0" else {}
+        with (first_calls(bposd, "osd_decode", osd_shape, captured),
+              first_calls(bposd, "bp_run", fused_bp_call, calls),
+              first_calls(osd_window, "bp_run", fused_bp_call, calls)):
             r = global_decoder(144, 0.004, 12, shots, seed=SEED, verbose=False, device="cuda",
                                **kw)
         torch.cuda.synchronize()
@@ -1327,12 +1374,13 @@ def phase_global(captured: dict):
 
 def fused_bp_call(garr, mv, prior, synd, *_, num_iter, msg_dtype="float32", **__):
     """``first_calls`` key of a batch-major ``bp_run`` call that the fused
-    BP kernel takes: (m, n, B, num_iter); None for one it does not take."""
+    BP kernel takes on either route: (m, n, B, num_iter); None for one it
+    does not take."""
     from slidingwindowdecoder_torch.ops.bp import msg_torch_dtype
-    from slidingwindowdecoder_torch.ops.bp_cuda import bp_span_supported
+    from slidingwindowdecoder_torch.ops.bp_cuda import span_route
 
     B = synd.shape[0]
-    if prior.ndim == 1 and bp_span_supported(garr, B, msg_torch_dtype(msg_dtype)):
+    if prior.ndim == 1 and span_route(garr, B, msg_torch_dtype(msg_dtype)) is not None:
         return garr["m"], garr["n"], B, num_iter
     return None
 
@@ -1358,10 +1406,11 @@ def phase_sw_wide(captured: dict):
         build_bb_window_experiment,
         window_decoder_factory,
     )
-    from slidingwindowdecoder_torch.ops import gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
     from slidingwindowdecoder_torch.ops.bp import span_inputs
 
-    res, checks = {}, {"bp_span": {}, "osd_cs_fused": {}, "osd_cs_fused_cluster": {}}
+    res, checks = {}, {"bp_span": {}, "bp_span_wide": {}, "osd_cs_fused": {},
+                       "osd_cs_fused_cluster": {}}
     for name, (N, p, rounds, W, ref, exact, kernels) in SW_WIDE.items():
         _, _, dem, plan = build_bb_window_experiment(N, p, rounds, W, 1)
         det, obs, _ = sample_dem_numpy(dem, SW_WIDE_SHOTS, np.random.default_rng(SEED))
@@ -1378,8 +1427,14 @@ def phase_sw_wide(captured: dict):
             args, kw = span_inputs(*a, **k)
             label = f"{name} {m}x{n} {k.get('msg_dtype', 'float32')} B={B}, {it} iterations"
             cpu_garr = {x: v.cpu() if torch.is_tensor(v) else v for x, v in a[0].items()}
-            checks["bp_span"][label] = _span_case(label, args, kw, cpu_garr, 5,
-                                                  cpu_shots=SW_WIDE_CPU_SHOTS, ring_times=False)
+            r = _span_case(label, args, kw, cpu_garr, 5, cpu_shots=SW_WIDE_CPU_SHOTS,
+                           ring_times=False)
+            checks["bp_span_wide" if r["table_route"] == bp_cuda.WIDE else "bp_span"][label] = r
+            if (m, n, it) == (576, 4752, 48):  # an edge window's span on the wide route too
+                label += ", wide route forced"
+                checks["bp_span_wide"][label] = _span_case(
+                    label, args, kw, cpu_garr, 5, cpu_shots=SW_WIDE_CPU_SHOTS,
+                    ring_times=False, route=bp_cuda.WIDE)
         for (m, n), (a, k) in osd_calls.items():
             if (m, n) == (576, 4896):
                 captured[m, n] = (a, k)
@@ -1391,6 +1446,38 @@ def phase_sw_wide(captured: dict):
         del bp_calls, osd_calls
         torch.cuda.empty_cache()
     return res, checks
+
+
+def phase_bp_span_wide(bp_calls: dict):
+    """``[bp_span_wide]``: the fused kernel's wide route on the first
+    ``bp_run`` call of each batch and span that the global decode's
+    BP+OSD-CS form (bf16: phase A on the 8192-shot chunk, the two phase-B
+    spans on 1024-shot buckets) and shortened form (f32, pinned: the pre-BP
+    chunk and the first post-BP bucket) gave it in ``[global]``, through
+    ``_span_case``: against the plain loop on the CPU over the first
+    ``SW_WIDE_CPU_SHOTS`` shots, bit-exact, with its time beside the per-op
+    loop's on the card (kernel A's) and the bound. Returns the cases by
+    label, each ``_span_case``'s result."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import span_inputs
+
+    res = {}
+    for form, calls in bp_calls.items():
+        for (m, n, B, it), (a, k) in calls.items():
+            args, kw = span_inputs(*a, **k)
+            label = (f"global {form} {m}x{n} {k.get('msg_dtype', 'float32')}"
+                     f"{' pinned' if kw['masked'] else ''} B={B}, {it} iterations")
+            cpu_garr = {x: v.cpu() if torch.is_tensor(v) else v for x, v in a[0].items()}
+            r = _span_case(label, args, kw, cpu_garr, 5, cpu_shots=SW_WIDE_CPU_SHOTS,
+                           ring_times=False)
+            if r["table_route"] != bp_cuda.WIDE:
+                raise SystemExit(f"[bp_span_wide] {label} took the {r['table_route']} route")
+            res[label] = r
+        calls.clear()
+    torch.cuda.empty_cache()
+    return res
 
 
 def _cpu_reference(args, kw, k: int):
@@ -1414,7 +1501,61 @@ def _cpu_reference(args, kw, k: int):
             "seconds": time.perf_counter() - t0}
 
 
-def phase_gj_cluster(plan, cap288, cap_global):
+def _round_split(label, args, kw, C: int, fused_ms: float, elim_ms: float, probe):
+    """Where one shot's time goes on the cluster route: both entry points
+    once more on this bucket in the probe build ``probe``
+    (``tools/torch_probe_gj_cluster.py``: clock64 timers, thread 0 of every
+    block; its fused outputs must equal the shipped build's), giving the
+    rounds, dead rounds and steps a shot, the cycles a round of each of its
+    phases (test and post, the wait for every block's posts, the decision,
+    the pivot row's pull, the XOR and the round's end), and the sort and
+    load, elimination and sweep shares of the fused launch; with the waves
+    of clusters the bucket runs in (``cluster_max_active``), the
+    elimination's time a round."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops import gf2_cuda
+
+    import torch_probe_gj_cluster as probe_tool  # on the path since phase_build
+
+    Hw, synd, key, llr = args[:4]
+    m, n, rank, meta = kw["m"], kw["n"], kw["rank"], kw["meta"]
+    B, W = synd.shape[0], Hw.shape[1]
+    pi, pj = (torch.as_tensor(meta[x], dtype=torch.int32, device="cuda")
+              for x in ("pair_i", "pair_j"))
+
+    def fused():
+        return gf2_cuda.osd_cs_fused(Hw, synd, key, llr, pi, pj, m=m, n=n, rank=rank,
+                                     order_w=int(meta["order_w"]))
+
+    ref = fused()
+    got, fs = probe_tool.probe_split(probe, fused, B * C)
+    _, es = probe_tool.probe_split(
+        probe, lambda: gf2_cuda.gauss_jordan_key(Hw, synd, key, m=m, n=n, rank=rank), B * C)
+    gf2_cuda.osd_cs_fused.cluster_launches = gf2_cuda.gauss_jordan_key.cluster_launches = 0
+    if not (torch.equal(got["solution"], ref["solution"])
+            and torch.equal(got["min_pm"].view(torch.int32), ref["min_pm"].view(torch.int32))):
+        raise SystemExit(f"[gj_cluster] {label}: the probe build disagrees with the kernel")
+    cnt, share = fs["counts_per_block"], fs["share_of_block_cycles"]
+    active = gf2_cuda.cluster_max_active(m, n, W, rank, C, True)
+    waves = -(-B // active)
+    split = {"steps_per_shot": cnt["steps"], "rounds_per_shot": cnt["rounds"],
+             "dead_rounds_per_shot": cnt["dead_rounds"],
+             "candidates_per_round": gf2_cuda.ROUND_CANDIDATES, "clusters_at_once": active,
+             "waves": waves, "us_per_round": elim_ms * 1e3 / (waves * cnt["rounds"]),
+             "cycles_per_round": es["cycles_per_round"],
+             "fused_shares": {k: share[k] for k in ("load", "elimination", "sweep", "finish")}}
+    log(f"[gj_cluster] {label} split (probe build): {cnt['steps']:.1f} steps and "
+        f"{cnt['rounds']:.1f} rounds a shot ({cnt['dead_rounds']:.1f} dead, "
+        f"{gf2_cuda.ROUND_CANDIDATES} candidates a round); {active} clusters at once, {waves} "
+        f"waves; elimination alone {elim_ms:.4f} ms, {split['us_per_round']:.3f} us a round; "
+        f"cycles a round {({k: round(v) for k, v in es['cycles_per_round'].items()})}; fused "
+        f"{fused_ms:.4f} ms: sort and load {100 * share['load']:.1f} %, elimination "
+        f"{100 * share['elimination']:.1f} %, sweep {100 * share['sweep']:.1f} %")
+    return split
+
+
+def phase_gj_cluster(plan, cap288, cap_global, probe):
     """``[gj_cluster]``: kernel B's cluster route, both entry points, on the
     card against the plain elimination and sweep on the card over the whole
     bucket and on the machine's CPU over its first ``GJ_CLUSTER_CPU_SHOTS``
@@ -1422,8 +1563,10 @@ def phase_gj_cluster(plan, cap288, cap_global):
     with the route forced to 4 blocks (random syndromes, 256 shots); the
     first OSD bucket of a [[288]] W=4 interior window (576x4896, C=2) and of
     the global decode (936x8784, C=8), both captured from the paths' runs
-    (real syndromes and BP reliabilities). The kernels line keeps the
-    global case."""
+    (real syndromes and BP reliabilities), each with the time before the
+    redesign (``GJ_CLUSTER_BEFORE_MS``) and its split (``_round_split``),
+    and the [[288]] bucket's fused launch also timed at C=4 and C=8. The
+    kernels line keeps the global case."""
     import torch
 
     from slidingwindowdecoder_torch.ops import gf2_cuda
@@ -1456,16 +1599,46 @@ def phase_gj_cluster(plan, cap288, cap_global):
         log(f"[gj_cluster] {label}: {args[1].shape[0]} shots, C="
             f"{C or gf2_cuda.gj_cluster_supported(kw['m'], kw['n'], W, True)}; CPU plain over "
             f"{cpu_ref['shots']} shots {cpu_ref['seconds']:.1f}s")
+        got = {}
         for name, case, nargs in (("gauss_jordan_key_cluster", _gj_case, 3),
                                   ("osd_cs_fused_cluster", _osd_cs_case, 4)):
             r = case(label, *args[:nargs], **kw, cluster_blocks=C, cpu_ref=cpu_ref, reps=reps,
                      plain_reps=1)
+            got[name] = r
             out = res[name]
             out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
             if "global" in label:
                 out.update(r, max_abs_err=out["max_abs_err"])
             elif "288" in label:
                 out["sw_288_w4"] = r
+        if C is None:  # a path's bucket: the times before, and the split
+            shape = f"{kw['m']}x{kw['n']}"
+            fused, alone = got["osd_cs_fused_cluster"], got["gauss_jordan_key_cluster"]
+            Cr = gf2_cuda.gj_cluster_supported(kw["m"], kw["n"], W, True)
+            split = _round_split(label, args, kw, Cr, fused["ms"], alone["ms"], probe)
+            before = GJ_CLUSTER_BEFORE_MS[shape]
+            for name, r in got.items():
+                r["before_ms"] = before["fused" if "osd" in name else "alone"]
+                r["split"] = split
+            log(f"[gj_cluster] {shape}: fused {fused['ms']:.4f} ms (before {before['fused']}, "
+                f"bound {fused['bound_ms']:.5f}: {fused['ms'] / fused['bound_ms']:.1f}x), "
+                f"elimination alone {alone['ms']:.4f} ms (before {before['alone']}, bound "
+                f"{alone['bound_ms']:.5f}: {alone['ms'] / alone['bound_ms']:.1f}x)")
+            if shape == "576x4896":  # C and the block: the same bucket on 4 and 8 blocks
+                Hw, s, key, llr = args[:4]
+                meta = kw["meta"]
+                pi, pj = (torch.as_tensor(meta[x], dtype=torch.int32, device="cuda")
+                          for x in ("pair_i", "pair_j"))
+                for Cx in (4, 8):
+                    ms = cuda_time_ms(lambda: gf2_cuda.osd_cs_fused(
+                        Hw, s, key, llr, pi, pj, m=kw["m"], n=kw["n"], rank=kw["rank"],
+                        order_w=int(meta["order_w"]), cluster_blocks=Cx), reps)
+                    fused[f"ms_C{Cx}"] = ms
+                    log(f"[gj_cluster] {shape} fused on clusters of {Cx}: {ms:.4f} ms ("
+                        f"{gf2_cuda.cluster_smem_bytes(kw['m'], kw['n'], W, Cx, True)} B a "
+                        f"block, {gf2_cuda.cluster_max_active(kw['m'], kw['n'], W, kw['rank'], Cx, True)}"
+                        f" clusters at once)")
+                gf2_cuda.osd_cs_fused.cluster_launches = 0
     return res
 
 
@@ -1687,7 +1860,12 @@ def phase_cc_slice(synd):
 # about 250, 210, 162 and 133; the rest under 100 each), the window decodes
 # cut into CPU_PIECES tasks each.
 CPU_WORKERS, CPU_WORKER_THREADS, CPU_PIECES = 8, 1, 4
-CPU_LARGEST_FIRST = ("osd_window_slice", "gdg_wide_slice", "gdg_slice", "gdg_bf16_slice")
+# the order the halves' tasks start in, longest first: the halves of one
+# task each (the [[882]] GDG slice, the serial queue and the global slice:
+# 135, 79 and 68 s of CPU on the card's host), then the four-piece halves
+# by size, then the rest
+CPU_LARGEST_FIRST = ("cc_slice gdg", "gdg_serial", "global_slice", "osd_window_slice",
+                     "gdg_wide_slice", "gdg_slice", "gdg_bf16_slice")
 
 
 def _cpu_worker_init():
@@ -2022,7 +2200,7 @@ def main() -> int:
     t_all = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    phase_build()
+    probe_build = phase_build()
     num_repeat = 12
     exp = (144, 0.004, num_repeat, 3, 1)
     _, _, dem, plan = build_bb_window_experiment(*exp)
@@ -2096,14 +2274,16 @@ def main() -> int:
     pending += phase_cc_slice(cc_synd)
     log(json.dumps({"code_capacity": cc_res, "code_capacity_device": cc_dev}))
 
-    captured = {}
-    global_res = phase_global(captured)
+    captured, global_bp = {}, {}
+    global_res = phase_global(captured, global_bp)
     log(json.dumps({"global": global_res}))
     wide_res, wide_checks = phase_sw_wide(captured)
     log(json.dumps({"sw_wide": wide_res}))
+    span_wide = phase_bp_span_wide(global_bp)
     if set(captured) != {(936, 8784), (576, 4896)}:
         raise SystemExit("[gj_cluster] a path ran no OSD bucket at 936x8784 or 576x4896")
-    gj_cluster = phase_gj_cluster(plan, captured[576, 4896], captured[936, 8784])
+    gj_cluster = phase_gj_cluster(plan, captured[576, 4896], captured[936, 8784],
+                                  probe_build.result())
     pending.append(phase_global_slice())
     _, _, wdem, wplan = build_bb_window_experiment(*GDG_WIDE_EXP)
     wdet, wobs, _ = sample_dem_numpy(wdem, GDG_WIDE_SLICE_SHOTS, np.random.default_rng(SEED))
@@ -2130,6 +2310,17 @@ def main() -> int:
         res["sw_wide"] = wide_checks[name]
         res["max_abs_err"] = max([res["max_abs_err"],
                                   *(r["max_abs_err"] for r in wide_checks[name].values())])
+    # the wide route's kernels-line entries: the global decode's calls by
+    # mode, each with the [[288]] W=4 interior windows' (unmasked f32)
+    wide = {"bp_span_wide": {k: v for k, v in span_wide.items() if "pinned" not in k},
+            "bp_span_wide_pinned": {k: v for k, v in span_wide.items() if "pinned" in k}}
+    wide["bp_span_wide"].update(wide_checks["bp_span_wide"])
+    for name, cases in wide.items():
+        lead = max(cases.values(), key=lambda r: r["bound_ms"])  # the largest case leads
+        wide[name] = {**{k: lead[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "shape")},
+                      "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+                      "cases": cases}
     span["bp_span"]["gdg_wide"] = wide_gdg_checks
     span["bp_span_pinned"]["gdg_burst"] = gdg_burst
     span["bp_span_pinned"]["bpgd_burst"] = bpgd_burst
@@ -2155,6 +2346,17 @@ def main() -> int:
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package) with "
                      "the XLA ops of ops/bp.py:172 (masked bp_run's iteration)",
          "launches": sum(by_path["bp_span_pinned"].values()), **span["bp_span_pinned"]},
+        {"name": "bp_span_wide", "route": "cuda", "source": span_src,
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package) with the XLA ops "
+                     "of ops/bp.py:172 (bp_run's iteration), on graphs whose tables and "
+                     "messages do not fit one block together",
+         "launches": sum(by_path["bp_span_wide"].values()), **wide["bp_span_wide"]},
+        {"name": "bp_span_wide_pinned", "route": "cuda", "source": span_src,
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package) with "
+                     "the XLA ops of ops/bp.py:172 (masked bp_run's iteration), on graphs "
+                     "whose tables and messages do not fit one block together",
+         "launches": sum(by_path["bp_span_wide_pinned"].values()),
+         **wide["bp_span_wide_pinned"]},
         {"name": "cn_update", "route": "cuda", "source": cn_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package)",
          "launches": sum(by_path["cn_update"].values()), "bound_by": "bytes", **cn},

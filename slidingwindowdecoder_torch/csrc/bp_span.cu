@@ -56,6 +56,20 @@
 // syndrome bits] plus the int16 index tables and the f32 prior once. At
 // the flagship windows (dc 35, m_pad 224, n <= 1728, dv 6) S = 4 fits in
 // f32 and S = 8 in bf16 within the 232,448 bytes a block may use.
+//
+// Two table routes of one template (GT). The shared-table route (GT =
+// false, entry points `bp_span_*`) copies the int16 index tables and the
+// prior into each block, as above. The global-table route (GT = true,
+// entry points `bp_span_wide_*`) serves graphs whose tables and message
+// block do not fit beside each other: the [[144]] global DEM (dc*m_pad + 1
+// = 33,601 is past int16, and its f32 messages alone take 134 KB) and the
+// interior [[288]] W=4 windows in f32 (576x4896: 232,960 B with the
+// tables). It reads the uint16 tables and the f32 prior through the
+// read-only data cache (__ldg): every block shares them and they stay in
+// L2, so shared memory holds per-shot state only: 180,272 B for one f32
+// global shot, 95,504 B a bf16 one (two a block), 110,848 B an f32 [[288]]
+// interior shot (two a block). Arithmetic, orders and outputs are those of
+// the shared-table route.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,20 +100,22 @@ __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t
 
 // Byte offsets of the shared-memory arrays of one block. `ops/bp_cuda.py:
 // span_smem_bytes` computes the same total.
+// The global-table route (gt) places no tables and no prior there.
 struct Layout {
   size_t msg, post, prior, cn_vn, vfc, deg, vst, par, syn, shot, total;
 };
 
 __host__ __device__ inline Layout make_layout(size_t tsize, int n, int m_pad, int dc,
-                                              int dv, int S) {
+                                              int dv, int S, bool gt = false) {
   Layout L;
   size_t o = 0;
+  const size_t tab = gt ? 0 : 1;
   L.msg = o;    o = align16(o + ((size_t)dc * m_pad + 1) * S * tsize);
   L.post = o;   o = align16(o + (size_t)n * S * tsize);
-  L.prior = o;  o = align16(o + (size_t)n * 4);
-  L.cn_vn = o;  o = align16(o + (size_t)dc * m_pad * 2);
-  L.vfc = o;    o = align16(o + (size_t)n * dv * 2);
-  L.deg = o;    o = align16(o + (size_t)m_pad * 2);
+  L.prior = o;  o = align16(o + tab * n * 4);
+  L.cn_vn = o;  o = align16(o + tab * dc * m_pad * 2);
+  L.vfc = o;    o = align16(o + tab * n * dv * 2);
+  L.deg = o;    o = align16(o + tab * m_pad * 2);
   L.vst = o;    o = align16(o + (size_t)n * S);
   L.par = o;    o = align16(o + (size_t)m_pad * S);
   L.syn = o;    o = align16(o + (size_t)m_pad * S);
@@ -123,28 +139,61 @@ struct Args {
   uint8_t* done_out;
   const int32_t* iters_in;      // [B]
   int32_t* iters_out;
-  const int16_t* cn_vn;         // [dc*m_pad] VN per slot (clipped to n-1)
-  const int16_t* vfc;           // [n*dv] slot per VN edge, dc*m_pad = fill
-  const int16_t* deg;           // [m_pad] valid slots per check row
+  const void* cn_vn;            // [dc*m_pad] VN per slot (clipped to n-1)
+  const void* vfc;              // [n*dv] slot per VN edge, dc*m_pad = fill
+  const void* deg;              // [m_pad] valid slots per check row
+                                // (int16, or uint16 on the global-table route)
   int8_t* synd_hat;             // [m_pad, B] decoded syndrome, or null
   int n, m_pad, dc, dv, S, num_iter, hist_from;
   long long B;
   float alpha, clip, big, thresh, pin;
 };
 
-template <typename T, bool MASKED, typename HT>
+// The graph's tables and prior: in shared memory (copied there at entry),
+// or, with GT, read through the read-only data cache from device memory.
+template <bool GT> struct Tables;
+
+template <> struct Tables<false> {
+  float* prior;
+  int16_t *cn_vn, *vfc, *deg;
+  __device__ __forceinline__ int cnvn(int e) const { return cn_vn[e]; }
+  __device__ __forceinline__ int vf(int k) const { return vfc[k]; }
+  __device__ __forceinline__ int dg(int r) const { return deg[r]; }
+  __device__ __forceinline__ float pr(int v) const { return prior[v]; }
+};
+
+template <> struct Tables<true> {
+  const float* __restrict__ prior;
+  const uint16_t* __restrict__ cn_vn;
+  const uint16_t* __restrict__ vfc;
+  const uint16_t* __restrict__ deg;
+  __device__ __forceinline__ int cnvn(int e) const { return __ldg(cn_vn + e); }
+  __device__ __forceinline__ int vf(int k) const { return __ldg(vfc + k); }
+  __device__ __forceinline__ int dg(int r) const { return __ldg(deg + r); }
+  __device__ __forceinline__ float pr(int v) const { return __ldg(prior + v); }
+};
+
+template <typename T, bool MASKED, typename HT, bool GT>
 __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = a.S, n = a.n, m_pad = a.m_pad, dc = a.dc, dv = a.dv;
   const int edges = dc * m_pad;
   const long long B = a.B;
-  const Layout L = make_layout(sizeof(T), n, m_pad, dc, dv, S);
+  const Layout L = make_layout(sizeof(T), n, m_pad, dc, dv, S, GT);
   T* msg = (T*)(smem + L.msg);     // [(edges + 1) * S], shot fastest
   T* post = (T*)(smem + L.post);   // [n * S]
-  float* prior = (float*)(smem + L.prior);
-  int16_t* cn_vn = (int16_t*)(smem + L.cn_vn);
-  int16_t* vfc = (int16_t*)(smem + L.vfc);
-  int16_t* deg = (int16_t*)(smem + L.deg);
+  Tables<GT> tab;
+  if constexpr (GT) {
+    tab.prior = a.prior;
+    tab.cn_vn = (const uint16_t*)a.cn_vn;
+    tab.vfc = (const uint16_t*)a.vfc;
+    tab.deg = (const uint16_t*)a.deg;
+  } else {
+    tab.prior = (float*)(smem + L.prior);
+    tab.cn_vn = (int16_t*)(smem + L.cn_vn);
+    tab.vfc = (int16_t*)(smem + L.vfc);
+    tab.deg = (int16_t*)(smem + L.deg);
+  }
   int8_t* vst = (int8_t*)(smem + L.vst);  // [n * S]
   int8_t* par = (int8_t*)(smem + L.par);  // [m_pad * S]
   int8_t* syn = (int8_t*)(smem + L.syn);  // [m_pad * S] target, decoded parity << 1
@@ -166,10 +215,14 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   const T pin = from_f<T>(a.pin), neg_pin = from_f<T>(-a.pin);
 
   // 1. tables and per-shot state
-  for (int k = tid; k < edges; k += nthr) cn_vn[k] = a.cn_vn[k];
-  for (int k = tid; k < n * dv; k += nthr) vfc[k] = a.vfc[k];
-  for (int k = tid; k < m_pad; k += nthr) deg[k] = a.deg[k];
-  for (int k = tid; k < n; k += nthr) prior[k] = a.prior[k];
+  if constexpr (!GT) {
+    const int16_t *cv = (const int16_t*)a.cn_vn, *vf = (const int16_t*)a.vfc,
+                  *dg = (const int16_t*)a.deg;
+    for (int k = tid; k < edges; k += nthr) tab.cn_vn[k] = cv[k];
+    for (int k = tid; k < n * dv; k += nthr) tab.vfc[k] = vf[k];
+    for (int k = tid; k < m_pad; k += nthr) tab.deg[k] = dg[k];
+    for (int k = tid; k < n; k += nthr) tab.prior[k] = a.prior[k];
+  }
   for (int r = r0; r < m_pad; r += step) {
     par[r * S + shot] = live ? (int8_t)a.parity[r * B + b] : (int8_t)0;
     syn[r * S + shot] = live ? (int8_t)a.synd[r * B + b] : (int8_t)0;
@@ -195,7 +248,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
     for (int e = r0; e < edges; e += step) {
       const int s = e / m_pad, r = e - s * m_pad;
       T x = mv_in[s * a.st_s + r * a.st_i + b * a.st_b];
-      if (MASKED && (s >= deg[r] || vst[cn_vn[e] * S + shot] != -1)) x = pin;
+      if (MASKED && (s >= tab.dg(r) || vst[tab.cnvn(e) * S + shot] != -1)) x = pin;
       msg[e * S + shot] = x;
     }
   }
@@ -211,7 +264,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
     // CN stage, in place: mv -> mc on the valid slots
     if (active) {
       for (int r = r0; r < m_pad; r += step) {
-        const int d = deg[r];
+        const int d = tab.dg(r);
         T* col = msg + r * S + shot;
         float min1 = big, min2 = big;
         int nneg = 0;
@@ -243,10 +296,10 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
       const bool hist_on = it >= a.hist_from;
       HT* hist = (HT*)a.hist + (long long)(it & 3) * B + b;
       for (int v = r0; v < n; v += step) {
-        const int16_t* vf = vfc + v * dv;
-        float acc = to_f(msg[vf[0] * S + shot]);
-        for (int j = 1; j < dv; ++j) acc = __fadd_rn(acc, to_f(msg[vf[j] * S + shot]));
-        const float p = __fadd_rn(prior[v], acc);
+        const int vb = v * dv;
+        float acc = to_f(msg[tab.vf(vb) * S + shot]);
+        for (int j = 1; j < dv; ++j) acc = __fadd_rn(acc, to_f(msg[tab.vf(vb + j) * S + shot]));
+        const float p = __fadd_rn(tab.pr(v), acc);
         T pf = from_f<T>(p);
         bool undecided = true;
         if (MASKED) {
@@ -267,11 +320,11 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
       const bool keep = a.synd_hat != nullptr;
       int bad = 0;
       for (int r = r0; r < m_pad; r += step) {
-        const int d = deg[r];
+        const int d = tab.dg(r);
         int cnt = 0;
         for (int s = 0; s < d; ++s) {
           const int e = s * m_pad + r;
-          const float pe = to_f(post[cn_vn[e] * S + shot]);
+          const float pe = to_f(post[tab.cnvn(e) * S + shot]);
           T* p = msg + e * S + shot;
           const T nv = from_f<T>(__fsub_rn(pe, to_f(*p)));
           *p = (!MASKED || fabsf(pe) < thresh) ? nv : pin;
@@ -304,7 +357,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
     for (int e = r0; e < edges; e += step) {
       const int s = e / m_pad, r = e - s * m_pad;
       T x = msg[e * S + shot];
-      if (!MASKED && ran && s >= deg[r]) x = last;
+      if (!MASKED && ran && s >= tab.dg(r)) x = last;
       mv_out[(long long)e * B + b] = x;
     }
   }
@@ -325,19 +378,20 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   }
 }
 
-template <typename T, bool MASKED, typename HT>
+template <typename T, bool MASKED, typename HT, bool GT>
 int launch(const Args& a, int threads, void* stream) {
   if (a.B == 0) return 0;
-  const Layout L = make_layout(sizeof(T), a.n, a.m_pad, a.dc, a.dv, a.S);
+  const Layout L = make_layout(sizeof(T), a.n, a.m_pad, a.dc, a.dv, a.S, GT);
+  const long long idx_max = GT ? 65535 : 32767;  // the tables' index type
   if (a.S < 1 || threads < a.S || threads % a.S || threads > kMaxThreads ||
-      L.total > kMaxSmem)
+      L.total > kMaxSmem || (long long)a.dc * a.m_pad + 1 > idx_max || a.n > idx_max)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      bp_span_kernel<T, MASKED, HT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bp_span_kernel<T, MASKED, HT, GT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (a.B + a.S - 1) / a.S;
-  bp_span_kernel<T, MASKED, HT>
+  bp_span_kernel<T, MASKED, HT, GT>
       <<<(unsigned)blocks, threads, L.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -367,9 +421,9 @@ Args make_args(const void* mv_in, long long st_s, long long st_i, long long st_b
   a.done_out = (uint8_t*)done_out;
   a.iters_in = (const int32_t*)iters_in;
   a.iters_out = (int32_t*)iters_out;
-  a.cn_vn = (const int16_t*)cn_vn;
-  a.vfc = (const int16_t*)vfc;
-  a.deg = (const int16_t*)deg;
+  a.cn_vn = cn_vn;
+  a.vfc = vfc;
+  a.deg = deg;
   a.synd_hat = (int8_t*)synd_hat;
   a.n = n;
   a.m_pad = m_pad;
@@ -391,10 +445,11 @@ Args make_args(const void* mv_in, long long st_s, long long st_i, long long st_b
 
 extern "C" {
 
-// One entry point per (message dtype, mode, ring dtype). alpha, clip, big,
-// thresh and pin arrive already rounded to the message dtype; the unmasked
-// entry points ignore thresh, pin and vn_state. synd_hat may be null.
-#define BP_SPAN_ENTRY(NAME, T, MASKED, HT)                                          \
+// One entry point per (table route, message dtype, mode, ring dtype). alpha,
+// clip, big, thresh and pin arrive already rounded to the message dtype; the
+// unmasked entry points ignore thresh, pin and vn_state. synd_hat may be
+// null. The `bp_span_wide_*` entry points take uint16 tables.
+#define BP_SPAN_ENTRY(NAME, T, MASKED, HT, GT)                                      \
   int NAME(const void* mv_in, long long st_s, long long st_i, long long st_b,       \
            void* mv_out, const void* prior, const void* parity, const void* synd,   \
            const void* vn_state, void* hist, const void* err_in, void* err_out,     \
@@ -408,21 +463,34 @@ extern "C" {
                              iters_in, iters_out, cn_vn, vfc, deg, synd_hat, n,     \
                              m_pad, dc, dv, B, S, num_iter, hist_from, alpha, clip, \
                              big, thresh, pin);                                     \
-    return launch<T, MASKED, HT>(a, threads, stream);                               \
+    return launch<T, MASKED, HT, GT>(a, threads, stream);                           \
   }
 
-BP_SPAN_ENTRY(bp_span_f32, float, false, float)
-BP_SPAN_ENTRY(bp_span_bf16, __nv_bfloat16, false, float)
-BP_SPAN_ENTRY(bp_span_pinned_f32, float, true, float)
-BP_SPAN_ENTRY(bp_span_pinned_bf16, __nv_bfloat16, true, float)
-BP_SPAN_ENTRY(bp_span_f32_ring_bf16, float, false, __nv_bfloat16)
-BP_SPAN_ENTRY(bp_span_bf16_ring_bf16, __nv_bfloat16, false, __nv_bfloat16)
-BP_SPAN_ENTRY(bp_span_pinned_f32_ring_bf16, float, true, __nv_bfloat16)
-BP_SPAN_ENTRY(bp_span_pinned_bf16_ring_bf16, __nv_bfloat16, true, __nv_bfloat16)
+BP_SPAN_ENTRY(bp_span_f32, float, false, float, false)
+BP_SPAN_ENTRY(bp_span_bf16, __nv_bfloat16, false, float, false)
+BP_SPAN_ENTRY(bp_span_pinned_f32, float, true, float, false)
+BP_SPAN_ENTRY(bp_span_pinned_bf16, __nv_bfloat16, true, float, false)
+BP_SPAN_ENTRY(bp_span_f32_ring_bf16, float, false, __nv_bfloat16, false)
+BP_SPAN_ENTRY(bp_span_bf16_ring_bf16, __nv_bfloat16, false, __nv_bfloat16, false)
+BP_SPAN_ENTRY(bp_span_pinned_f32_ring_bf16, float, true, __nv_bfloat16, false)
+BP_SPAN_ENTRY(bp_span_pinned_bf16_ring_bf16, __nv_bfloat16, true, __nv_bfloat16, false)
+BP_SPAN_ENTRY(bp_span_wide_f32, float, false, float, true)
+BP_SPAN_ENTRY(bp_span_wide_bf16, __nv_bfloat16, false, float, true)
+BP_SPAN_ENTRY(bp_span_wide_pinned_f32, float, true, float, true)
+BP_SPAN_ENTRY(bp_span_wide_pinned_bf16, __nv_bfloat16, true, float, true)
+BP_SPAN_ENTRY(bp_span_wide_f32_ring_bf16, float, false, __nv_bfloat16, true)
+BP_SPAN_ENTRY(bp_span_wide_bf16_ring_bf16, __nv_bfloat16, false, __nv_bfloat16, true)
+BP_SPAN_ENTRY(bp_span_wide_pinned_f32_ring_bf16, float, true, __nv_bfloat16, true)
+BP_SPAN_ENTRY(bp_span_wide_pinned_bf16_ring_bf16, __nv_bfloat16, true, __nv_bfloat16, true)
 
-// Shared memory of one block, as the launch computes it.
+// Shared memory of one block, as the launch computes it: the shared-table
+// route, and the global-table route.
 long long bp_span_smem_bytes(int elem_size, int n, int m_pad, int dc, int dv, int S) {
   return (long long)make_layout((size_t)elem_size, n, m_pad, dc, dv, S).total;
+}
+
+long long bp_span_wide_smem_bytes(int elem_size, int n, int m_pad, int dc, int dv, int S) {
+  return (long long)make_layout((size_t)elem_size, n, m_pad, dc, dv, S, true).total;
 }
 
 const char* swd_error_string(int code) {

@@ -72,11 +72,12 @@
 // computes the same function in the same summation orders
 // (`gj_cluster_kernel`, below), so it is bit-exact against the plain
 // versions as the single-block route is. Its bound is the same count of
-// operations; what sets its time is the same serial chain of steps, each
-// now a cluster barrier, three block barriers and a pivot row read through
-// distributed shared memory, and the sweep's sums passed through the C
-// blocks in turn. At ~130-220 KB a block one block fits an SM, so a
-// 256-shot bucket runs in waves of as many clusters as the card holds.
+// operations; what sets its time is the same serial chain of rounds, each
+// now an exchange of posts between the blocks (st.async on mbarriers), two
+// block barriers, a pivot row read through distributed shared memory and
+// the XOR of the holding rows (PERF.md gives the measured split). At
+// ~130-220 KB a block one block fits an SM, so a 256-shot bucket runs in
+// waves of as many clusters as the card holds (16 at 936x8784).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -522,31 +523,40 @@ __global__ void __launch_bounds__(kThreads) gj_kernel(const Args a) {
 
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kMaxPairs = kMaxTop * (kMaxTop - 1) / 2;
+constexpr int kCand = 2;                // candidates a warp tests each round
+constexpr int kRound = kWarps * kCand;  // candidates a round
+constexpr int kRowVec = 4;              // 16-byte chunks of the pivot row a lane holds
+constexpr int kMaxStride = 32 * kRowVec * 4;  // words a row of a cluster block may span
 
 // Rows of the packed state a block of a C-block cluster holds.
 __host__ __device__ inline int cluster_rows(int m, int C) { return (m + C - 1) / C; }
 
+// Words from one row of a cluster block's state to the next: W + 1 rounded
+// up to a multiple of 4, so that every row starts on 16 bytes.
+__host__ __device__ inline int cluster_stride(int W) { return (W + 4) & ~3; }
+
 // Byte offsets of one cluster block's shared-memory arrays: its rows of the
 // state (or the sort's pairs, which come first), the whole sorted order and
-// pivot lists, the candidate tests, a copy of the step's pivot row and, when
-// fused, the running column and pair sums, the weights of its rows and four
-// column masks. `ops/gf2_cuda.py:cluster_smem_bytes` computes the same total.
+// pivot lists, the round posts its peers write (two rounds), the holding-row
+// masks of its candidates and, when fused, the running column and pair
+// sums, the weights of its rows and four column masks. `ops/gf2_cuda.py:
+// cluster_smem_bytes` computes the same total.
 struct ClusterLayout {
-  size_t st, ord, pcol, prow, test, prbuf, a, gram, wrow, masks, total;
+  size_t st, ord, pcol, prow, post, hold, a, gram, wrow, masks, total;
 };
 
 __host__ __device__ inline ClusterLayout make_cluster_layout(int m, int n, int W, int C,
                                                              bool fused) {
   ClusterLayout L;
   size_t o = 0;
-  const size_t state = (size_t)cluster_rows(m, C) * (W + 1) * 4,
+  const size_t state = (size_t)cluster_rows(m, C) * cluster_stride(W) * 4,
                sort = (size_t)next_pow2(n) * 8;
   L.st = o;     o = align16(o + (state > sort ? state : sort));
   L.ord = o;    o = align16(o + (size_t)n * 2);
   L.pcol = o;   o = align16(o + (size_t)m * 2);
   L.prow = o;   o = align16(o + (size_t)m * 2);
-  L.test = o;   o = align16(o + (size_t)2 * kWarps * kSlot * 4);
-  L.prbuf = o;  o = align16(o + (size_t)(W + 1) * 4);
+  L.post = o;   o = align16(o + (size_t)2 * kMaxCluster * kRound * 4);
+  L.hold = o;   o = align16(o + (size_t)kRound * kRowWords * 4);
   L.a = L.gram = L.wrow = L.masks = o;
   if (fused) {
     L.a = o;     o = align16(o + (size_t)n * 4);
@@ -558,119 +568,255 @@ __host__ __device__ inline ClusterLayout make_cluster_layout(int m, int n, int W
   return L;
 }
 
+// Cluster-scope signalling: a round's posts travel as st.async stores
+// into each peer's shared memory that complete bytes on the peer's
+// mbarrier; the peer waits on its own barrier's phase.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void st_async2(uint32_t addr, int v0, int v1, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];" ::"r"(
+          addr),
+      "r"(v0), "r"(v1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n"
+      "DONE:\n\t}" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The position of the k-th (from 0) set bit of x; x holds more than k.
+__device__ __forceinline__ int nth_bit(uint32_t x, int k) {
+  int p = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(x & ((1u << s) - 1u));
+    if (k >= c) {
+      k -= c;
+      x >>= s;
+      p += s;
+    }
+  }
+  return p;
+}
+
 // The elimination and sweep of `gj_kernel` for shapes beyond one block's
 // shared memory. Block q of the cluster holds global rows [q R, q R + R) of
-// the state (R = cluster_rows), so ascending global row is ascending
-// (block, local row). Each block sorts the same (key, column) pairs and
-// keeps the whole order and pivot lists.
+// the state (R = cluster_rows; rows cluster_stride(W) words apart), so
+// ascending global row is ascending (block, local row). Each block sorts
+// the same (key, column) pairs and keeps the whole order and pivot lists.
 //
-// Step r: each block tests the candidates pos + w on its own rows as
-// gj_kernel does and posts, per candidate, its lowest unused holding row
-// (global index) and its holding-row masks; one cluster barrier; warp 0 of
-// each block reads the C posts of every candidate through distributed
-// shared memory (the lowest block with a row has the lowest row) and takes
-// the first live candidate, so every block picks the same pivot column and
-// row; each block copies the pivot row from its owner's shared memory and
-// XORs it into its own holding rows. The owner changes that row again only
-// in a later step, after the next cluster barrier, when every block has
-// copied it. The posts are double-buffered by round, as in gj_kernel.
+// A round. Warp w tests candidates pos + w and pos + w + 8 (kRound = 16 a
+// round) on the block's own rows: the rows holding each candidate's bit
+// go to the block's `hold` masks, and the lowest unused one (its global
+// index, or -1) is sent with the warp's other candidate's as one 8-byte
+// st.async into this round's `post` buffer of every block of the cluster,
+// where it completes 8 bytes on that block's mbarrier for the round. Each
+// block waits for its barrier's phase, which completes when all C * 16
+// posts have landed (its thread 0 arms it with that many bytes), then for
+// its own warps (a block barrier: the `hold` masks). Every warp then reads
+// the C posts of each candidate from its own shared memory: the first
+// candidate live in any block is the pivot column, and the lowest block
+// that holds it live gives the pivot row; so every warp takes the same
+// decision with no further exchange. A warp with holding rows to XOR loads
+// the pivot row from its owner's shared memory into registers (its own
+// memory if it is the owner), and the block's holding rows are dealt to its
+// warps in turn, each XORed with 16-byte accesses (rows start on 16 bytes).
+// A block barrier ends the round. A round whose 16 candidates are dead in
+// every block costs the wait and one block barrier.
+//
+// Why the posts need no cluster barrier. They are double-buffered by round
+// (buffer and mbarrier by round parity): a block posts round t+2 only
+// after its round-t+1 wait, which needs every block's round-t+1 posts,
+// which each block sends only after every one of its warps has read round
+// t's (the block barriers). The owner changes the pivot row of round t (as
+// a holding row) at the earliest in round t+1's XOR, after its round-t+1
+// wait, which needs the posts every block sends after its pull of round t.
+// After the elimination no block writes its state again; cluster barriers
+// order what follows, and no block leaves while a peer may still read its
+// memory (the sweep's barriers, or the last ones).
 //
 // Sweep (FUSED): a_j and the Gram terms are running sums passed from block
 // to block: block c adds its rows, in ascending order, to block c-1's sums
-// (read through distributed shared memory), one block at a time with a
-// cluster barrier between, so each sum takes gj_kernel's ascending-row
-// order and its bits. The last block then holds them and picks the winner
-// as gj_kernel does; each block flips the solution bits of its own pivot
-// rows into the last block's solution mask (shared-memory atomics across
-// the cluster), which stores the outputs.
+// (read through distributed shared memory), so each sum takes gj_kernel's
+// ascending-row order and its bits. The columns go in chunks of one per
+// thread, software-pipelined: at stage s block c sums chunk s - c (the
+// pair sums are the last chunk), so the C blocks work at once, with one
+// cluster barrier a stage. The last block then holds the sums and picks
+// the winner as gj_kernel does; each block flips the solution bits of its
+// own pivot rows into the last block's solution mask (shared-memory
+// atomics across the cluster), which stores the outputs.
 template <bool FUSED, int KW>
 __global__ void __launch_bounds__(kThreads) gj_cluster_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), q = (int)cluster.block_rank(), last = C - 1;
-  const int m = a.m, n = a.n, W = a.W, Wp1 = W + 1, rank = a.rank;
+  const int m = a.m, n = a.n, W = a.W, Wp1 = W + 1, Ws = cluster_stride(W), rank = a.rank;
   const ClusterLayout L = make_cluster_layout(m, n, W, C, FUSED);
   const int R = cluster_rows(m, C), r0 = q * R;
   const int mr = max(0, min(m - r0, R));  // this block's rows: r0 .. r0 + mr - 1
-  const int KL = (mr + 31) >> 5;
-  uint32_t* st = (uint32_t*)(smem + L.st);                      // [mr, W+1]
+  uint32_t* st = (uint32_t*)(smem + L.st);                      // [mr, Ws]
   unsigned long long* pairs = (unsigned long long*)(smem + L.st);  // sort only
   uint16_t* ord = (uint16_t*)(smem + L.ord);                     // [n]
   uint16_t* pcol = (uint16_t*)(smem + L.pcol);                   // [rank]
   uint16_t* prow = (uint16_t*)(smem + L.prow);                   // global rows
-  int* test = (int*)(smem + L.test);  // [2 rounds][kWarps][kSlot]
-  uint32_t* prbuf = (uint32_t*)(smem + L.prbuf);                 // [W+1]
+  int* post = (int*)(smem + L.post);             // [2 rounds][kMaxCluster][kRound]
+  uint32_t* hold = (uint32_t*)(smem + L.hold);   // [kRound][kRowWords]
   __shared__ uint32_t unused[kRowWords];  // this block's rows not yet pivot rows
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
-  __shared__ int s_win, s_piv, s_left;
+  __shared__ int s_left;
+  __shared__ __align__(8) uint64_t mbar[2];  // a round's posts arrived, by round parity
 
   const int b = blockIdx.x / C, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t full = 0xffffffffu;
+  if (tid == 0) {
+    mbar_init(&mbar[0], 1);
+    mbar_init(&mbar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
 
   sort_columns(a.keys + (long long)b * n, n, pairs, ord);
 
-  for (int e = tid; e < mr * Wp1; e += kThreads) {
-    const int i = e / Wp1, w = e - i * Wp1;
+  for (int e = tid; e < mr * Ws; e += kThreads) {
+    const int i = e / Ws, w = e - i * Ws;
     st[e] = (w < W) ? a.H[(r0 + i) * W + w]
-                    : (uint32_t)(a.synd[(long long)b * m + r0 + i] & 1);
+                    : (w == W ? (uint32_t)(a.synd[(long long)b * m + r0 + i] & 1) : 0u);
   }
   if (tid < kRowWords) {
     const int rows = mr - 32 * tid;
     unused[tid] = rows >= 32 ? 0xffffffffu : (rows > 0 ? (1u << rows) - 1u : 0u);
   }
-  __syncthreads();
+  cluster.sync();  // every block has started: its shared memory may be written
 
+  const int nch = Ws >> 2;  // 16-byte chunks a row
   int pos = 0, r = 0, round = 0;
   while (r < rank && pos < n) {
-    int* buf = test + (round & 1) * kWarps * kSlot;
+    int* pb = post + (round & 1) * kMaxCluster * kRound;
+    uint64_t* bar = &mbar[round & 1];
+    const int phase = (round >> 1) & 1;
+    if (tid == 0) mbar_expect(bar, C * kRound * 4);  // every block's posts
     ++round;
-    const int c = pos + warp;
-    int first = -1;
-    if (c < n) {
-      uint32_t mine;  // lane k: the local rows of word k that hold the column's bit
-      const int local = test_column<KW>(st, Wp1, mr, unused, ord[c], mine);
-      if (local >= 0) first = r0 + local;
-      if (lane < KL) buf[warp * kSlot + 1 + lane] = (int)mine;
+    uint32_t v[kCand][KW];
+    int col[kCand];
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) {  // issue every load of both candidates first
+      const int p = pos + warp + kWarps * c;
+      col[c] = p < n ? (int)ord[p] : -1;
+      const int jw = col[c] < 0 ? 0 : col[c] >> 5;
+#pragma unroll
+      for (int k = 0; k < KW; ++k) {
+        const int i = 32 * k + lane;
+        v[c][k] = (col[c] >= 0 && i < mr) ? st[i * Ws + jw] : 0u;
+      }
     }
-    if (lane == 0) buf[warp * kSlot] = first;
-    cluster.sync();  // every block's posts of this round are written
+    int firsts[kCand];
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) {
+      const int js = col[c] & 31;
+      uint32_t mine = 0;  // lane k: the local rows of word k that hold the bit
+#pragma unroll
+      for (int k = 0; k < KW; ++k) {
+        if (32 * k >= mr) break;  // block-uniform
+        const uint32_t h = __ballot_sync(full, (v[c][k] >> js) & 1u);
+        if (lane == k) mine = h;
+      }
+      const uint32_t live = lane < KW ? mine & unused[lane] : 0u;
+      const uint32_t words = __ballot_sync(full, live != 0u);
+      firsts[c] = -1;
+      if (words) {
+        const int k = __ffs(words) - 1;
+        firsts[c] = r0 + 32 * k + __ffs(__shfl_sync(full, live, k)) - 1;
+      }
+      if (lane < KW) hold[(warp + kWarps * c) * kRowWords + lane] = mine;
+    }
+    // both posts of this warp (slots 2 warp, 2 warp + 1 of block q's row)
+    // into every block, one 8-byte store each
+    static_assert(kCand == 2, "a warp posts its two candidates as one 8-byte store");
+    if (lane < C)
+      st_async2(cluster_addr(smem_u32(pb + q * kRound + 2 * warp), lane), firsts[0], firsts[1],
+                cluster_addr(smem_u32(bar), lane));
+    mbar_wait(bar, phase);  // every block's posts of this round are in every block
+    __syncthreads();  // and this block's holding masks
 
-    if (warp == 0) {
-      int f = -1;  // lane w < kWarps: candidate w's lowest unused row in the cluster
-      if (lane < kWarps) {
-        int g[kMaxCluster];
+    int f = -1;  // lane k < kRound: candidate k's lowest unused row in the cluster
+    if (lane < kRound) {
+      const int slot = 2 * (lane % kWarps) + lane / kWarps;  // warp k % 8 posted it
 #pragma unroll
-        for (int qq = 0; qq < kMaxCluster; ++qq)
-          g[qq] = qq < C ? cluster.map_shared_rank(buf, qq)[lane * kSlot] : -1;
-#pragma unroll
-        for (int qq = kMaxCluster - 1; qq >= 0; --qq)
-          if (g[qq] >= 0) f = g[qq];
-      }
-      const uint32_t any = __ballot_sync(0xffffffffu, f >= 0);
-      const int w0 = any ? __ffs(any) - 1 : 0;
-      const int pv = __shfl_sync(0xffffffffu, f, w0);
-      if (lane == 0) {
-        s_win = any ? w0 : -1;
-        s_piv = pv;
+      for (int qq = kMaxCluster - 1; qq >= 0; --qq) {
+        const int g = qq < C ? pb[qq * kRound + slot] : -1;
+        if (g >= 0) f = g;
       }
     }
-    __syncthreads();
-    const int win = s_win, piv = s_piv;
-    if (win < 0) {  // every candidate of this round is dead in every block
-      pos += kWarps;
+    const uint32_t any = __ballot_sync(full, f >= 0);
+    if (!any) {  // every candidate of this round is dead in every block
+      pos += kRound;
+      __syncthreads();  // no warp posts the next round while one reads these
       continue;
     }
+    const int win = __ffs(any) - 1, piv = __shfl_sync(full, f, win);
     const int owner = piv / R, li = piv - owner * R;
-    const uint32_t* src = cluster.map_shared_rank(st, owner) + li * Wp1;
-    for (int w = tid; w < Wp1; w += kThreads) prbuf[w] = src[w];
-    __syncthreads();
-    for (int k = warp; k < KL; k += kWarps) {
-      uint32_t h = (uint32_t)buf[win * kSlot + 1 + k];
-      if (owner == q && k == (li >> 5)) h &= ~(1u << (li & 31));
-      while (h) {
-        uint32_t* row = st + (32 * k + __ffs(h) - 1) * Wp1;
-        h &= h - 1;
-        for (int w = lane; w < Wp1; w += 32) row[w] ^= prbuf[w];
+
+    // this block's rows holding the pivot column, the pivot row left out;
+    // lane k's word k, and the count before it
+    uint32_t hm = lane < KW ? hold[win * kRowWords + lane] : 0u;
+    if (owner == q && lane == (li >> 5)) hm &= ~(1u << (li & 31));
+    const int cnt = __popc(hm);
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(full, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int total = __shfl_sync(full, incl, 31), excl = incl - cnt;
+    if (warp < total) {  // holding rows warp, warp + kWarps, ... are this warp's
+      const uint4* src =
+          (const uint4*)((owner == q ? st : cluster.map_shared_rank(st, owner)) + li * Ws);
+      uint4 pr[kRowVec];
+#pragma unroll
+      for (int i = 0; i < kRowVec; ++i) {
+        const int c = lane + 32 * i;
+        pr[i] = c < nch ? src[c] : make_uint4(0u, 0u, 0u, 0u);
+      }
+      for (int t = warp; t < total; t += kWarps) {
+        const int who = __ffs(__ballot_sync(full, t >= excl && t < incl)) - 1;
+        const uint32_t word = __shfl_sync(full, hm, who);
+        const int before = __shfl_sync(full, excl, who);
+        uint4* row = (uint4*)(st + (32 * who + nth_bit(word, t - before)) * Ws);
+#pragma unroll
+        for (int i = 0; i < kRowVec; ++i) {
+          const int c = lane + 32 * i;
+          if (c < nch) {
+            uint4 x = row[c];
+            x.x ^= pr[i].x;
+            x.y ^= pr[i].y;
+            x.z ^= pr[i].z;
+            x.w ^= pr[i].w;
+            row[c] = x;
+          }
+        }
       }
     }
     if (tid == 0) {
@@ -686,13 +832,16 @@ __global__ void __launch_bounds__(kThreads) gj_cluster_kernel(const Args a) {
   // a syndrome bit left on an unused row of this block
   int left = 0;
   for (int i = tid; i < mr; i += kThreads)
-    left |= (int)(((unused[i >> 5] >> (i & 31)) & 1u) && (st[i * Wp1 + W] & 1u));
+    left |= (int)(((unused[i >> 5] >> (i & 31)) & 1u) && (st[i * Ws + W] & 1u));
   left = __syncthreads_or(left);
   if (tid == 0) s_left = left;
 
   if (!FUSED) {
     uint32_t* out = a.state_out + ((long long)b * m + r0) * Wp1;
-    for (int e = tid; e < mr * Wp1; e += kThreads) out[e] = st[e];
+    for (int e = tid; e < mr * Wp1; e += kThreads) {
+      const int i = e / Wp1;
+      out[e] = st[i * Ws + (e - i * Wp1)];
+    }
     if (q == 0) {
       for (int t = tid; t < rank; t += kThreads) {
         a.pcol_out[(long long)b * rank + t] = t < r ? pcol[t] : -1;
@@ -727,7 +876,7 @@ __global__ void __launch_bounds__(kThreads) gj_cluster_kernel(const Args a) {
     const int j = pcol[t], i = prow[t] - r0;
     atomicOr(&pivm[j >> 5], 1u << (j & 31));
     if (0 <= i && i < mr) {
-      const bool sol = st[i * Wp1 + W] & 1u;
+      const bool sol = st[i * Ws + W] & 1u;
       const float l = a.llr[j];
       wrow[i] = sol ? -l : l;
       if (sol) atomicOr(&osdl[j >> 5], 1u << (j & 31));
@@ -737,26 +886,29 @@ __global__ void __launch_bounds__(kThreads) gj_cluster_kernel(const Args a) {
   if (warp == 0) top_nonpivot(ord, n, pivm, a.order_w, s_top);
   cluster.sync();  // pivm, osdl, s_top, wrow and s_left set in every block
 
-  // a_j and the Gram terms: block c continues block c-1's sums over its rows
-  for (int cc = 0; cc < C; ++cc) {
-    if (q == cc) {
-      const float* prev_a = cc ? cluster.map_shared_rank(aj, cc - 1) : nullptr;
-      const float* prev_g = cc ? cluster.map_shared_rank(gsum, cc - 1) : nullptr;
-      for (int j = tid; j < n; j += kThreads) {
-        const int jw = j >> 5, js = j & 31;
-        if ((pivm[jw] >> js) & 1u) continue;
-        float acc = cc ? prev_a[j] : 0.f;
+  // a_j and the Gram terms, pipelined: at stage s block q continues block
+  // q-1's sums of chunk s - q (kThreads columns a chunk; the pairs last)
+  const int chunks = (n + kThreads - 1) / kThreads;
+  for (int s = 0; s < chunks + C; ++s) {
+    const int k = s - q;
+    if (0 <= k && k < chunks) {
+      const int j = k * kThreads + tid;
+      const int jw = j >> 5, js = j & 31;
+      if (j < n && !((pivm[jw] >> js) & 1u)) {
+        float acc = q ? cluster.map_shared_rank(aj, q - 1)[j] : 0.f;
 #pragma unroll 8
         for (int i = 0; i < mr; ++i)
-          if ((st[i * Wp1 + jw] >> js) & 1u) acc = __fadd_rn(acc, wrow[i]);
+          if ((st[i * Ws + jw] >> js) & 1u) acc = __fadd_rn(acc, wrow[i]);
         aj[j] = acc;
       }
+    } else if (k == chunks) {
+      const float* prev_g = q ? cluster.map_shared_rank(gsum, q - 1) : nullptr;
       for (int p = tid; p < a.npairs; p += kThreads) {
         const int ci = s_top[a.pair_i[p]], cj = s_top[a.pair_j[p]];
         const int iw = ci >> 5, is = ci & 31, jw = cj >> 5, js = cj & 31;
-        float g = cc ? prev_g[p] : 0.f;
+        float g = q ? prev_g[p] : 0.f;
         for (int i = 0; i < mr; ++i) {
-          const uint32_t* row = st + i * Wp1;
+          const uint32_t* row = st + i * Ws;
           if ((row[iw] >> is) & (row[jw] >> js) & 1u) g = __fadd_rn(g, wrow[i]);
         }
         gsum[p] = g;
@@ -792,7 +944,7 @@ __global__ void __launch_bounds__(kThreads) gj_cluster_kernel(const Args a) {
     for (int t = tid; t < r; t += kThreads) {
       const int i = prow[t] - r0;
       if (i < 0 || i >= mr) continue;
-      const uint32_t* row = st + i * Wp1;
+      const uint32_t* row = st + i * Ws;
       uint32_t y = (row[W] & 1u) ^ ((row[win.c1 >> 5] >> (win.c1 & 31)) & 1u);
       if (win.is_pair) y ^= (row[win.c2 >> 5] >> (win.c2 & 31)) & 1u;
       if (y) atomicOr(&lsolm[pcol[t] >> 5], 1u << (pcol[t] & 31));
@@ -822,8 +974,10 @@ int launch(const Args& a, int B, void* stream) {
                     : launch_kw<FUSED, 16>(a, B, L.total, stream);
 }
 
+// The cluster route's launch of one instance; with `active`, only the most
+// clusters of this shape the card runs at once, into *active.
 template <bool FUSED, int KW>
-int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream) {
+int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream, int* active) {
   void (*kern)(const Args) = gj_cluster_kernel<FUSED, KW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -843,6 +997,10 @@ int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream) {
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (err != cudaSuccess) return (int)err;
+  if (active) {
+    *active = clusters;
+    return 0;
+  }
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;  // it could never run
   err = cudaLaunchKernelEx(&cfg, kern, a);
   if (err != cudaSuccess) return (int)err;
@@ -850,15 +1008,18 @@ int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream) {
 }
 
 template <bool FUSED>
-int launch_cluster(const Args& a, int B, int C, void* stream) {
-  if (B == 0) return 0;
+int launch_cluster(const Args& a, int B, int C, void* stream, int* active = nullptr) {
+  if (B == 0 && !active) return 0;
   const ClusterLayout L = make_cluster_layout(a.m, a.n, a.W, C, FUSED);
   const int R = cluster_rows(a.m, C);
   if (C < 2 || C > kMaxCluster || R > 32 * kRowWords || a.m > 65536 || a.n > 65536 ||
-      a.order_w > kMaxTop || a.npairs > kMaxPairs || L.total > 232448)
+      cluster_stride(a.W) > kMaxStride || a.order_w > kMaxTop || a.npairs > kMaxPairs ||
+      L.total > 232448)
     return (int)cudaErrorInvalidValue;
-  return R <= 256 ? launch_cluster_kw<FUSED, 8>(a, B, C, L.total, stream)
-                  : launch_cluster_kw<FUSED, 16>(a, B, C, L.total, stream);
+  if (B == 0) B = 1;  // a query: the shape of one shot
+  return R <= 128   ? launch_cluster_kw<FUSED, 4>(a, B, C, L.total, stream, active)
+         : R <= 256 ? launch_cluster_kw<FUSED, 8>(a, B, C, L.total, stream, active)
+                    : launch_cluster_kw<FUSED, 16>(a, B, C, L.total, stream, active);
 }
 
 Args base_args(const void* H, const void* synd, const void* keys, void* incons, int m,
@@ -939,6 +1100,16 @@ int osd_cs_fused_cluster(const void* H, const void* synd, const void* keys, cons
 // Shared memory of one block of a C-block cluster, as the launch computes it.
 long long gj_cluster_smem_bytes(int m, int n, int W, int C, int fused) {
   return (long long)make_cluster_layout(m, n, W, C, fused != 0).total;
+}
+
+// The most clusters of C blocks of this shape that the card runs at once
+// (cudaOccupancyMaxActiveClusters), or a negative CUDA error code.
+int gj_cluster_max_active(int m, int n, int W, int rank, int C, int fused) {
+  Args a = base_args(nullptr, nullptr, nullptr, nullptr, m, n, W, rank);
+  int active = 0;
+  const int err = fused ? launch_cluster<true>(a, 0, C, nullptr, &active)
+                        : launch_cluster<false>(a, 0, C, nullptr, &active);
+  return err ? -err : active;
 }
 
 const char* swd_error_string(int code) {

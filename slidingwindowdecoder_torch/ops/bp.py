@@ -18,12 +18,13 @@ of the decimation decoders. Semantics reproduced exactly:
 Layouts follow the JAX package: CN-major edge arrays are slot-major
 [dc, m_pad, B] (shot index fastest), the history ring is [n, 4, B]
 internally. On the card a ``bp_run`` call is one launch of the fused
-kernel ``csrc/bp_span.cu`` (``ops.bp_cuda.bp_span``) wherever its shape
-gate admits the graph; its plain version is ``bp_loop`` (below), torch ops
-around the CN stage ``ops.bp_cuda.cn_update``, which launches
-``csrc/cn_update.cu`` on a CUDA tensor and runs ``_cn_update_sm`` (the
-plain version) on a CPU tensor. CPU tensors always take ``bp_loop``; on
-the card it serves the graphs outside the fused kernel's gate.
+kernel ``csrc/bp_span.cu`` (``ops.bp_cuda.bp_span``) wherever one of its
+two table routes admits the graph (``ops.bp_cuda.span_route``); its plain
+version is ``bp_loop`` (below), torch ops around the CN stage
+``ops.bp_cuda.cn_update``, which launches ``csrc/cn_update.cu`` on a CUDA
+tensor and runs ``_cn_update_sm`` (the plain version) on a CPU tensor.
+CPU tensors always take ``bp_loop``; on the card it serves a 2-D prior
+and the graphs outside both routes' gates.
 
 Masked mode (``masked=True``): ``vn_state`` values -1/0/1 exclude decided
 variables from message passing and ``cn_state`` -1 deactivates cleared
@@ -356,9 +357,12 @@ def bp_run(
 
     Where it runs: on CPU tensors, ``ops.bp_cuda.bp_span`` runs the plain
     loop ``bp_loop``. On the card, a 1-D prior on a graph that
-    ``bp_span_supported`` admits goes through the fused kernel
-    ``csrc/bp_span.cu`` (one launch per call); any other call runs
-    ``bp_loop`` there, with the CN kernel ``csrc/cn_update.cu``.
+    ``ops.bp_cuda.span_route`` admits goes through the fused kernel
+    ``csrc/bp_span.cu`` (one launch per call): the shared-table route
+    where the graph's tables fit beside the messages (the [[144]]
+    windows), else the wide route (the [[144]] global DEM, the interior
+    [[288]] W=4 windows in f32); any other call runs ``bp_loop`` there,
+    with the CN kernel ``csrc/cn_update.cu``.
 
     ``state_layout="transposed"`` is the GDG ensemble's carry: ``syndrome``
     and ``cn_state`` arrive as [m_pad, B] (pad rows 0 and -1), ``vn_state``
@@ -384,7 +388,7 @@ def bp_run(
     Returns ``(mv, history, error, done, iters)`` in the input layouts,
     then ``synd_hat`` if ``return_synd``.
     """
-    from .bp_cuda import bp_span, bp_span_supported  # no top-level cycle
+    from .bp_cuda import bp_span, span_route  # no top-level cycle
 
     if hist_update not in ("masked", "slice"):
         raise ValueError(f"unknown hist_update {hist_update!r}")
@@ -404,7 +408,7 @@ def bp_run(
     mv_sm, prior = args[1], args[2]
     fused = mv_sm.device.type == "cpu" or (
         prior.ndim == 1 and not posterior_matmul
-        and bp_span_supported(garr, mv_sm.shape[2], mv_sm.dtype))
+        and span_route(garr, mv_sm.shape[2], mv_sm.dtype) is not None)
     out = (bp_span if fused else bp_loop)(*args, **kw, return_synd=return_synd)
     mv_sm, hist_t, err_out, done, iters = out[:5]
     if transposed:

@@ -8,7 +8,13 @@ The counterparts of the JAX package's ``ops/bp_pallas.py``:
 - ``bp_span`` (``csrc/bp_span.cu``): a whole ``bp_run`` call, every
   iteration of it in one launch with the message block in shared memory,
   unmasked or pinned, with a float32 or bfloat16 history ring. Plain
-  version ``ops.bp.bp_loop``.
+  version ``ops.bp.bp_loop``. Two table routes of one kernel template
+  (``span_route``): the shared-table route (``bp_span_supported``) copies
+  the graph's int16 index tables and prior into each block; the
+  global-table route (``bp_span_wide_supported``) reads uint16 tables and
+  the prior from device memory through the read-only cache, for graphs
+  whose tables and message block do not fit one block together (the
+  [[144]] global DEM, the interior [[288]] W=4 windows in f32).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises — there is no fallback.
@@ -121,18 +127,25 @@ def _align16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def span_smem_bytes(garr, dtype: torch.dtype, shots: int) -> int:
+# the table routes of ``bp_span.cu``: tables and prior in each block's
+# shared memory, or read from device memory
+SHARED, WIDE = "shared", "wide"
+
+
+def span_smem_bytes(garr, dtype: torch.dtype, shots: int, route: str = SHARED) -> int:
     """Dynamic shared memory of one ``bp_span.cu`` block holding ``shots``
-    shots: its ``make_layout``, array by array."""
+    shots on ``route``: its ``make_layout``, array by array (the wide
+    route keeps no tables and no prior there)."""
     n, m_pad, dc, dv = garr["n"], garr["m_pad"], garr["dc"], garr["dv"]
     t = dtype.itemsize
+    tab = route == SHARED
     return sum(_align16(x) for x in (
         (dc * m_pad + 1) * shots * t,  # messages and the zero fill row
         n * shots * t,  # rounded posteriors
-        4 * n,  # prior
-        2 * dc * m_pad,  # cn_vn
-        2 * n * dv,  # vn_from_cn
-        2 * m_pad,  # check degrees
+        4 * n * tab,  # prior
+        2 * dc * m_pad * tab,  # cn_vn
+        2 * n * dv * tab,  # vn_from_cn
+        2 * m_pad * tab,  # check degrees
         n * shots,  # decimation states
         m_pad * shots,  # CN sign seeds
         m_pad * shots,  # syndrome bits
@@ -140,46 +153,56 @@ def span_smem_bytes(garr, dtype: torch.dtype, shots: int) -> int:
     ))
 
 
-def span_tables(garr):
-    """The int16 tables of ``bp_span.cu`` for one graph, built once and
-    kept in ``garr``: ``cn_vn`` (= ``garr["cn_vn_clip"]``), ``vfc`` (=
-    ``garr["vn_from_cn_flat"]``, whose fill index dc*m_pad selects the zero
-    row) and ``deg``, the valid slots of each check row. None when the
-    kernel cannot take the graph: an index beyond int16, or a row whose
-    valid slots are not its first ``deg`` ones."""
-    if "bp_span_tables" not in garr:
+def span_tables(garr, route: str = SHARED):
+    """The index tables of ``bp_span.cu`` on ``route`` for one graph, built
+    once and kept in ``garr``: ``cn_vn`` (= ``garr["cn_vn_clip"]``), ``vfc``
+    (= ``garr["vn_from_cn_flat"]``, whose fill index dc*m_pad selects the
+    zero row) and ``deg``, the valid slots of each check row; int16 on the
+    shared-table route, uint16 on the wide route (held in int16 tensors:
+    the kernel reads their bits as uint16). None when the route cannot take
+    the graph: an index beyond its type, or a row whose valid slots are not
+    its first ``deg`` ones."""
+    key = "bp_span_tables" if route == SHARED else "bp_span_wide_tables"
+    if key not in garr:
         n, dc, m_pad = garr["n"], garr["dc"], garr["m_pad"]
         valid = garr["cn_valid_sm"]
         deg = valid.sum(dim=0, dtype=torch.int16)
         slots = torch.arange(dc, device=valid.device)[:, None]
-        ok = (max(n, dc * m_pad + 1) <= torch.iinfo(torch.int16).max
+        top = torch.iinfo(torch.int16).max if route == SHARED else 2**16 - 1
+        ok = (max(n, dc * m_pad + 1) <= top
               and bool(torch.equal(valid, slots < deg[None])))
-        garr["bp_span_tables"] = {
-            "cn_vn": garr["cn_vn_clip"].to(torch.int16),
-            "vfc": garr["vn_from_cn_flat"].to(torch.int16),
+
+        def idx(t):  # values below 2**16, as the bits of an int16 tensor
+            return (t.to(torch.int32) - (t >= 2**15).to(torch.int32) * 2**16).to(torch.int16)
+
+        garr[key] = {
+            "cn_vn": idx(garr["cn_vn_clip"]),
+            "vfc": idx(garr["vn_from_cn_flat"]),
             "deg": deg,
         } if ok else None
-    return garr["bp_span_tables"]
+    return garr[key]
 
 
-def max_shots_per_block(garr, dtype: torch.dtype) -> int:
-    """The most shots one block holds within ``SMEM_MAX`` (0: not one)."""
+def max_shots_per_block(garr, dtype: torch.dtype, route: str = SHARED) -> int:
+    """The most shots one block holds within ``SMEM_MAX`` on ``route`` (0:
+    not one)."""
     s = 0
-    while s < MAX_THREADS and span_smem_bytes(garr, dtype, s + 1) <= SMEM_MAX:
+    while s < MAX_THREADS and span_smem_bytes(garr, dtype, s + 1, route) <= SMEM_MAX:
         s += 1
     return s
 
 
 def bp_span_supported(garr, B: int, dtype: torch.dtype) -> bool:
-    """Shape gate of the fused kernel: f32 or bf16 messages, int16 index
-    tables, check rows valid from slot 0, and one shot's message block,
-    posteriors and states with the graph's tables within ``SMEM_MAX`` bytes
-    of shared memory. The flagship windows (dc 35, m_pad 224, n <= 1728)
-    hold 4 shots per block in f32 and 8 in bf16; an interior [[288]] W=4
-    window (576x4896, m_pad 608) fits one bf16 shot (180,608 B) and no f32
-    one (232,960 B), and the [[144]] global DEM graph (m_pad 960) none in
-    either dtype. ``bp_run`` runs ``bp_loop`` for those. The history ring
-    lives in device memory, so its dtype does not enter the gate."""
+    """Shape gate of the shared-table route: f32 or bf16 messages, int16
+    index tables, check rows valid from slot 0, and one shot's message
+    block, posteriors and states with the graph's tables within
+    ``SMEM_MAX`` bytes of shared memory. The flagship windows (dc 35, m_pad
+    224, n <= 1728) hold 4 shots per block in f32 and 8 in bf16; an
+    interior [[288]] W=4 window (576x4896, m_pad 608) fits one bf16 shot
+    (180,608 B) and no f32 one (232,960 B), and the [[144]] global DEM
+    graph (m_pad 960) none in either dtype: those take the wide route
+    (``bp_span_wide_supported``). The history ring lives in device memory,
+    so its dtype does not enter the gate."""
     return (
         dtype in _ENTRY
         and 0 < B < 2**31
@@ -188,18 +211,46 @@ def bp_span_supported(garr, B: int, dtype: torch.dtype) -> bool:
     )
 
 
-def shots_per_block(garr, B: int, dtype: torch.dtype, num_sms: int) -> int:
-    """Shots per block: as many as fit, but no more than it takes to give
-    every SM a block (B=512 f32 and B=1024 bf16 on the flagship windows
-    run 128 blocks of 4 and 8 shots on a 132-SM card)."""
-    return max(1, min(max_shots_per_block(garr, dtype), -(-B // num_sms)))
+def bp_span_wide_supported(garr, B: int, dtype: torch.dtype) -> bool:
+    """Shape gate of the wide (global-table) route: f32 or bf16 messages,
+    uint16 index tables (dc*m_pad + 1 and n below 2**16), check rows valid
+    from slot 0, and one shot's per-shot state within ``SMEM_MAX``. The
+    [[144]] global DEM holds one f32 shot a block (180,272 B) and two bf16
+    (190,992 B); an interior [[288]] W=4 window two f32 shots (221,680 B)."""
+    return (
+        dtype in _ENTRY
+        and 0 < B < 2**31
+        and span_tables(garr, WIDE) is not None
+        and max_shots_per_block(garr, dtype, WIDE) >= 1
+    )
+
+
+def span_route(garr, B: int, dtype: torch.dtype) -> str | None:
+    """The table route a ``bp_run`` call of this graph, batch and message
+    dtype takes on the card: ``SHARED`` where that route's gate admits it,
+    else ``WIDE`` where the wide route's does, else None (``bp_run`` then
+    runs ``bp_loop``)."""
+    if bp_span_supported(garr, B, dtype):
+        return SHARED
+    if bp_span_wide_supported(garr, B, dtype):
+        return WIDE
+    return None
+
+
+def shots_per_block(garr, B: int, dtype: torch.dtype, num_sms: int,
+                    route: str = SHARED) -> int:
+    """Shots per block: as many as fit on ``route``, but no more than it
+    takes to give every SM a block (B=512 f32 and B=1024 bf16 on the
+    flagship windows run 128 blocks of 4 and 8 shots on a 132-SM card)."""
+    return max(1, min(max_shots_per_block(garr, dtype, route), -(-B // num_sms)))
 
 
 @functools.cache
-def _span_entry(dtype: torch.dtype, masked: bool, ring: torch.dtype):
+def _span_entry(dtype: torch.dtype, masked: bool, ring: torch.dtype, route: str = SHARED):
     lib = cuda_build.load(SPAN_SOURCE)
     suffix = "_ring_bf16" if ring == torch.bfloat16 else ""
-    fn = getattr(lib, f"bp_span_{'pinned_' if masked else ''}{_ENTRY[dtype]}{suffix}")
+    wide = "wide_" if route == WIDE else ""
+    fn = getattr(lib, f"bp_span_{wide}{'pinned_' if masked else ''}{_ENTRY[dtype]}{suffix}")
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, ll, ll, ll, *[p] * 16, i, i, i, i, ll, i, i, i, i, *[f] * 5, p]
     fn.restype = ctypes.c_int
@@ -209,24 +260,29 @@ def _span_entry(dtype: torch.dtype, masked: bool, ring: torch.dtype):
 def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters, *,
             num_iter: int, hist_from: int, alpha: float, clip: float, masked: bool,
             freeze_messages: bool = True, posterior_matmul: bool = False,
-            return_synd: bool = False):
+            return_synd: bool = False, route: str | None = None):
     """One ``bp_run`` call's iterations: the arguments and results of
     ``ops.bp.bp_loop`` (``synd_hat`` [m_pad, B] int8 last when
     ``return_synd``: the kernel writes it only when asked).
 
     On CPU tensors this runs ``bp_loop`` (``bp_span.plain_calls``). On CUDA
-    tensors it launches ``csrc/bp_span.cu`` once (``bp_span.launches``
-    unmasked, ``bp_span.pinned_launches`` masked), or raises: the prior
-    must be 1-D, ``posterior_matmul`` False and the graph admitted by
-    ``bp_span_supported``. The kernel freezes every done shot, which
+    tensors it launches ``csrc/bp_span.cu`` once on the table route
+    ``span_route`` names (``route`` forces one, to check the wide route at
+    shapes the shared one takes): ``bp_span.launches`` unmasked and
+    ``bp_span.pinned_launches`` masked count the shared-table route,
+    ``bp_span.wide_launches`` and ``bp_span.pinned_wide_launches`` the wide
+    one. It raises where the route cannot take the call: the prior must be
+    1-D, ``posterior_matmul`` False and the graph admitted by the route's
+    gate. The kernel freezes every done shot, which
     ``freeze_messages=False`` permits; either way its outputs equal
     ``bp_loop``'s with ``freeze_messages=True``. ``hist`` [n, 4, B], f32
     or bf16 (the ring's type selects the kernel's entry point; a bf16 ring
     stores each f32 posterior rounded once to nearest even), is written in
     place; ``bp_span.bf16_ring_launches`` and
     ``bp_span.pinned_bf16_ring_launches`` count the unmasked and the masked
-    launches that took a bf16 ring. A block holds ``shots_per_block`` shots
-    and the most threads, up to 1024, that are a multiple of them.
+    launches that took a bf16 ring (either route). A block holds
+    ``shots_per_block`` shots and the most threads, up to 1024, that are a
+    multiple of them.
     """
     if mv.device.type == "cpu":
         bp_span.plain_calls += 1
@@ -238,10 +294,14 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
         raise ValueError(f"bp_span: unsupported device {mv.device}")
     n, dc, m_pad, dv = garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
     B = synd_t.shape[1]
-    if posterior_matmul or prior.ndim != 1 or not bp_span_supported(garr, B, mv.dtype):
+    if route is None:
+        route = span_route(garr, B, mv.dtype)
+    gate = {SHARED: bp_span_supported, WIDE: bp_span_wide_supported}.get(route)
+    if posterior_matmul or prior.ndim != 1 or gate is None or not gate(garr, B, mv.dtype):
         raise ValueError(
             f"bp_span: unsupported call (messages {tuple(mv.shape)} {mv.dtype}, "
-            f"prior {tuple(prior.shape)}, posterior_matmul={posterior_matmul})")
+            f"prior {tuple(prior.shape)}, posterior_matmul={posterior_matmul}, "
+            f"route {route})")
     write_hist = hist_from < num_iter
     checks = [
         ("mv", mv, (dc, m_pad, B), mv.dtype), ("prior", prior, (n,), torch.float32),
@@ -265,9 +325,9 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
     if write_hist and not hist.is_contiguous():
         raise ValueError("bp_span: hist must be contiguous (it is written in place)")
 
-    tables = span_tables(garr)  # on the graph's device, as garr
+    tables = span_tables(garr, route)  # on the graph's device, as garr
     sms = torch.cuda.get_device_properties(mv.device).multi_processor_count
-    shots = shots_per_block(garr, B, mv.dtype, sms)
+    shots = shots_per_block(garr, B, mv.dtype, sms, route)
     threads = MAX_THREADS // shots * shots
     prior, parity, synd_t, error, done, iters = (
         t.contiguous() for t in (prior, parity, synd_t, error, done, iters))
@@ -277,7 +337,7 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
     synd_hat = (torch.empty((m_pad, B), dtype=torch.int8, device=mv.device)
                 if return_synd else None)
     consts = [_storage_round(x, mv.dtype) for x in (alpha, clip, BIG, PIN_THRESH, PIN)]
-    lib, fn = _span_entry(mv.dtype, masked, ring)
+    lib, fn = _span_entry(mv.dtype, masked, ring, route)
     stream = torch.cuda.current_stream(mv.device).cuda_stream
     with torch.cuda.device(mv.device):
         code = fn(
@@ -291,11 +351,11 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
         )
     cuda_build.check(lib, code, "bp_span kernel")
     bf16_ring = ring == torch.bfloat16
+    counter = f"{'pinned_' if masked else ''}{'wide_' if route == WIDE else ''}launches"
+    setattr(bp_span, counter, getattr(bp_span, counter) + 1)
     if masked:
-        bp_span.pinned_launches += 1
         bp_span.pinned_bf16_ring_launches += bf16_ring
     else:
-        bp_span.launches += 1
         bp_span.bf16_ring_launches += bf16_ring
     out = (mv_out, hist, err_out, done_out, iters_out)
     return out + (synd_hat,) if return_synd else out
@@ -303,6 +363,8 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
 
 bp_span.launches = 0
 bp_span.pinned_launches = 0
+bp_span.wide_launches = 0
+bp_span.pinned_wide_launches = 0
 bp_span.bf16_ring_launches = 0
 bp_span.pinned_bf16_ring_launches = 0
 bp_span.plain_calls = 0

@@ -87,9 +87,12 @@ def gj_cuda_supported(m: int, n: int, W: int, fused: bool = False) -> bool:
 
 
 # the cluster route: blocks per shot it takes (8 is the portable cluster
-# size), and the most weight-2 pairs of its fused sweep
+# size), the most weight-2 pairs of its fused sweep, the candidates a round
+# tests, and the most words from one row of a block's state to the next
 CLUSTER_SIZES = (2, 4, 8)
 MAX_PAIRS = MAX_ORDER_W * (MAX_ORDER_W - 1) // 2
+ROUND_CANDIDATES = 2 * WARPS
+MAX_CLUSTER_STRIDE = 512
 
 
 def cluster_rows(m: int, C: int) -> int:
@@ -98,18 +101,24 @@ def cluster_rows(m: int, C: int) -> int:
     return -(-m // C)
 
 
+def cluster_stride(W: int) -> int:
+    """Words from one row of a cluster block's state to the next: W + 1
+    rounded up to a multiple of 4 (every row starts on 16 bytes)."""
+    return (W + 4) // 4 * 4
+
+
 def cluster_smem_layout(m: int, n: int, W: int, C: int, fused: bool = False) -> dict[str, int]:
     """Bytes of each shared-memory array of one block of a C-block cluster,
     in the order of the kernel's ``make_cluster_layout``."""
     R = cluster_rows(m, C)
     arrays = {
         # the sort's pairs first, then the block's rows of the state
-        "state": max(R * (W + 1) * 4, _next_pow2(n) * 8),
+        "state": max(R * cluster_stride(W) * 4, _next_pow2(n) * 8),
         "sorted_order": 2 * n,
         "pivot_columns": 2 * m,
         "pivot_rows": 2 * m,
-        "candidate_tests": 2 * WARPS * (ROW_WORDS + 1) * 4,
-        "pivot_row_copy": 4 * (W + 1),
+        "round_posts": 2 * CLUSTER_SIZES[-1] * ROUND_CANDIDATES * 4,
+        "holding_masks": ROUND_CANDIDATES * ROW_WORDS * 4,
     }
     if fused:
         arrays.update(column_sums=4 * n, pair_sums=4 * MAX_PAIRS, row_weights=4 * R,
@@ -126,16 +135,33 @@ def cluster_smem_bytes(m: int, n: int, W: int, C: int, fused: bool = False) -> i
 def _cluster_fits(m: int, n: int, W: int, C: int, fused: bool) -> bool:
     return (C in CLUSTER_SIZES and max(m, n) <= 65536
             and cluster_rows(m, C) <= 32 * ROW_WORDS
+            and cluster_stride(W) <= MAX_CLUSTER_STRIDE
             and cluster_smem_bytes(m, n, W, C, fused) <= MAX_SMEM)
 
 
 def gj_cluster_supported(m: int, n: int, W: int, fused: bool = False) -> int:
     """Shape gate of the cluster route: the least C of ``CLUSTER_SIZES``
     whose blocks each hold their ``cluster_rows`` (at most ``32 *
-    ROW_WORDS``) and arrays within ``MAX_SMEM``; 0 if none does. A [[288]]
+    ROW_WORDS``, each at most ``MAX_CLUSTER_STRIDE`` words: a lane holds
+    four 16-byte chunks of the pivot row) and arrays within ``MAX_SMEM``;
+    0 if none does. A [[288]]
     W=4 window (576x4896) takes C=2 and the [[144]] global DEM (936x8784)
     C=8."""
     return next((C for C in CLUSTER_SIZES if _cluster_fits(m, n, W, C, fused)), 0)
+
+
+def cluster_max_active(m: int, n: int, W: int, rank: int, C: int, fused: bool = False) -> int:
+    """The most C-block clusters of this shape the card runs at once
+    (``cudaOccupancyMaxActiveClusters``): a bucket of B shots runs in
+    ceil(B / this) waves. Builds the kernel; raises on a CUDA error."""
+    lib = cuda_build.load(SOURCE)
+    fn = lib.gj_cluster_max_active
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    got = fn(m, n, W, rank, C, int(fused))
+    if got < 0:
+        cuda_build.check(lib, -got, "gj_cluster_max_active")
+    return got
 
 
 def gj_route(m: int, n: int, W: int, fused: bool = False, cluster_blocks: int | None = None,

@@ -38,10 +38,14 @@ def _window72():
 
 @functools.cache
 def _graphs144():
-    """The [[144]] W=3 window PCMs (216x1656, 216x1728) and the global DEM."""
+    """The [[144]] W=3 window PCMs (216x1656, 216x1728), the global DEM, and
+    the [[288]] W=4 windows (r=6): an edge one (576x4752) and an interior
+    one (576x4896)."""
     _, _, dem, plan = build_bb_window_experiment(144, 0.004, 12, 3, 1)
+    plan288 = build_bb_window_experiment(288, 0.005, 6, 4, 1)[3]
     return {"window0": plan.windows[0].mat, "window1": plan.windows[1].mat,
-            "global": dem.chk}
+            "global": dem.chk, "w288_edge": plan288.windows[0].mat,
+            "w288": plan288.windows[1].mat}
 
 
 def _inputs(rng, masked, B):
@@ -163,6 +167,136 @@ def test_gate(graph, dtype, admitted, shots):
         assert bp_cuda.shots_per_block(garr, 64, dtype, 132) == 1
 
 
+@pytest.mark.parametrize("graph,dtype,route,shots", [
+    ("global", torch.float32, bp_cuda.WIDE, 1),
+    ("global", torch.bfloat16, bp_cuda.WIDE, 2),
+    ("w288", torch.float32, bp_cuda.WIDE, 2),
+    ("w288", torch.bfloat16, bp_cuda.SHARED, 1),
+    ("w288_edge", torch.float32, bp_cuda.SHARED, 1),
+    ("window1", torch.float32, bp_cuda.SHARED, 4),
+])
+def test_route(graph, dtype, route, shots):
+    """The table route each graph's calls take on the card, and its shots
+    per block: the global DEM and the interior [[288]] W=4 window in f32
+    take the wide route (the shared-table gate refuses them); a graph the
+    shared-table route admits keeps it."""
+    garr = graph_tensors(compile_graph(_graphs144()[graph]), "cpu")
+    assert bp_cuda.span_route(garr, 512, dtype) == route
+    assert bp_cuda.bp_span_supported(garr, 512, dtype) is (route == bp_cuda.SHARED)
+    assert bp_cuda.bp_span_wide_supported(garr, 512, dtype)
+    assert bp_cuda.max_shots_per_block(garr, dtype, route) == shots
+    assert bp_cuda.span_smem_bytes(garr, dtype, shots, route) <= bp_cuda.SMEM_MAX
+    assert bp_cuda.span_smem_bytes(garr, dtype, shots + 1, route) > bp_cuda.SMEM_MAX
+    assert bp_cuda.shots_per_block(garr, 8192, dtype, 132, route) == shots
+
+
+def test_wide_route_layout():
+    """The wide route's shared memory holds per-shot state only: the totals
+    written down in ``csrc/bp_span.cu``'s notes (180,272 B for one f32
+    global shot, 95,504 B a bf16 one, 110,848 B an f32 [[288]] interior
+    one), which are the shared-table layout less its tables and prior."""
+    g = _graphs144()
+    glob = graph_tensors(compile_graph(g["global"]), "cpu")
+    w288 = graph_tensors(compile_graph(g["w288"]), "cpu")
+    wide = bp_cuda.WIDE
+    assert bp_cuda.span_smem_bytes(glob, torch.float32, 1, wide) == 180_272
+    assert bp_cuda.span_smem_bytes(glob, torch.bfloat16, 1, wide) == 95_504
+    assert bp_cuda.span_smem_bytes(glob, torch.bfloat16, 2, wide) == 190_992
+    assert bp_cuda.span_smem_bytes(w288, torch.float32, 1, wide) == 110_848
+    assert bp_cuda.span_smem_bytes(w288, torch.float32, 2, wide) == 221_680
+    for garr in (glob, w288):
+        n, m_pad, dc, dv = garr["n"], garr["m_pad"], garr["dc"], garr["dv"]
+        tables = sum(-(-x // 16) * 16 for x in (4 * n, 2 * dc * m_pad, 2 * n * dv, 2 * m_pad))
+        for dt in (torch.float32, torch.bfloat16):
+            assert (bp_cuda.span_smem_bytes(garr, dt, 1)
+                    == bp_cuda.span_smem_bytes(garr, dt, 1, wide) + tables)
+
+
+@pytest.mark.parametrize("graph", ["global", "w288", "window1"])
+def test_wide_tables_equal_garr(graph):
+    """The wide route's tables hold ``garr``'s index tables as the bits of
+    uint16 (the global DEM's fill index 33,600 and its slots past 32,767
+    read back through the uint16 view), its degree table the validity
+    mask; the shared-table route refuses the global DEM's indices."""
+    g = compile_graph(_graphs144()[graph])
+    garr = graph_tensors(g, "cpu")
+    tables = bp_cuda.span_tables(garr, bp_cuda.WIDE)
+
+    def u16(t):
+        return t.to(torch.int32) & 0xFFFF
+
+    assert tables["cn_vn"].dtype == tables["vfc"].dtype == torch.int16
+    assert torch.equal(u16(tables["cn_vn"]).long(), garr["cn_vn_clip"])
+    assert torch.equal(u16(tables["vfc"]).long(), garr["vn_from_cn_flat"])
+    assert int(u16(tables["vfc"]).max()) == g.dc * g.m_pad  # the fill row
+    slots = torch.arange(g.dc)[:, None]
+    assert torch.equal(slots < tables["deg"][None], garr["cn_valid_sm"])
+    assert bp_cuda.span_tables(garr, bp_cuda.WIDE) is tables  # built once
+    assert (bp_cuda.span_tables(garr) is None) is (graph == "global")
+
+
+def test_wide_gate_rejects_valid_slots_out_of_order():
+    """The wide route walks each row's first ``deg`` slots too: a row whose
+    valid slots are not its first ones is refused on both routes."""
+    g = compile_graph(_window72()[0])
+    garr = graph_tensors(g, "cpu")
+    valid = garr["cn_valid_sm"].clone()
+    row = int(np.nonzero(g.cn_degree < g.dc)[0][0])
+    valid[0, row], valid[g.dc - 1, row] = False, True
+    garr["cn_valid_sm"] = valid
+    assert bp_cuda.span_tables(garr, bp_cuda.WIDE) is None
+    assert bp_cuda.span_route(garr, 512, torch.float32) is None
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_graph_plain_loop_matches_jax(rng, masked):
+    """The wide route's plain version on its own graph: ``bp_run`` on CPU
+    tensors of the interior [[288]] W=4 window (576x4896) against the JAX
+    ``bp_run``, f32, B=128, 12 iterations from channel-rate syndromes
+    (masked: a third of the VNs decided at their true values and peeled):
+    errors, convergence and iterations equal, history and messages
+    bit-equal."""
+    B = 128
+    _, _, _, plan = build_bb_window_experiment(288, 0.005, 6, 4, 1)
+    w = plan.windows[1]
+    H, p = w.mat, np.asarray(w.prior, np.float64)
+    n = H.shape[1]
+    prior = np.log((1 - p) / p).astype(np.float32)
+    errs = (rng.random((B, n)) < p).astype(np.int8)
+    synds = ((errs @ H.T) % 2).astype(np.uint8)
+    g = compile_graph(H)
+    vn = cn = None
+    done = np.zeros(B, bool)
+    if masked:
+        garr = graph_tensors(g, "cpu")
+        state = tdec.init_decimation_state(garr, torch.from_numpy(synds))
+        state = tdec.vn_set_values(garr, *state, torch.from_numpy(rng.random((B, n)) < 1 / 3),
+                                   torch.from_numpy(errs))
+        vn, cn, _, dead = (x.numpy() for x in tdec.peel(garr, *state))
+        done = dead
+    kw = dict(num_iter=12, alpha=1.0, clip=50.0, freeze_messages=True, history_mode="full")
+    mv_t, hist_t, err_t, done_t, it_t = _run_port(g, prior, synds, vn, cn, done, "float32",
+                                                  **kw)
+    garr_j = graph_device_arrays(g)
+    sj = jnp.asarray(synds)
+    err0 = np.zeros((B, n), np.int8) if vn is None else np.where(vn != -1, vn, 0)
+    hist_j, _, _, it_j = jbp.fresh_bp_state(garr_j, B)
+    out_j = jbp.bp_run(
+        garr_j, jbp.bp_init_messages(garr_j, prior, B), prior, sj,
+        jnp.full((B, n), -1, jnp.int8) if vn is None else jnp.asarray(vn),
+        sj.astype(jnp.int8) if cn is None else jnp.asarray(cn), hist_j,
+        jnp.asarray(err0, jnp.int8), jnp.asarray(done), it_j, msg_dtype="float32",
+        masked=masked, **kw)
+    mv_j, hist_j, err_j, done_j, it_j = (np.asarray(x, np.float32) if i < 2 else np.asarray(x)
+                                         for i, x in enumerate(out_j))
+    assert 0 < (done_j & ~done).sum() < (~done).sum()  # some converge, some not
+    np.testing.assert_array_equal(err_t, err_j)
+    np.testing.assert_array_equal(done_t, done_j)
+    np.testing.assert_array_equal(it_t, it_j)
+    np.testing.assert_array_equal(hist_t, hist_j)
+    np.testing.assert_array_equal(mv_t, mv_j)
+
+
 def test_smem_layout_at_window1():
     """The shared-memory totals written down in ``csrc/bp_span.cu``'s
     notes and PERF.md: 205,648 B for 4 f32 shots, 214,416 B for 8 bf16."""
@@ -211,9 +345,11 @@ def test_cpu_runs_the_plain_loop(rng, monkeypatch, masked):
     monkeypatch.setattr(cuda_build, "build", no_build)
     g, prior, synds, vn, cn, done = _inputs(rng, masked, 32)
     span, cn_upd = bp_cuda.bp_span, bp_cuda.cn_update
-    before = (span.plain_calls, span.launches, span.pinned_launches,
-              cn_upd.launches, cn_upd.pinned_launches)
+
+    def counts():
+        return (span.plain_calls, span.launches, span.pinned_launches, span.wide_launches,
+                span.pinned_wide_launches, cn_upd.launches, cn_upd.pinned_launches)
+
+    before = counts()
     _run_port(g, prior, synds, vn, cn, done, "float32", num_iter=6)
-    after = (span.plain_calls, span.launches, span.pinned_launches,
-             cn_upd.launches, cn_upd.pinned_launches)
-    assert after == (before[0] + 1, *before[1:])
+    assert counts() == (before[0] + 1, *before[1:])

@@ -91,19 +91,21 @@ def test_gj_kernel_bit_exact(card):
     assert bool(out["inconsistent"].any())
 
 
-def _bp_span_case(masked, dtype, B, seed):
+def _bp_span_case(masked, dtype, B, seed, spec=None):
     """bp_run inputs on the [[72]] x3 W=2 window graph (72x468 in the first
-    window), with real-looking syndromes and, masked, a peeled decimation
-    state that decides about a third of the VNs."""
+    window), or on ``spec``'s PCM and prior, with real-looking syndromes
+    and, masked, a peeled decimation state that decides about a third of
+    the VNs."""
     from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
     from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
     from slidingwindowdecoder_torch.ops import decimation
 
-    _, _, _, plan = build_bb_window_experiment(72, 0.01, 3, 2, 1)
-    H = plan.windows[1].mat
+    if spec is None:
+        spec = build_bb_window_experiment(72, 0.01, 3, 2, 1)[3].windows[1]
+    H = spec.mat
     rng = np.random.default_rng(seed)
     n = H.shape[1]
-    p = np.asarray(plan.windows[1].prior, np.float64)
+    p = np.asarray(spec.prior, np.float64)
     prior = np.log((1 - p) / p).astype(np.float32)
     errs = (rng.random((B, n)) < p).astype(np.int8)
     synds = torch.as_tensor((errs @ H.T) % 2, dtype=torch.uint8)
@@ -268,6 +270,118 @@ def test_bp_span_bf16_ring_matches_plain_loop(card, masked, dtype):
     assert torch.equal(err_k, err_p) and torch.equal(done_k, done_p)
     assert torch.equal(it_k, it_p)
     assert torch.equal(mv_k[:, :, ~done_p], mv_p[:, :, ~done_p])
+
+
+@pytest.mark.parametrize("ring", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bp_span_wide_route_matches_plain_loop(card, masked, dtype, ring):
+    """The wide (global-table) route forced on the [[72]] window graph, B=300
+    (a ragged last block), every entry point (message dtype x mode x ring
+    dtype): one launch counted in ``wide_launches`` or
+    ``pinned_wide_launches``, and the plain loop's outputs on the CPU:
+    error, done, iterations and the ring bit-equal, and the messages of
+    every shot not done."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, span_inputs
+
+    B = 300
+    H, prior, synds, err0, done0, kw = _bp_span_case(masked, dtype, B, 17)
+    n = H.shape[1]
+    kw.update(history_mode="full")
+    ring0 = (torch.randn((n, 4, B), generator=torch.Generator().manual_seed(17)) * 8).to(ring)
+    span = bp_cuda.bp_span
+    outs = []
+    for dev in ("cpu", card):
+        garr = graph_tensors(compile_graph(H), dev)
+        to = (lambda t: t.to(dev) if torch.is_tensor(t) else t)
+        args, skw = span_inputs(
+            garr, bp_init_messages_sm(garr, prior, B, dtype), prior, synds.to(dev),
+            ring0.to(dev), err0.to(dev), done0.to(dev),
+            torch.zeros(B, dtype=torch.int32, device=dev), **{k: to(v) for k, v in kw.items()})
+        before = span.wide_launches, span.pinned_wide_launches, span.launches, span.plain_calls
+        outs.append([x.cpu() for x in span(*args, **skw, route=bp_cuda.WIDE)])
+        after = span.wide_launches, span.pinned_wide_launches, span.launches, span.plain_calls
+        want = ((0, 0, 0, 1) if dev == "cpu" else (0, 1, 0, 0) if masked else (1, 0, 0, 0))
+        assert tuple(a - b for a, b in zip(after, before)) == want
+    (mv_p, hist_p, err_p, done_p, it_p), (mv_k, hist_k, err_k, done_k, it_k) = outs
+    assert hist_k.dtype == ring and 0 < int(done_p.sum()) < B
+    assert torch.equal(hist_k.float(), hist_p.float())
+    assert torch.equal(err_k, err_p) and torch.equal(done_k, done_p)
+    assert torch.equal(it_k, it_p)
+    assert torch.equal(mv_k[:, :, ~done_p], mv_p[:, :, ~done_p])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["288w4", "global"])
+def test_bp_span_wide_route_at_its_shapes(card, which, dtype, masked):
+    """``bp_run`` on the graphs the wide route serves, an interior [[288]]
+    W=4 window (576x4896; the shared-table route takes its bf16 calls) and
+    the [[144]] global DEM (936x8784): on the card one launch of the route
+    that ``span_route`` names and no ``cn_update`` launch, against the
+    plain loop on the CPU, error, done, iterations and history bit-equal,
+    and the messages of every shot not done."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, bp_run
+
+    B = 24
+    H, prior, synds, err0, done0, kw = _bp_span_case(masked, dtype, B, 19, _wide_spec(which))
+    n = H.shape[1]
+    kw["num_iter"] = 20
+    span, cn = bp_cuda.bp_span, bp_cuda.cn_update
+    route = bp_cuda.span_route(graph_tensors(compile_graph(H), "cpu"), B,
+                               torch.float32 if dtype == "float32" else torch.bfloat16)
+    assert route == (bp_cuda.SHARED if (which, dtype) == ("288w4", "bfloat16") else bp_cuda.WIDE)
+    counter = f"{'pinned_' if masked else ''}{'wide_' if route == bp_cuda.WIDE else ''}launches"
+    outs = []
+    for dev in ("cpu", card):
+        garr = graph_tensors(compile_graph(H), dev)
+        to = (lambda t: t.to(dev) if torch.is_tensor(t) else t)
+        before = getattr(span, counter), cn.launches + cn.pinned_launches
+        outs.append([x.cpu() for x in bp_run(
+            garr, bp_init_messages_sm(garr, prior, B, dtype), prior, synds.to(dev),
+            torch.zeros((n, 4, B), device=dev), err0.to(dev), done0.to(dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            **{k: to(v) for k, v in kw.items()})])
+        after = getattr(span, counter), cn.launches + cn.pinned_launches
+        assert (after[0] - before[0], after[1] - before[1]) == ((0, 0) if dev == "cpu"
+                                                                else (1, 0))
+    (mv_p, hist_p, err_p, done_p, it_p), (mv_k, hist_k, err_k, done_k, it_k) = outs
+    assert int(done_p.sum()) < B
+    assert torch.equal(err_k, err_p) and torch.equal(done_k, done_p)
+    assert torch.equal(it_k, it_p) and torch.equal(hist_k, hist_p)
+    assert torch.equal(mv_k[:, :, ~done_p], mv_p[:, :, ~done_p])
+
+
+def test_bp_span_wide_layout_matches_kernel(card):
+    """The wide route's shared-memory count (``span_smem_bytes`` with
+    ``route=WIDE``) equals the kernel's own layout
+    (``bp_span_wide_smem_bytes``) at the [[72]] window, an interior [[288]]
+    W=4 window and the [[144]] global DEM, in both dtypes, at every block
+    size the route allows."""
+    import ctypes
+
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.utils import cuda_build
+
+    fn = cuda_build.load(bp_cuda.SPAN_SOURCE).bp_span_wide_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    specs = [build_bb_window_experiment(72, 0.01, 3, 2, 1)[3].windows[1],
+             _wide_spec("288w4"), _wide_spec("global")]
+    for spec in specs:
+        garr = graph_tensors(compile_graph(spec.mat), "cpu")
+        for dtype in (torch.float32, torch.bfloat16):
+            shots = bp_cuda.max_shots_per_block(garr, dtype, bp_cuda.WIDE)
+            assert shots >= 1
+            for s in range(1, shots + 1):
+                assert fn(dtype.itemsize, garr["n"], garr["m_pad"], garr["dc"], garr["dv"],
+                          s) == bp_cuda.span_smem_bytes(garr, dtype, s, bp_cuda.WIDE)
 
 
 def _window144(which: int):

@@ -127,8 +127,8 @@ def test_cluster_route_layouts():
     assert plain["state"] == 16384 * 8 > 117 * 276 * 4
     assert fused == {**plain, "column_sums": 4 * n, "pair_sums": 4 * 496,
                      "row_weights": 4 * 117, "column_masks": 16 * W}
-    assert gf2_cuda.cluster_smem_bytes(m, n, W, 8, True) == 196_576
-    assert gf2_cuda.cluster_smem_bytes(576, 4896, 153, 2, True) == 216_384
+    assert gf2_cuda.cluster_smem_bytes(m, n, W, 8, True) == 196_432
+    assert gf2_cuda.cluster_smem_bytes(576, 4896, 153, 2, True) == 219_024
 
 
 def test_route_keeps_single_block_shapes_and_raises_beyond():

@@ -14,6 +14,7 @@ share.
     python3 tools/torch_profile_main_path.py --path gdg_288_41
     python3 tools/torch_profile_main_path.py --path cc_bpgd
     python3 tools/torch_profile_main_path.py --path global
+    python3 tools/torch_profile_main_path.py --path sw_288_w4
 
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
@@ -41,9 +42,14 @@ peels (sweeps, a host read each) and the rest (the argmax, the step's
 finished read, the compaction). ``global``: ``global_decoder``'s decoder
 (BP+OSD-CS-10 with the bench knobs and bf16 messages) on the whole [[144]]
 DEM (936x8784) at p=0.004, 16384 shots in two 8192-shot ``core`` calls as
-``global_decoder`` chunks them; stages as ``bposd`` (BP runs the per-op
-loop with ``cn_update.cu``, OSD the cluster route of kernel B); the
-profiled decode covers the first chunk. Seed 2024, as ``chip_smoke.py``.
+``global_decoder`` chunks them; stages as ``bposd`` (BP runs the wide
+route of ``bp_span.cu``, OSD the cluster route of kernel B); the profiled
+decode covers the first chunk. ``sw_288_w4``: the sw-288-w4 parity row's
+decoder, ``sliding_window_decoder``'s BP+OSD-CS-10 at its default knobs
+(f32) on the [[288,12,18]] W=4 windows (6 rounds, (W,F) = (4,1), p=0.005,
+576x4752/4896) over 16384 shots; stages as ``bposd`` (the interior
+windows' BP on the wide route, the edge windows' on the shared-table
+route; OSD on the cluster route). Seed 2024, as ``chip_smoke.py``.
 
 Prints one JSON line with the stage seconds and the kernel launches of the
 timed decode, then one with the top kernels by device time, the busy
@@ -79,6 +85,8 @@ GDG_288_KNOBS = dict(max_iter=16, max_step=60, max_tree_depth=4, max_side_depth=
 PROFILED_CC_SHOTS = 16384
 CC_SHOTS, CC_P = 65536, 0.04
 GLOBAL_BATCH = 8192
+# the sw-288-w4 row (tools/torch_validate_circuit_level.py): (N, p, rounds, W, F)
+SW_288_EXP = (288, 0.005, 6, 4, 1)
 
 
 
@@ -90,7 +98,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("bposd", "osd_window", "gdg", "gdg_spans", "gdg_288_41",
-                                       "cc_bpgd", "global"), default="bposd")
+                                       "cc_bpgd", "global", "sw_288_w4"), default="bposd")
     ap.add_argument("--gdg-bucket", type=int, default=512,
                     help="GDG ensemble_bucket (shots per ensemble bucket)")
     args = ap.parse_args()
@@ -128,6 +136,7 @@ def main() -> int:
         dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
     else:
         exp, shots = {"gdg_288_41": (GDG_288_EXP, GDG_288_SHOTS),
+                      "sw_288_w4": (SW_288_EXP, 16384),
                       "gdg": ((144, 0.005, 12, 3, 1), 8192),
                       "gdg_spans": ((144, 0.005, 12, 3, 1), 8192)}.get(
                           args.path, ((144, 0.004, 12, 3, 1), 16384))
@@ -165,10 +174,12 @@ def main() -> int:
             (gdg, "_ensemble_reduce", lambda *a: "reduce"),
             (gdg, "bp_run", lambda *a, **k: BURST_STAGE),
         ]
-    elif args.path in ("bposd", "global"):
+    elif args.path in ("bposd", "global", "sw_288_w4"):
         factory = window_decoder_factory(
             False, bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
             phase_b_spans=(48, 136), msg_dtype="bfloat16", device="cuda")
+        if args.path == "sw_288_w4":  # the row's own knobs: the defaults
+            factory = window_decoder_factory(False, device="cuda")
         full = GLOBAL_BATCH if args.path == "global" else shots
         patches = [
             (BPOSD, "_run_bp", lambda self, mv, synds, *_, **__: (
@@ -214,6 +225,7 @@ def main() -> int:
         k.launches = 0
     cn.pinned_launches = span.pinned_launches = gj.cluster_launches = osd.cluster_launches = 0
     span.bf16_ring_launches = span.pinned_bf16_ring_launches = 0
+    span.wide_launches = span.pinned_wide_launches = 0
     sweeps[0] = 0
     t0 = time.perf_counter()
     run()
@@ -221,6 +233,8 @@ def main() -> int:
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "bp_span_bf16_ring": span.bf16_ring_launches,
                 "bp_span_pinned_bf16_ring": span.pinned_bf16_ring_launches,
+                "bp_span_wide": span.wide_launches,
+                "bp_span_wide_pinned": span.pinned_wide_launches,
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,

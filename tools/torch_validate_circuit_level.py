@@ -132,6 +132,8 @@ def main() -> int:
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
     counters = {"bp_span": (bp_cuda.bp_span, "launches"),
                 "bp_span_pinned": (bp_cuda.bp_span, "pinned_launches"),
+                "bp_span_wide": (bp_cuda.bp_span, "wide_launches"),
+                "bp_span_wide_pinned": (bp_cuda.bp_span, "pinned_wide_launches"),
                 "bp_span_bf16_ring": (bp_cuda.bp_span, "bf16_ring_launches"),
                 "bp_span_pinned_bf16_ring": (bp_cuda.bp_span, "pinned_bf16_ring_launches"),
                 "cn_update": (bp_cuda.cn_update, "launches"),
