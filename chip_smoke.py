@@ -327,8 +327,9 @@ def card_line() -> str:
 def phase_build():
     """Build the three kernel sources (one ``nvcc`` each, started together)
     and, beside them, the probe copy of ``gauss_jordan.cu`` that
-    ``[gj_cluster]`` times (``tools/torch_probe_gj_cluster.py``); returns
-    the probe build's future."""
+    ``[gj_cluster]`` times (``tools/torch_probe_gj_cluster.py``); waits for
+    all four, so no build competes with a timed phase, and returns the
+    probe build."""
     from concurrent.futures import ThreadPoolExecutor
 
     from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
@@ -338,11 +339,12 @@ def phase_build():
     import torch_probe_gj_cluster as probe_tool
 
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(1)
-    probe = pool.submit(probe_tool.build_probe, cuda_build.CSRC / gf2_cuda.SOURCE, "pr9")
-    pool.shutdown(wait=False)
-    secs = cuda_build.build([bp_cuda.SOURCE, bp_cuda.SPAN_SOURCE, gf2_cuda.SOURCE])
-    log(f"[build] {time.perf_counter() - t0:.1f}s wall; per source {secs}")
+    with ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(probe_tool.build_probe)
+        secs = cuda_build.build([bp_cuda.SOURCE, bp_cuda.SPAN_SOURCE, gf2_cuda.SOURCE])
+        probe = probe.result()
+    log(f"[build] {time.perf_counter() - t0:.1f}s wall (the probe copy's included); per "
+        f"source {secs}")
     for src, text in cuda_build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -879,9 +881,10 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     garr, mv = args[0], args[1]
     masked = kw["masked"]
     B, n, dc, m_pad, dv = mv.shape[2], garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
+    # the card's calls (the CPU's run bp_span's plain loop)
+    span = bp_cuda.bp_span if route is None else functools.partial(bp_cuda._launch_span, route)
     route = route or bp_cuda.span_route(garr, B, mv.dtype)
     counter = f"{'pinned_' if masked else ''}{'wide_' if route == bp_cuda.WIDE else ''}launches"
-    loop_kw, kw = kw, {**kw, "route": route}
 
     def inputs(dev, k=None):  # the history ring is written in place: a copy each
         a = [t.to(dev) if torch.is_tensor(t) else t for t in args[1:]]
@@ -896,20 +899,20 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
 
     card_args = inputs("cuda")
     before = getattr(bp_cuda.bp_span, counter)
-    out = [x.cpu() for x in bp_cuda.bp_span(*card_args, **kw)]
+    out = [x.cpu() for x in span(*card_args, **kw)]
     torch.cuda.synchronize()
     if getattr(bp_cuda.bp_span, counter) != before + 1:
         raise SystemExit(f"[bp_span] {label}: the kernel was not launched once")
     t0 = time.perf_counter()
-    ref = bp_cuda.bp_span(*inputs("cpu", cpu_shots), **loop_kw)  # CPU: the plain loop
+    ref = bp_cuda.bp_span(*inputs("cpu", cpu_shots), **kw)  # CPU: the plain loop
     cpu_s = time.perf_counter() - t0
     k = B if cpu_shots is None else cpu_shots
     head = [out[0][:, :, :k], out[1][:, :, :k], *(x[:k] for x in out[2:5]),
             *(x[:, :k] for x in out[5:])]
     err = _span_diff(label if k == B else f"{label}, first {k} shots", head, ref)
 
-    ms = cuda_time_ms(lambda: bp_cuda.bp_span(*card_args, **kw), reps)
-    plain_ms = cuda_time_ms(lambda: bp_loop(*card_args, **loop_kw), 2)  # per-op loop
+    ms = cuda_time_ms(lambda: span(*card_args, **kw), reps)
+    plain_ms = cuda_time_ms(lambda: bp_loop(*card_args, **kw), 2)  # per-op loop
     ran = out[4] - args[9].cpu()  # iterations each shot ran in this call
     shot_iters, longest = int(ran.sum()), int(ran.max())
     edges = int(garr["cn_valid_sm"].sum())
@@ -942,8 +945,7 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
         f"{nbytes} -> {bytes_ms:.5f} ms), shared memory {smem / ms / 1e9:.1f} TB/s; CPU "
         f"plain {cpu_s:.1f}s")
     for hist_from in (0, kw["num_iter"]) if ring_times else ():  # always, or never
-        hist_ms = cuda_time_ms(lambda: bp_cuda.bp_span(
-            *card_args, **{**kw, "hist_from": hist_from}), reps)
+        hist_ms = cuda_time_ms(lambda: span(*card_args, **{**kw, "hist_from": hist_from}), reps)
         log(f"[bp_span] {label}: history from iteration {hist_from} -> {hist_ms:.4f} ms")
     res = {"table_route": route, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err,
@@ -953,7 +955,7 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
         f32_args = (*card_args[:6], card_args[6].float(), *card_args[7:])
         turns = {"bf16": [ms], "f32": []}
         for ring, a in (("f32", f32_args), ("bf16", card_args), ("f32", f32_args)):
-            turns[ring].append(cuda_time_ms(lambda: bp_cuda.bp_span(*a, **kw), reps))
+            turns[ring].append(cuda_time_ms(lambda: span(*a, **kw), reps))
         ms, f32_ms = (sum(turns[r]) / 2 for r in ("bf16", "f32"))
         f32_bytes_ms = (nbytes + 2 * hist_writes) / HBM_BYTES_PER_S * 1e3
         res.update(ms=ms, f32_ring_ms=f32_ms, f32_ring_bound_ms=max(ops_ms, f32_bytes_ms))
@@ -1510,7 +1512,7 @@ def _round_split(label, args, kw, C: int, fused_ms: float, elim_ms: float, probe
     phases (test and post, the wait for every block's posts, the decision,
     the pivot row's pull, the XOR and the round's end), and the sort and
     load, elimination and sweep shares of the fused launch; with the waves
-    of clusters the bucket runs in (``cluster_max_active``), the
+    of clusters the bucket runs in (the probe's ``max_active``), the
     elimination's time a round."""
     import torch
 
@@ -1537,7 +1539,7 @@ def _round_split(label, args, kw, C: int, fused_ms: float, elim_ms: float, probe
             and torch.equal(got["min_pm"].view(torch.int32), ref["min_pm"].view(torch.int32))):
         raise SystemExit(f"[gj_cluster] {label}: the probe build disagrees with the kernel")
     cnt, share = fs["counts_per_block"], fs["share_of_block_cycles"]
-    active = gf2_cuda.cluster_max_active(m, n, W, rank, C, True)
+    active = probe_tool.max_active(probe, m, n, W, C, True)
     waves = -(-B // active)
     split = {"steps_per_shot": cnt["steps"], "rounds_per_shot": cnt["rounds"],
              "dead_rounds_per_shot": cnt["dead_rounds"],
@@ -1563,10 +1565,10 @@ def phase_gj_cluster(plan, cap288, cap_global, probe):
     with the route forced to 4 blocks (random syndromes, 256 shots); the
     first OSD bucket of a [[288]] W=4 interior window (576x4896, C=2) and of
     the global decode (936x8784, C=8), both captured from the paths' runs
-    (real syndromes and BP reliabilities), each with the time before the
-    redesign (``GJ_CLUSTER_BEFORE_MS``) and its split (``_round_split``),
-    and the [[288]] bucket's fused launch also timed at C=4 and C=8. The
-    kernels line keeps the global case."""
+    (real syndromes and BP reliabilities), each with its split
+    (``_round_split``) and, in the log only, the time before the redesign
+    (``GJ_CLUSTER_BEFORE_MS``), and the [[288]] bucket's fused launch also
+    timed at C=4 and C=8. The kernels line keeps the global case."""
     import torch
 
     from slidingwindowdecoder_torch.ops import gf2_cuda
@@ -1576,6 +1578,8 @@ def phase_gj_cluster(plan, cap288, cap_global, probe):
         osd_candidate_patterns,
         pack_rows_host,
     )
+
+    import torch_probe_gj_cluster as probe_tool  # on the path since phase_build
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     spec, B = plan.windows[1], 256
@@ -1617,8 +1621,7 @@ def phase_gj_cluster(plan, cap288, cap_global, probe):
             Cr = gf2_cuda.gj_cluster_supported(kw["m"], kw["n"], W, True)
             split = _round_split(label, args, kw, Cr, fused["ms"], alone["ms"], probe)
             before = GJ_CLUSTER_BEFORE_MS[shape]
-            for name, r in got.items():
-                r["before_ms"] = before["fused" if "osd" in name else "alone"]
+            for r in got.values():
                 r["split"] = split
             log(f"[gj_cluster] {shape}: fused {fused['ms']:.4f} ms (before {before['fused']}, "
                 f"bound {fused['bound_ms']:.5f}: {fused['ms'] / fused['bound_ms']:.1f}x), "
@@ -1636,8 +1639,8 @@ def phase_gj_cluster(plan, cap288, cap_global, probe):
                     fused[f"ms_C{Cx}"] = ms
                     log(f"[gj_cluster] {shape} fused on clusters of {Cx}: {ms:.4f} ms ("
                         f"{gf2_cuda.cluster_smem_bytes(kw['m'], kw['n'], W, Cx, True)} B a "
-                        f"block, {gf2_cuda.cluster_max_active(kw['m'], kw['n'], W, kw['rank'], Cx, True)}"
-                        f" clusters at once)")
+                        f"block, {probe_tool.max_active(probe, kw['m'], kw['n'], W, Cx, True)} "
+                        f"clusters at once)")
                 gf2_cuda.osd_cs_fused.cluster_launches = 0
     return res
 
@@ -2200,7 +2203,7 @@ def main() -> int:
     t_all = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    probe_build = phase_build()
+    probe = phase_build()
     num_repeat = 12
     exp = (144, 0.004, num_repeat, 3, 1)
     _, _, dem, plan = build_bb_window_experiment(*exp)
@@ -2282,8 +2285,7 @@ def main() -> int:
     span_wide = phase_bp_span_wide(global_bp)
     if set(captured) != {(936, 8784), (576, 4896)}:
         raise SystemExit("[gj_cluster] a path ran no OSD bucket at 936x8784 or 576x4896")
-    gj_cluster = phase_gj_cluster(plan, captured[576, 4896], captured[936, 8784],
-                                  probe_build.result())
+    gj_cluster = phase_gj_cluster(plan, captured[576, 4896], captured[936, 8784], probe)
     pending.append(phase_global_slice())
     _, _, wdem, wplan = build_bb_window_experiment(*GDG_WIDE_EXP)
     wdet, wobs, _ = sample_dem_numpy(wdem, GDG_WIDE_SLICE_SHOTS, np.random.default_rng(SEED))

@@ -668,6 +668,10 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int k) {
 // the winner as gj_kernel does; each block flips the solution bits of its
 // own pivot rows into the last block's solution mask (shared-memory
 // atomics across the cluster), which stores the outputs.
+//
+// `tools/torch_probe_gj_cluster.py` places its timers at fixed lines and
+// snippets of this kernel's text (its ANCHORS); an edit that moves or
+// rewords one of them must update that list with it.
 template <bool FUSED, int KW>
 __global__ void __launch_bounds__(kThreads) gj_cluster_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -974,10 +978,8 @@ int launch(const Args& a, int B, void* stream) {
                     : launch_kw<FUSED, 16>(a, B, L.total, stream);
 }
 
-// The cluster route's launch of one instance; with `active`, only the most
-// clusters of this shape the card runs at once, into *active.
 template <bool FUSED, int KW>
-int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream, int* active) {
+int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream) {
   void (*kern)(const Args) = gj_cluster_kernel<FUSED, KW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -997,10 +999,6 @@ int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream, in
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (err != cudaSuccess) return (int)err;
-  if (active) {
-    *active = clusters;
-    return 0;
-  }
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;  // it could never run
   err = cudaLaunchKernelEx(&cfg, kern, a);
   if (err != cudaSuccess) return (int)err;
@@ -1008,18 +1006,17 @@ int launch_cluster_kw(const Args& a, int B, int C, size_t smem, void* stream, in
 }
 
 template <bool FUSED>
-int launch_cluster(const Args& a, int B, int C, void* stream, int* active = nullptr) {
-  if (B == 0 && !active) return 0;
+int launch_cluster(const Args& a, int B, int C, void* stream) {
+  if (B == 0) return 0;
   const ClusterLayout L = make_cluster_layout(a.m, a.n, a.W, C, FUSED);
   const int R = cluster_rows(a.m, C);
   if (C < 2 || C > kMaxCluster || R > 32 * kRowWords || a.m > 65536 || a.n > 65536 ||
       cluster_stride(a.W) > kMaxStride || a.order_w > kMaxTop || a.npairs > kMaxPairs ||
       L.total > 232448)
     return (int)cudaErrorInvalidValue;
-  if (B == 0) B = 1;  // a query: the shape of one shot
-  return R <= 128   ? launch_cluster_kw<FUSED, 4>(a, B, C, L.total, stream, active)
-         : R <= 256 ? launch_cluster_kw<FUSED, 8>(a, B, C, L.total, stream, active)
-                    : launch_cluster_kw<FUSED, 16>(a, B, C, L.total, stream, active);
+  return R <= 128   ? launch_cluster_kw<FUSED, 4>(a, B, C, L.total, stream)
+         : R <= 256 ? launch_cluster_kw<FUSED, 8>(a, B, C, L.total, stream)
+                    : launch_cluster_kw<FUSED, 16>(a, B, C, L.total, stream);
 }
 
 Args base_args(const void* H, const void* synd, const void* keys, void* incons, int m,
@@ -1100,16 +1097,6 @@ int osd_cs_fused_cluster(const void* H, const void* synd, const void* keys, cons
 // Shared memory of one block of a C-block cluster, as the launch computes it.
 long long gj_cluster_smem_bytes(int m, int n, int W, int C, int fused) {
   return (long long)make_cluster_layout(m, n, W, C, fused != 0).total;
-}
-
-// The most clusters of C blocks of this shape that the card runs at once
-// (cudaOccupancyMaxActiveClusters), or a negative CUDA error code.
-int gj_cluster_max_active(int m, int n, int W, int rank, int C, int fused) {
-  Args a = base_args(nullptr, nullptr, nullptr, nullptr, m, n, W, rank);
-  int active = 0;
-  const int err = fused ? launch_cluster<true>(a, 0, C, nullptr, &active)
-                        : launch_cluster<false>(a, 0, C, nullptr, &active);
-  return err ? -err : active;
 }
 
 const char* swd_error_string(int code) {

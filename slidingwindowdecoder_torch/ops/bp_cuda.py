@@ -260,15 +260,14 @@ def _span_entry(dtype: torch.dtype, masked: bool, ring: torch.dtype, route: str 
 def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters, *,
             num_iter: int, hist_from: int, alpha: float, clip: float, masked: bool,
             freeze_messages: bool = True, posterior_matmul: bool = False,
-            return_synd: bool = False, route: str | None = None):
+            return_synd: bool = False):
     """One ``bp_run`` call's iterations: the arguments and results of
     ``ops.bp.bp_loop`` (``synd_hat`` [m_pad, B] int8 last when
     ``return_synd``: the kernel writes it only when asked).
 
     On CPU tensors this runs ``bp_loop`` (``bp_span.plain_calls``). On CUDA
     tensors it launches ``csrc/bp_span.cu`` once on the table route
-    ``span_route`` names (``route`` forces one, to check the wide route at
-    shapes the shared one takes): ``bp_span.launches`` unmasked and
+    ``span_route`` names: ``bp_span.launches`` unmasked and
     ``bp_span.pinned_launches`` masked count the shared-table route,
     ``bp_span.wide_launches`` and ``bp_span.pinned_wide_launches`` the wide
     one. It raises where the route cannot take the call: the prior must be
@@ -292,10 +291,21 @@ def bp_span(garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
                        posterior_matmul=posterior_matmul, return_synd=return_synd)
     if mv.device.type != "cuda":
         raise ValueError(f"bp_span: unsupported device {mv.device}")
+    return _launch_span(span_route(garr, synd_t.shape[1], mv.dtype), garr, mv, prior, parity,
+                        synd_t, vn_state, hist, error, done, iters, num_iter=num_iter,
+                        hist_from=hist_from, alpha=alpha, clip=clip, masked=masked,
+                        posterior_matmul=posterior_matmul, return_synd=return_synd)
+
+
+def _launch_span(route, garr, mv, prior, parity, synd_t, vn_state, hist, error, done, iters,
+                 *, num_iter: int, hist_from: int, alpha: float, clip: float, masked: bool,
+                 freeze_messages: bool = True, posterior_matmul: bool = False,
+                 return_synd: bool = False):
+    """``bp_span``'s launch on CUDA tensors on the table route ``route``
+    (``SHARED`` or ``WIDE``); the checks of the wide route at shapes the
+    shared one takes call it directly."""
     n, dc, m_pad, dv = garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
     B = synd_t.shape[1]
-    if route is None:
-        route = span_route(garr, B, mv.dtype)
     gate = {SHARED: bp_span_supported, WIDE: bp_span_wide_supported}.get(route)
     if posterior_matmul or prior.ndim != 1 or gate is None or not gate(garr, B, mv.dtype):
         raise ValueError(

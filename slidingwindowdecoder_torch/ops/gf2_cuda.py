@@ -150,20 +150,6 @@ def gj_cluster_supported(m: int, n: int, W: int, fused: bool = False) -> int:
     return next((C for C in CLUSTER_SIZES if _cluster_fits(m, n, W, C, fused)), 0)
 
 
-def cluster_max_active(m: int, n: int, W: int, rank: int, C: int, fused: bool = False) -> int:
-    """The most C-block clusters of this shape the card runs at once
-    (``cudaOccupancyMaxActiveClusters``): a bucket of B shots runs in
-    ceil(B / this) waves. Builds the kernel; raises on a CUDA error."""
-    lib = cuda_build.load(SOURCE)
-    fn = lib.gj_cluster_max_active
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_int
-    got = fn(m, n, W, rank, C, int(fused))
-    if got < 0:
-        cuda_build.check(lib, -got, "gj_cluster_max_active")
-    return got
-
-
 def gj_route(m: int, n: int, W: int, fused: bool = False, cluster_blocks: int | None = None,
              what: str = "kernel B") -> int:
     """The route a CUDA call takes: 0 for the single-block route, else the

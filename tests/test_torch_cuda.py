@@ -5,6 +5,8 @@ without one. Run them there with
 ``python -m pytest tests/test_torch_cuda.py -q``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -276,9 +278,10 @@ def test_bp_span_bf16_ring_matches_plain_loop(card, masked, dtype):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bp_span_wide_route_matches_plain_loop(card, masked, dtype, ring):
-    """The wide (global-table) route forced on the [[72]] window graph, B=300
-    (a ragged last block), every entry point (message dtype x mode x ring
-    dtype): one launch counted in ``wide_launches`` or
+    """The wide (global-table) route forced (``bp_cuda._launch_span``, which
+    ``bp_span`` calls on the route ``span_route`` names) on the [[72]]
+    window graph, B=300 (a ragged last block), every entry point (message
+    dtype x mode x ring dtype): one launch counted in ``wide_launches`` or
     ``pinned_wide_launches``, and the plain loop's outputs on the CPU:
     error, done, iterations and the ring bit-equal, and the messages of
     every shot not done."""
@@ -292,6 +295,7 @@ def test_bp_span_wide_route_matches_plain_loop(card, masked, dtype, ring):
     kw.update(history_mode="full")
     ring0 = (torch.randn((n, 4, B), generator=torch.Generator().manual_seed(17)) * 8).to(ring)
     span = bp_cuda.bp_span
+    launch = {"cpu": span, card: functools.partial(bp_cuda._launch_span, bp_cuda.WIDE)}
     outs = []
     for dev in ("cpu", card):
         garr = graph_tensors(compile_graph(H), dev)
@@ -301,7 +305,7 @@ def test_bp_span_wide_route_matches_plain_loop(card, masked, dtype, ring):
             ring0.to(dev), err0.to(dev), done0.to(dev),
             torch.zeros(B, dtype=torch.int32, device=dev), **{k: to(v) for k, v in kw.items()})
         before = span.wide_launches, span.pinned_wide_launches, span.launches, span.plain_calls
-        outs.append([x.cpu() for x in span(*args, **skw, route=bp_cuda.WIDE)])
+        outs.append([x.cpu() for x in launch[dev](*args, **skw)])
         after = span.wide_launches, span.pinned_wide_launches, span.launches, span.plain_calls
         want = ((0, 0, 0, 1) if dev == "cpu" else (0, 1, 0, 0) if masked else (1, 0, 0, 0))
         assert tuple(a - b for a, b in zip(after, before)) == want

@@ -1,30 +1,26 @@
 #!/usr/bin/env python3
 """Where one shot's time goes in kernel B's cluster route (one CUDA card).
 
-Builds a probe copy of a ``gauss_jordan.cu`` (the checkout's, or another
-tree's with ``--source``) with ``clock64`` timers written into the cluster
-kernel at fixed places of its text, and runs it on the first OSD bucket of
-the [[144]] global decode (936x8784, BP+OSD-CS-10 with the bench knobs,
-bf16, seed 2024) and of a [[288]] W=4 interior window (576x4896, its
-window-1 detectors decoded by ``sliding_window_decoder``'s BP+OSD-CS-10,
-seed 2024): the buckets ``chip_smoke.py``'s ``[gj_cluster]`` takes. The
-shipped kernel has no switch for this; the probe copy is built under
-``build/probe`` and used only here.
+Builds a probe copy of the checkout's ``gauss_jordan.cu`` with ``clock64``
+timers written into the cluster kernel at fixed places of its text
+(``ANCHORS``), and runs it on the first OSD bucket of the [[144]] global
+decode (936x8784, BP+OSD-CS-10 with the bench knobs, bf16, seed 2024) and
+of a [[288]] W=4 interior window (576x4896, its window-1 detectors decoded
+by ``sliding_window_decoder``'s BP+OSD-CS-10, seed 2024): the buckets
+``chip_smoke.py``'s ``[gj_cluster]`` takes. The shipped kernel has no
+switch for this; the probe copy is built under ``build/probe`` and used
+only here and by ``chip_smoke.py`` (``build_probe``, ``probe_split``,
+``max_active``).
 
-    python3 tools/torch_probe_gj_cluster.py [--source PATH] [--design pr7|pr9]
+    python3 tools/torch_probe_gj_cluster.py [--reps N]
 
-``--design`` names the kernel text the timers are placed in: ``pr7`` the
-first cluster design (a cluster barrier, three block barriers and two
-pulls through distributed shared memory a round, the sweep passed from
-block to block), ``pr9`` the redesign and the default (the posts sent as
-st.async onto each block's mbarrier, two block barriers a round, the
-pivot row pulled into registers, the sweep pipelined). ``chip_smoke.py``
-uses ``build_probe`` and ``probe_split`` for its ``[gj_cluster]`` split. Thread 0 of every block sums the cycles of each phase of its
-own timeline (a barrier's wait counts in the phase that ends at it) and
-the rounds, dead rounds and steps; the sums over the blocks come back as
-means per block. The tool also prints both entry points' times on the
-uninstrumented build of the same source (CUDA events), and checks the
-probe build's outputs against the plain versions.
+Thread 0 of every block sums the cycles of each phase of its own timeline
+(a barrier's wait counts in the phase that ends at it) and the rounds, dead
+rounds and steps; the sums over the blocks come back as means per block.
+The probe copy also answers how many clusters of its kernel the card runs
+at once (``max_active``). The tool also prints both entry points' times on
+the shipped build (CUDA events), and checks the probe build's outputs
+against the plain versions.
 
 Prints one JSON line per bucket and entry point.
 """
@@ -35,7 +31,6 @@ import argparse
 import ctypes
 import hashlib
 import json
-import os
 import subprocess
 import sys
 import time
@@ -65,6 +60,41 @@ extern "C" int swd_probe_reset() {
   unsigned long long z[32] = {0};
   return (int)cudaMemcpyToSymbol(swd_probe_acc, z, sizeof(z));
 }
+// The most C-block clusters of the probe kernel the card runs at once at
+// this shape, with the shipped launch's choice of template (a negative
+// CUDA error code on failure).
+template <bool FUSED, int KW>
+static int swd_probe_active_kw(int C, size_t smem) {
+  void (*kern)(const Args) = gj_cluster_kernel<FUSED, KW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  return err != cudaSuccess ? -(int)err : clusters;
+}
+template <bool FUSED>
+static int swd_probe_active(int m, int n, int W, int C) {
+  const size_t smem = make_cluster_layout(m, n, W, C, FUSED).total;
+  const int R = cluster_rows(m, C);
+  return R <= 128   ? swd_probe_active_kw<FUSED, 4>(C, smem)
+         : R <= 256 ? swd_probe_active_kw<FUSED, 8>(C, smem)
+                    : swd_probe_active_kw<FUSED, 16>(C, smem);
+}
+extern "C" int swd_probe_max_active(int m, int n, int W, int C, int fused) {
+  return fused ? swd_probe_active<true>(m, n, W, C) : swd_probe_active<false>(m, n, W, C);
+}
 """
 
 # per-block sums, kept by thread 0 in registers; index = position in
@@ -85,58 +115,21 @@ def _c(name):
     return len(PHASES) + COUNTS.index(name)
 
 
-# (anchor, replacement) pairs in the cluster kernel's text, by design; each
-# anchor must occur exactly once in that kernel. (LINE, text, (before,
-# after)) puts ``before`` and ``after`` around the one line holding ``text``.
+# (anchor, replacement) pairs in the cluster kernel's text; each anchor must
+# occur exactly once in that kernel. (LINE, text, (before, after)) puts
+# ``before`` and ``after`` around the one line holding ``text``. They follow
+# the kernel's text: an edit to ``gj_cluster_kernel`` that moves one of them
+# must update this list.
 LINE = "line"
-ANCHORS = {
-    "pr7": [
-        ("  extern __shared__ __align__(16) unsigned char smem[];\n  cg::cluster_group cluster",
-         "  extern __shared__ __align__(16) unsigned char smem[];\n" + _DECLS
-         + "  cg::cluster_group cluster"),
-        ("  int pos = 0, r = 0, round = 0;\n  while (r < rank && pos < n) {\n",
-         f"  pr_mark({_p('load')});\n  const long long pr_e0 = pr_t;\n"
-         "  int pos = 0, r = 0, round = 0;\n  while (r < rank && pos < n) {\n"
-         f"    pr_acc[{_c('rounds')}] += 1;\n"),
-        ("    cluster.sync();  // every block's posts of this round are written\n",
-         f"    pr_mark({_p('test')});\n"
-         "    cluster.sync();  // every block's posts of this round are written\n"
-         f"    pr_mark({_p('cluster_sync')});\n"),
-        ("    if (win < 0) {  // every candidate of this round is dead in every block\n",
-         f"    pr_mark({_p('decide')});\n"
-         "    if (win < 0) {  // every candidate of this round is dead in every block\n"
-         f"      pr_acc[{_c('dead_rounds')}] += 1;\n"),
-        ("    for (int w = tid; w < Wp1; w += kThreads) prbuf[w] = src[w];\n    __syncthreads();\n",
-         "    for (int w = tid; w < Wp1; w += kThreads) prbuf[w] = src[w];\n    __syncthreads();\n"
-         f"    pr_mark({_p('pull')});\n"),
-        ("    ++r;\n    pos += win + 1;\n    __syncthreads();\n  }\n",
-         f"    ++r;\n    pos += win + 1;\n    __syncthreads();\n    pr_mark({_p('xor')});\n"
-         f"    pr_acc[{_c('steps')}] += 1;\n  }}\n"
-         f"  pr_acc[{_p('elimination')}] += PROBE_T() - pr_e0;\n  pr_t = PROBE_T();\n"),
-        ("  if (!FUSED) {\n    uint32_t* out = a.state_out + ((long long)b * m + r0) * Wp1;",
-         f"  if (!FUSED) {{\n    pr_mark({_p('finish')});\n"
-         "    uint32_t* out = a.state_out + ((long long)b * m + r0) * Wp1;"),
-        ("    cluster.sync();  // no block leaves while block 0 reads it\n    return;\n",
-         "    cluster.sync();  // no block leaves while block 0 reads it\n"
-         f"    pr_mark({_p('finish')});\n" + _FLUSH.replace("\n  ", "\n    ") + "    return;\n"),
-        ("  // a_j and the Gram terms: block c continues block c-1's sums over its rows\n",
-         f"  pr_mark({_p('sweep_setup')});\n"
-         "  // a_j and the Gram terms: block c continues block c-1's sums over its rows\n"),
-        ("  if (q == last) {  // the winner, as gj_kernel picks it\n",
-         f"  pr_mark({_p('sweep')});\n  if (q == last) {{  // the winner, as gj_kernel picks it\n"),
-        ("  if (q == last) store_solution(a, b, n, W, osdm, solm);\n}\n",
-         "  if (q == last) store_solution(a, b, n, W, osdm, solm);\n"
-         f"  pr_mark({_p('finish')});\n" + _FLUSH + "}\n"),
-    ],
-}
-_SAME = {0, 5, 6, 7, 9}  # the pr7 anchors whose text the redesign keeps
-ANCHORS["pr9"] = [a for i, a in enumerate(ANCHORS["pr7"]) if i in _SAME] + [
-    (LINE, "if (q == last) store_solution", ("", f"  pr_mark({_p('finish')});\n" + _FLUSH)),
+ANCHORS = [
+    ("  extern __shared__ __align__(16) unsigned char smem[];\n  cg::cluster_group cluster",
+     "  extern __shared__ __align__(16) unsigned char smem[];\n" + _DECLS
+     + "  cg::cluster_group cluster"),
     ("  int pos = 0, r = 0, round = 0;\n  while (r < rank && pos < n) {\n",
      f"  pr_mark({_p('load')});\n  const long long pr_e0 = pr_t;\n"
      "  int pos = 0, r = 0, round = 0;\n  while (r < rank && pos < n) {\n"
      f"    pr_acc[{_c('rounds')}] += 1;\n"),
-    # the round's wait, whatever waits (a cluster barrier, an mbarrier)
+    # the round's wait for every block's posts
     (LINE, "// every block's posts of this round are in every block",
      (f"    pr_mark({_p('test')});\n", f"    pr_mark({_p('cluster_sync')});\n")),
     ("    if (!any) {  // every candidate of this round is dead in every block\n",
@@ -146,22 +139,35 @@ ANCHORS["pr9"] = [a for i, a in enumerate(ANCHORS["pr7"]) if i in _SAME] + [
     # the pivot row's pull ends where the warp's first holding row begins
     (LINE, "for (int t = warp; t < total; t += kWarps) {",
      (f"      pr_mark({_p('pull')});\n", "")),
+    ("    ++r;\n    pos += win + 1;\n    __syncthreads();\n  }\n",
+     f"    ++r;\n    pos += win + 1;\n    __syncthreads();\n    pr_mark({_p('xor')});\n"
+     f"    pr_acc[{_c('steps')}] += 1;\n  }}\n"
+     f"  pr_acc[{_p('elimination')}] += PROBE_T() - pr_e0;\n  pr_t = PROBE_T();\n"),
+    ("  if (!FUSED) {\n    uint32_t* out = a.state_out + ((long long)b * m + r0) * Wp1;",
+     f"  if (!FUSED) {{\n    pr_mark({_p('finish')});\n"
+     "    uint32_t* out = a.state_out + ((long long)b * m + r0) * Wp1;"),
+    ("    cluster.sync();  // no block leaves while block 0 reads it\n    return;\n",
+     "    cluster.sync();  // no block leaves while block 0 reads it\n"
+     f"    pr_mark({_p('finish')});\n" + _FLUSH.replace("\n  ", "\n    ") + "    return;\n"),
     ("  // a_j and the Gram terms, pipelined: at stage s block q continues block\n",
      f"  pr_mark({_p('sweep_setup')});\n"
      "  // a_j and the Gram terms, pipelined: at stage s block q continues block\n"),
+    ("  if (q == last) {  // the winner, as gj_kernel picks it\n",
+     f"  pr_mark({_p('sweep')});\n  if (q == last) {{  // the winner, as gj_kernel picks it\n"),
+    (LINE, "if (q == last) store_solution", ("", f"  pr_mark({_p('finish')});\n" + _FLUSH)),
 ]
 
 
-def instrument(text: str, design: str) -> str:
-    """The probe copy of ``text``: the anchors of ``design`` replaced in the
-    cluster kernel's body (from its signature to the next launch helper),
-    the counters and their read-out functions added."""
+def instrument(text: str) -> str:
+    """The probe copy of ``text``: the anchors replaced in the cluster
+    kernel's body (from its signature to the next launch helper), the
+    counters, their read-out functions and the occupancy query added."""
     head, sep, body = text.partition("gj_cluster_kernel(const Args a) {")
     if not sep:
         raise SystemExit("no gj_cluster_kernel in the source")
     end = body.index("\ntemplate <bool FUSED, int KW>\nint launch_kw")
     kern, rest = body[:end], body[end:]
-    for anchor, *repl in ANCHORS[design]:
+    for anchor, *repl in ANCHORS:
         if anchor == LINE:
             text_, (before, after) = repl
             lines = kern.split("\n")
@@ -180,10 +186,12 @@ def instrument(text: str, design: str) -> str:
     return head + sep + kern + rest + _EPILOGUE
 
 
-def build_probe(source: Path, design: str) -> ctypes.CDLL:
+def build_probe() -> ctypes.CDLL:
+    """The probe copy of the checkout's ``gauss_jordan.cu``, built (once for
+    each text) under ``build/probe`` and loaded."""
     from slidingwindowdecoder_torch.utils import cuda_build
 
-    text = instrument(source.read_text(), design)
+    text = instrument((cuda_build.CSRC / "gauss_jordan.cu").read_text())
     digest = hashlib.sha256((text + " ".join(cuda_build.NVCC_FLAGS)).encode()).hexdigest()[:16]
     out = cuda_build.BUILD_DIR / "probe" / f"gauss_jordan_probe-{digest}.so"
     if not out.exists():
@@ -199,29 +207,20 @@ def build_probe(source: Path, design: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     lib.swd_error_string.argtypes = [ctypes.c_int]
     lib.swd_error_string.restype = ctypes.c_char_p
+    lib.swd_probe_max_active.argtypes = [ctypes.c_int] * 5
+    lib.swd_probe_max_active.restype = ctypes.c_int
     return lib
 
 
-def build_plain(source: Path) -> ctypes.CDLL:
-    """The uninstrumented build of ``source`` (the checkout's own goes
-    through ``cuda_build``)."""
-    from slidingwindowdecoder_torch.utils import cuda_build
-
-    if source.resolve() == (cuda_build.CSRC / "gauss_jordan.cu").resolve():
-        return cuda_build.load("gauss_jordan.cu")
-    text = source.read_text()
-    digest = hashlib.sha256((text + " ".join(cuda_build.NVCC_FLAGS)).encode()).hexdigest()[:16]
-    out = cuda_build.BUILD_DIR / "probe" / f"gauss_jordan_plain-{digest}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
-                               str(source)], capture_output=True, text=True)
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    lib.swd_error_string.argtypes = [ctypes.c_int]
-    lib.swd_error_string.restype = ctypes.c_char_p
-    return lib
+def max_active(probe, m: int, n: int, W: int, C: int, fused: bool) -> int:
+    """The most C-block clusters of this shape the card runs at once
+    (``cudaOccupancyMaxActiveClusters`` on the probe build's kernel, whose
+    shared memory is the shipped kernel's): a bucket of B shots runs in
+    ceil(B / this) waves."""
+    got = probe.swd_probe_max_active(m, n, W, C, int(fused))
+    if got < 0:
+        raise SystemExit(f"occupancy query failed: {probe.swd_error_string(-got).decode()}")
+    return got
 
 
 def entry_from(lib):
@@ -354,9 +353,6 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", type=Path,
-                    default=ROOT / "slidingwindowdecoder_torch" / "csrc" / "gauss_jordan.cu")
-    ap.add_argument("--design", choices=sorted(ANCHORS), default="pr9")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -368,8 +364,7 @@ def main() -> int:
         ordered_gauss_jordan_key,
     )
 
-    probe, plain = build_probe(args.source, args.design), build_plain(args.source)
-    orig_entry = gf2_cuda._entry
+    probe = build_probe()
     for label, a, k in buckets():
         Hw, synd, key, llr = a[:4]
         m, n, rank, meta = k["m"], k["n"], k["rank"], k["meta"]
@@ -387,20 +382,16 @@ def main() -> int:
         }
         steps = (ref["piv_col"] >= 0).sum(dim=1).cpu().numpy()
         for name, call in calls.items():
-            gf2_cuda._entry = entry_from(plain)
-            try:
+            call()  # the shipped build
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            for _ in range(args.reps):
                 call()
-                torch.cuda.synchronize()
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                    enable_timing=True)
-                start.record()
-                for _ in range(args.reps):
-                    call()
-                end.record()
-                torch.cuda.synchronize()
-                ms = start.elapsed_time(end) / args.reps
-            finally:
-                gf2_cuda._entry = orig_entry
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / args.reps
             out, split = probe_split(probe, call, B * C)
             if name == "osd_cs_fused_cluster":
                 ok = (torch.equal(out["solution"], ref_sol)
@@ -408,10 +399,9 @@ def main() -> int:
             else:
                 ok = all(torch.equal(out[x], ref[x]) for x in ref)
             rec = {
-                "bucket": label, "entry": name, "design": args.design,
-                "source": str(args.source.relative_to(ROOT) if args.source.is_relative_to(ROOT)
-                              else args.source),
-                "shots": B, "C": C, "bit_exact_probe_build": ok, "ms": ms,
+                "bucket": label, "entry": name, "shots": B, "C": C,
+                "clusters_at_once": max_active(probe, m, n, W, C, "osd" in name),
+                "bit_exact_probe_build": ok, "ms": ms,
                 "probe_ms": split.pop("probe_ms"),
                 "steps_per_shot_plain": float(steps.mean()),
                 "rounds_per_shot_plain_K8": float(round_split(ref, key, rank, 8).mean()),
