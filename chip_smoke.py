@@ -18,6 +18,9 @@ Phases (any failure exits non-zero; nothing is caught):
    B in {16384, 512}, with forced ties, clipping and padding: bit-exact
    (no path launches kernel A now: it is the CN stage of the per-op loop,
    the plain version the fused kernel's cases are timed beside);
+2b. ``[bp4_cn]``: kernel A at BP4's shapes, [6, 448, 2048] ([[882]], a
+   bp4 row's batch) and [20, 192, 4096] ([[362]], CAMEL's 4 x 1024 branch
+   lanes), f32, against its plain version: bit-exact on every valid edge;
 3. the pinned kernel A (masked BP) against its plain version at [35, 224,
    B], B in {512, 16384}, on a [[288]] W=4 window (m_pad 608) and on the
    [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, and on
@@ -35,6 +38,13 @@ Phases (any failure exits non-zero; nothing is caught):
    reliabilities of the seed-2024 samples); solution, OSD-0, inconsistency
    and the bits of min_pm equal, with its time beside the standalone
    elimination's, kernel B's time before the fused design and the bound;
+4c. ``[osd_e]``: OSD-E of order 7 (127 candidates) on a 216x1728 bucket
+   of 256 shots: ``gauss_jordan_key`` against the plain elimination on the
+   card and on the CPU, then ``osd_decode``'s OSD-E branch (the kernel and
+   the dense sweep) on the card against the plain elimination and sweep on
+   the CPU: solution, OSD-0, inconsistency and the bits of min_pm equal;
+   then ``BPOSD`` and ``OSDWindow`` with ``osd_method="osd_e"`` on 64
+   [[72]] window syndromes, card vs CPU, no shot differing;
 5. the fused BP kernel (``bp_span.cu``: a whole ``bp_run`` call in one
    launch) on the card against the plain loop on the CPU at every shape
    the paths give it, on window-0 syndromes of the seed-2024 samples: the
@@ -165,6 +175,19 @@ Phases (any failure exits non-zero; nothing is caught):
    216x1728; 576x4896 and 576x4752, one shot a block), and on an unmasked
    call (the window-0 pre-BP, 8192 shots), each timed beside the same
    input with an f32 ring, with both bounds;
+11c. ``[bp4]``: bp4-osdcs (BP4 + OSD-CS-10 per basis on [[882]], p = 0.1)
+   and camel-362 (CAMEL on [[362]], p = 0.02), ``[phenom]``: phenom-osd and
+   phenom-gdg ([hx | I] of [[288]], p = 0.03, p_synd = 1e-3, BP+OSD-CS-10
+   and GDG), ``[shyps]``: shyps-window and shyps-global (r = 3, p = 0.001,
+   4 rounds, BP+OSD-CS over the weight-1 candidates): each row through
+   ``harness.parity_rows.run_row`` on 4096-16384 shots from seed 2024,
+   held to the port's own count (``ROW_FORMS``) and within 3 sigma of the
+   reference's rate, with the launch counts read around it (``cn_update``
+   with ``osd_cs_fused`` for BP4+OSD, ``cn_update`` alone for CAMEL,
+   ``bp_span`` with ``osd_cs_fused`` or ``bp_span_pinned`` for the rest);
+   then the first 64 shots of bp4-osdcs, camel-362, phenom-osd and both
+   SHYPS forms on the card and by the plain versions on the CPU (no shot
+   may differ);
 12. the CPU halves of every card-vs-CPU phase (``run_cpu_halves``);
 13. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
@@ -172,7 +195,7 @@ Phases (any failure exits non-zero; nothing is caught):
 The card-vs-CPU phases run their card halves in place and defer their CPU
 halves (the 256 shortened, 32 GDG, 32 bf16 GDG and 16 [[288]] GDG shots,
 the 256 serial syndromes, the 32 global and 256 [[882]] shots, the small
-[[72]] inputs) to step 12, after every timed phase, so that no rate or
+[[72]] inputs, the 64-shot row slices) to step 12, after every timed phase, so that no rate or
 time the script reports is read under their load; they run there in eight
 single-threaded worker processes, which end on any exit.
 
@@ -2187,6 +2210,264 @@ def phase_bp_span_bf16_ring(plans, gdet, captured: dict):
     return res
 
 
+# ---------------------------------------------------------------------------
+# BP4, CAMEL and the phenomenological and SHYPS drivers: short forms of six
+# of the parity rows of ``harness.parity_rows`` at seed 2024, through the
+# rows' entry points (``run_row``; the full rows run in
+# tools/torch_validate_depolarizing.py): the row, its shots here, the
+# port's own count at seed 2024 (its first run on the card, PERF.md), and
+# the kernels it may launch (BP4's CN stage is kernel A; its OSD, the
+# windows' and the whole DEM's, kernel B; the other BP on the fused kernel)
+ROW_FORMS = {
+    "bp4-osdcs": (8192, 2, ("cn_update", "osd_cs_fused")),
+    "camel-362": (4096, 0, ("cn_update",)),
+    "phenom-osd": (16384, 348, ("bp_span", "osd_cs_fused")),
+    "phenom-gdg": (4096, 5, ("bp_span", "bp_span_pinned")),
+    "shyps-window": (4096, 28, ("bp_span", "osd_cs_fused")),
+    "shyps-global": (4096, 29, ("bp_span", "osd_cs_fused")),
+}
+# the rows whose first shots are decoded on the card and on the CPU
+ROW_SLICES, ROW_SLICE_SHOTS = ("bp4-osdcs", "camel-362", "phenom-osd", "shyps-window",
+                               "shyps-global"), 64
+# OSD-E in ``[osd_e]``: its order and the bucket (216x1728)
+OSD_E_ORDER, OSD_E_SHOTS = 7, 256
+
+
+def phase_bp4_cn():
+    """``[bp4_cn]``: kernel A at BP4's shapes (one launch a basis an
+    iteration): the [[882]] QC-GHP graph (441x882, dc 6, m_pad 448) at a
+    2048-shot batch of the bp4 rows, and the [[362]] cycle-assembled graph
+    (171x362, dc 20, m_pad 192) at CAMEL's 4 x 1024 branch lanes, f32, on
+    random messages with ties, equal values, zeros and values beyond the
+    clip (0 at invalid slots, as BP4's messages are), against its plain
+    version on the card: bit-exact on every valid edge, with the time and
+    the bytes bound."""
+    import torch
+
+    from slidingwindowdecoder_torch.codes import (
+        create_cycle_assemble_codes,
+        create_cyclic_permuting_matrix,
+        create_QC_GHP_codes,
+    )
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops.bp import _cn_update_sm
+    from slidingwindowdecoder_torch.ops.bp_cuda import cn_update
+
+    c882 = create_QC_GHP_codes(63, create_cyclic_permuting_matrix(7, [27, 54, 0]), [0, 1, 6])
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    result = {"max_abs_err": 0.0}
+    for name, H, B, alpha in (("bp4_882", c882.hx, 2048, 0.625),
+                              ("camel_362", create_cycle_assemble_codes(19, 3).hx, 4096, 0.8)):
+        g = compile_graph(H)
+        valid = graph_tensors(g, "cuda")["cn_valid_sm"]
+        dc, m_pad = g.dc, g.m_pad
+        mv = torch.randn((dc, m_pad, B), generator=gen, device="cuda") * 30
+        mv[1, ::3] = -mv[0, ::3]  # ties of |x| between slots 0 and 1
+        mv[2, ::5] = mv[3, ::5]  # equal values
+        mv[4, ::7] = 0.0  # zeros count as negative
+        mv[5, ::11] = 80.0  # beyond the clip
+        mv = torch.where(valid[:, :, None], mv, 0.0)
+        parity = torch.randint(0, 2, (m_pad, B), generator=gen, device="cuda",
+                               dtype=torch.int32)
+
+        def kern():
+            return cn_update(mv, valid, parity, alpha=alpha, clip=50.0)
+
+        before = cn_update.launches
+        out = kern()
+        torch.cuda.synchronize()
+        if cn_update.launches != before + 1:
+            raise SystemExit("[bp4_cn] kernel A was not launched")
+        ref = _cn_update_sm(mv, valid, parity, alpha=alpha, clip=50.0)
+        edges = valid[:, :, None].expand_as(out)
+        same = torch.equal(out[edges].view(torch.int32), ref[edges].view(torch.int32))
+        err = float((out[edges] - ref[edges]).abs().max())
+        ms = cuda_time_ms(kern, 50)
+        plain_ms = cuda_time_ms(
+            lambda: _cn_update_sm(mv, valid, parity, alpha=alpha, clip=50.0), 5)
+        nbytes = 2 * mv.numel() * 4 + parity.numel() * 4 + valid.numel()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shape = f"[{dc},{m_pad},{B}] float32"
+        log(f"[bp4_cn] {name} {H.shape[0]}x{H.shape[1]} {shape}, alpha {alpha}: bit-exact on "
+            f"the {int(edges.sum())} valid edges={same} max_abs_err={err}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {nbytes})")
+        if not same:
+            raise SystemExit(f"[bp4_cn] kernel A disagrees with its plain version at {shape}")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        result[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "shape": shape}
+    cn_update.launches = 0
+    return result
+
+
+def phase_osd_e(plan, det):
+    """``[osd_e]``: OSD-E of order ``OSD_E_ORDER`` on a 216x1728 window
+    bucket (window 1's rows of the first ``OSD_E_SHOTS`` seed-2024 shots,
+    tie keys, the window's priors): kernel B's ``gauss_jordan_key`` against
+    the plain elimination on the card and on the CPU (``_gj_case``), then
+    ``osd_decode``'s OSD-E branch on the card (the kernel and the dense
+    sweep) against the plain elimination and sweep on the CPU: solution,
+    OSD-0, inconsistency and the bits of min_pm equal; its time beside the
+    elimination's."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops.gf2_cuda import gauss_jordan_key
+    from slidingwindowdecoder_torch.ops.gf2_solve import (
+        analyze_patterns,
+        gf2_rank_packed,
+        ordered_gauss_jordan_key,
+        osd_candidate_patterns,
+        osd_decode,
+        pack_rows_host,
+    )
+
+    spec = plan.windows[1]
+    H = spec.mat
+    m, n = H.shape
+    rank = gf2_rank_packed(H)
+    k = n - rank
+    Hw = torch.as_tensor(pack_rows_host(H).view(np.int32), device="cuda")
+    synd = torch.as_tensor(det[:OSD_E_SHOTS, spec.row_start:spec.row_end], device="cuda")
+    key = _tie_keys(torch.Generator(device="cuda").manual_seed(19), OSD_E_SHOTS, n)
+    llr = torch.as_tensor(np.log((1 - spec.prior) / spec.prior).astype(np.float32),
+                          device="cuda")
+    pats = osd_candidate_patterns(k, OSD_E_ORDER, "osd_e")
+    meta = analyze_patterns(pats, k)
+    meta_card = dict(meta, patterns=torch.as_tensor(pats, device="cuda"))
+    cpu = [x.cpu() for x in (Hw, synd, key, llr)]
+    gj_cpu = ordered_gauss_jordan_key(*cpu[:3], m=m, n=n, rank=rank)
+    res = _gj_case(f"{m}x{n} (OSD-E bucket)", Hw, synd, key, m=m, n=n, rank=rank,
+                   cpu_ref={"shots": OSD_E_SHOTS, "gj": gj_cpu})
+
+    def card():
+        return osd_decode(Hw, synd, key, llr, m=m, n=n, rank=rank, k=k, meta=meta_card)
+
+    before = gauss_jordan_key.launches
+    out = card()
+    torch.cuda.synchronize()
+    if gauss_jordan_key.launches != before + 1:
+        raise SystemExit("[osd_e] kernel B was not launched")
+    ref = osd_decode(*cpu, m=m, n=n, rank=rank, k=k, meta=meta)
+    pairs = {key_: (out[key_].cpu(), ref[key_]) for key_ in ("solution", "osd0", "inconsistent")}
+    pairs["min_pm"] = (out["min_pm"].cpu().view(torch.int32), ref["min_pm"].view(torch.int32))
+    bad = [key_ for key_, (x, y) in pairs.items() if not torch.equal(x, y)]
+    osd_e_ms = cuda_time_ms(card, 5)
+    n_cand = int((ref["solution"] != ref["osd0"]).any(dim=1).sum())
+    log(f"[osd_e] order {OSD_E_ORDER} ({len(pats)} candidates) on {m}x{n} B={OSD_E_SHOTS}, "
+        f"card vs CPU: equal={not bad}; {n_cand} shots take a candidate, "
+        f"{int(ref['inconsistent'].sum())} inconsistent; elimination kernel {res['ms']:.4f} ms, "
+        f"with the dense sweep (torch ops) {osd_e_ms:.4f} ms")
+    if bad:
+        raise SystemExit(f"[osd_e] the card's OSD-E disagrees with the CPU's on {bad}")
+    # the entry points that take osd_method="osd_e", on 64 shots of a [[72]]
+    # window (x3, W=2, p=0.01), on the card and on the CPU
+    from slidingwindowdecoder_torch.circuits import sample_dem_numpy
+    from slidingwindowdecoder_torch.decoders import BPOSD, OSDWindow
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+
+    _, _, dem72, plan72 = build_bb_window_experiment(72, 0.01, 3, 2, 1)
+    spec72 = plan72.windows[0]
+    det72 = sample_dem_numpy(dem72, 64, np.random.default_rng(SEED))[0]
+    synd72 = det72[:, spec72.row_start:spec72.row_end]
+    for cls, kw in ((BPOSD, dict(max_iter=8)), (OSDWindow, dict(post_max_iter=8))):
+        decode = [cls(spec72.mat, spec72.prior, osd_method="osd_e", osd_order=4, device=d,
+                      **kw).decode_batch(synd72) for d in ("cuda", "cpu")]
+        diff = int((decode[0].error != decode[1].error).any(axis=1).sum())
+        log(f"[osd_e] {cls.__name__}(osd_method='osd_e', osd_order=4) on {len(synd72)} "
+            f"{spec72.mat.shape[0]}x{spec72.mat.shape[1]} window syndromes, card vs CPU: "
+            f"OSD ran on {int(decode[1].osd_applied.sum())}, shots differing {diff}")
+        if diff or not decode[1].osd_applied.any():
+            raise SystemExit(f"[osd_e] {cls.__name__}: the card disagrees with the CPU")
+    gauss_jordan_key.launches = 0
+    return {**res, "osd_e_ms": osd_e_ms, "order": OSD_E_ORDER, "candidates": len(pats)}
+
+
+def row_slice(name: str, dev: str):
+    """The first ``ROW_SLICE_SHOTS`` shots of a row's decoder at seed 2024
+    on ``dev`` (the card's half, or a worker task on the CPU): its per-shot
+    corrections (numpy) and seconds. The bp4 and CAMEL shots are the first
+    ones of the row's samples; the phenomenological shots are the driver's
+    draw at that batch size; the SHYPS shots are ``decode_shyps``'s."""
+    from slidingwindowdecoder_torch.harness import parity_rows as pr
+    from slidingwindowdecoder_torch.harness.depolarizing import sample_depolarizing
+    from slidingwindowdecoder_torch.harness.shyps import decode_shyps
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    kind = pr.ROWS[name][0]
+    if kind in pr.BP4_ROWS:
+        code, (p, _, camel, _) = pr.row_code(kind), pr.BP4_ROWS[kind]
+        dec = pr.bp4_row_decoder(kind, dev)
+        ex, ez = sample_depolarizing(code.N, p, ROW_SLICE_SHOTS, rng)
+        sx = (ez.astype(np.int64) @ code.hx.T) % 2
+        sz = (ex.astype(np.int64) @ code.hz.T) % 2
+        e_hat = (dec.camel_decode if camel else dec.decode_batch)(sx, sz).error
+    elif kind.startswith("phenom"):
+        code, (p, p_synd) = pr.row_code(kind), pr.PHENOM_P
+        m = code.hx.shape[0]
+        err = (rng.random((ROW_SLICE_SHOTS, code.N)) < p).astype(np.uint8)
+        synd_err = (rng.random((ROW_SLICE_SHOTS, m)) < p_synd).astype(np.uint8)
+        pcm = np.hstack([code.hx, np.eye(m, dtype=np.uint8)])
+        priors = np.concatenate([np.full(code.N, p), np.full(m, p_synd)])
+        e_hat = pr.phenom_row_decoder(kind, pcm, priors, dev).decode_batch(
+            ((err.astype(np.int64) @ code.hx.T) % 2) ^ synd_err).error
+    else:
+        e_hat = decode_shyps(num_shots=ROW_SLICE_SHOTS, window=kind == "shyps_window",
+                             seed=SEED, verbose=False, device=dev, **pr.SHYPS_KNOBS)["e_hat"]
+    return np.asarray(e_hat), time.perf_counter() - t0
+
+
+def phase_rows(tag: str, names):
+    """``[bp4]``, ``[phenom]``, ``[shyps]``: each row of ``names`` through
+    ``run_row`` on the card at its ``ROW_FORMS`` shots from seed 2024, with
+    the launch counts set to 0 just before and read just after: its
+    failures equal to the port's own count and within 3 sigma of the
+    reference's rate, every kernel it names launched and no other one, no
+    plain call; then, for the rows of ``ROW_SLICES``, the first shots on the
+    card now and on the CPU as deferred CPU halves (returned): no shot may
+    differ."""
+    import torch
+
+    from slidingwindowdecoder_torch.harness.parity_rows import ROWS, run_row
+    from slidingwindowdecoder_torch.utils.metrics import rates_compatible
+
+    res, pending = {}, []
+    for name in names:
+        shots, exact, kernels = ROW_FORMS[name]
+        kind, _, ref, jax_count = ROWS[name]
+        reset_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            r = run_row(kind, shots, SEED, "cuda")
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        nf = r["failures"]
+        ok = rates_compatible(nf, shots, *ref)
+        log(f"[{tag}] {name}: failed {nf} flagged {r['flagged']} of {shots} (reference "
+            f"{ref[0]}/{ref[1]}, within 3 sigma: {ok}; the JAX package {jax_count[0]}/"
+            f"{jax_count[1]} at seed 7); {r['shots_per_s']:.1f} shots/s ({r['seconds']:.2f}s); "
+            f"launches {({k: v for k, v in launches.items() if v})} (the warm-up's included); "
+            f"plain calls {plain}")
+        if not ok or nf != exact:
+            raise SystemExit(f"[{tag}] {name}: {nf} failures, want {exact} within 3 sigma "
+                             f"of {ref[0]}/{ref[1]}")
+        check_kernels(f"[{tag}] {name}", launches, plain, kernels)
+        res[name] = {"num_failed": nf, "num_flagged": r["flagged"], "shots": shots,
+                     "seconds": r["seconds"], "shots_per_s": r["shots_per_s"],
+                     "launches": launches}
+        if name in ROW_SLICES:
+            card = row_slice(name, "cuda")
+
+            def compare(refs, name=name, card=card):
+                (e_cpu, t_cpu), = refs
+                diff = int((card[0] != e_cpu).reshape(len(e_cpu), -1).any(axis=1).sum())
+                log(f"[{tag}] {name}: card vs CPU plain over {len(e_cpu)} shots: shots "
+                    f"differing {diff}; {card[1]:.1f}s card, {t_cpu:.1f}s CPU")
+                if diff:
+                    raise SystemExit(f"[{tag}] {name}: the card disagrees with the CPU")
+
+            pending.append((f"{name} slice", row_slice, [(name, "cpu")], compare))
+    return res, pending
+
+
 def main() -> int:
     import torch
 
@@ -2210,11 +2491,13 @@ def main() -> int:
     log(f"[setup] DEM {dem.chk.shape}, windows {[w.mat.shape for w in plan.windows]}")
     cn = phase_cn(plan)
     cnp = phase_cn_pinned(plan)
+    bp4_cn = phase_bp4_cn()
     gj = phase_gj(plan)
     t0 = time.perf_counter()
     det, obs, _ = sample_dem_numpy(dem, REF_SHOTS, np.random.default_rng(SEED))
     log(f"[setup] sampled {REF_SHOTS} shots in {time.perf_counter() - t0:.1f}s")
     osd_cs = phase_osd_cs(plan, det)
+    osd_e = phase_osd_e(plan, det)
     span = phase_bp_span(plan, det)
     main_res = phase_path("main", plan, det, obs,
                           window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS),
@@ -2293,6 +2576,13 @@ def main() -> int:
     pending.append(half)
     log(json.dumps({"gdg_wide": wide_gdg}))
     ring = phase_bp_span_bf16_ring((gplan, wplan), gdet, bursts)
+    rows = {}
+    for tag, names in (("bp4", ("bp4-osdcs", "camel-362")),
+                       ("phenom", ("phenom-osd", "phenom-gdg")),
+                       ("shyps", ("shyps-window", "shyps-global"))):
+        rows[tag], halves = phase_rows(tag, names)
+        pending += halves
+        log(json.dumps({f"{tag}_rows": rows[tag]}))
     run_cpu_halves(pending)
 
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
@@ -2305,7 +2595,9 @@ def main() -> int:
                    "code_capacity": sum(r["launches"][k] for r in (*cc_res.values(),
                                                                    *cc_dev.values())),
                    "global": sum(r["launches"][k] for r in global_res.values()),
-                   "sw_wide": sum(r["launches"][k] for r in wide_res.values())}
+                   "sw_wide": sum(r["launches"][k] for r in wide_res.values()),
+                   **{tag: sum(r["launches"][k] for r in forms.values())
+                      for tag, forms in rows.items()}}
                for k in main_res["launches"]}
     for res, name in ((span["bp_span"], "bp_span"), (osd_cs, "osd_cs_fused"),
                       (gj_cluster["osd_cs_fused_cluster"], "osd_cs_fused_cluster")):
@@ -2360,14 +2652,18 @@ def main() -> int:
          "launches": sum(by_path["bp_span_wide_pinned"].values()),
          **wide["bp_span_wide_pinned"]},
         {"name": "cn_update", "route": "cuda", "source": cn_src,
-         "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package)",
-         "launches": sum(by_path["cn_update"].values()), "bound_by": "bytes", **cn},
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package); BP4's CN stage, "
+                     "ops/bp4.py:33 (_cn_minsum_bm, the same two-pass min-sum in XLA)",
+         "launches": sum(by_path["cn_update"].values()), "bound_by": "bytes",
+         **cn, "bp4": {k: v for k, v in bp4_cn.items() if k != "max_abs_err"},
+         "max_abs_err": max(cn["max_abs_err"], bp4_cn["max_abs_err"])},
         {"name": "cn_update_pinned", "route": "cuda", "source": cn_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package)",
          "launches": sum(by_path["cn_update_pinned"].values()), "bound_by": "bytes", **cnp},
         {"name": "gauss_jordan_key", "route": "cuda", "source": gj_src,
          "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package)",
-         "launches": sum(by_path["gauss_jordan_key"].values()), **gj},
+         "launches": sum(by_path["gauss_jordan_key"].values()), **gj, "osd_e": osd_e,
+         "max_abs_err": max(gj["max_abs_err"], osd_e["max_abs_err"])},
         {"name": "osd_cs_fused", "route": "cuda", "source": gj_src,
          "replaces": "ops/gf2_pallas.py:54 (_gj_kernel, JAX package) with the XLA "
                      "ops/gf2_solve.py:215 (ordered_gauss_jordan_key) and :522 "

@@ -2,8 +2,8 @@
 
 The counterpart of the JAX package's ``decoders/bposd.py`` (itself the
 batched form of the reference's ``BpOsdDecoder``): normalized min-sum BP
-to ``max_iter``, then OSD-CS post-processing on the shots BP failed to
-converge.
+to ``max_iter``, then OSD post-processing (OSD-CS, OSD-E or OSD-0) on the
+shots BP failed to converge.
 
 Throughput structure, as in the JAX package:
 
@@ -55,7 +55,8 @@ def _divisor_bucket(B: int, want: int) -> int:
 def osd_tables(pcm, k: int, osd_order: int, method: str, device):
     """The static OSD inputs of one PCM with k free columns: packed rows
     (int32, on ``device``), the candidate patterns over the k columns and
-    their ``analyze_patterns`` structure, pair indices on ``device``."""
+    their ``analyze_patterns`` structure, its pair indices (OSD-CS) or
+    patterns (OSD-E) on ``device``."""
     H_words = torch.as_tensor(pack_rows_host(pcm).view(np.int32), device=device)
     patterns = (
         osd_candidate_patterns(max(k, 1), osd_order, method)[:, :k]
@@ -66,20 +67,21 @@ def osd_tables(pcm, k: int, osd_order: int, method: str, device):
     for key in ("pair_i", "pair_j"):
         if key in meta:  # OSD-CS only
             meta[key] = torch.as_tensor(meta[key], dtype=torch.int32, device=device)
+    if "patterns" in meta:  # OSD-E only
+        meta["patterns"] = torch.as_tensor(meta["patterns"], device=device)
     return H_words, patterns, meta
 
 
 class BPOSD:
-    """Batched BP+OSD-CS decoder for one parity-check matrix.
+    """Batched BP+OSD decoder for one parity-check matrix.
 
     Args:
       pcm: [m, n] binary parity-check matrix (dense numpy).
       channel_probs: [n] prior error probabilities.
       max_iter: total BP iterations.
       ms_scaling_factor: min-sum normalization alpha.
-      osd_method: "osd_cs", "osd_0", or "off" to disable OSD. (OSD-E is
-        not ported yet.)
-      osd_order: OSD-CS search depth.
+      osd_method: "osd_cs", "osd_e", "osd_0", or "off" to disable OSD.
+      osd_order: OSD-CS / OSD-E search depth.
       reliability: "last" orders columns by the final BP posterior;
         "history_sum" uses the 4-iteration posterior sum.
       phase_a_iters: BP iterations run on the full batch before compaction.
@@ -150,15 +152,14 @@ class BPOSD:
         method = str(osd_method).lower()
         if method in ("osd_0", "osd0", "0"):
             method, osd_order = "osd_0", 0
+        elif method in ("osd_e", "osde", "e", "exhaustive", "1"):
+            method = "osd_e"
         elif method in ("osd_cs", "osdcs", "cs", "combination_sweep", "2"):
             method = "osd_cs"
         elif method in ("-1", "off", "none"):
             method = None
         else:
-            raise ValueError(
-                f"osd_method {osd_method!r} is not ported "
-                "(only 'osd_cs', 'osd_0' and 'off')"
-            )
+            raise ValueError(f"unknown osd_method {osd_method!r}")
         self.osd_method = method
         self.osd_order = int(osd_order)
         self.bp_bucket = int(bp_bucket)

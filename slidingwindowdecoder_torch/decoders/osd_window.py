@@ -53,7 +53,7 @@ class OSDWindow:
     The constructor is the JAX package's, less ``gj_engine`` (the
     elimination always runs through ``ops.gf2_cuda``), plus ``device``
     (None means "cuda"; raises without a card). ``osd_method`` is
-    "osd_0" or "osd_cs"; OSD-E is not ported yet. BP runs in float32.
+    "osd_0", "osd_e" or "osd_cs". BP runs in float32.
     """
 
     def __init__(
@@ -91,12 +91,12 @@ class OSDWindow:
         method = str(osd_method).lower()
         if method in ("osd_0", "osd0", "0"):
             method, osd_order = "osd_0", 0
+        elif method in ("osd_e", "osde", "e", "1"):
+            method = "osd_e"
         elif method in ("osd_cs", "osdcs", "cs", "2"):
             method = "osd_cs"
         else:
-            raise ValueError(
-                f"osd_method {osd_method!r} is not ported (only 'osd_0' and 'osd_cs')"
-            )
+            raise ValueError(f"unknown osd_method {osd_method!r}")
         self.osd_method = method
         self.osd_order = int(osd_order)
 

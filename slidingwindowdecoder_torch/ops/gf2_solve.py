@@ -1,9 +1,9 @@
-"""Batched GF(2) elimination and OSD-CS, in PyTorch.
+"""Batched GF(2) elimination and OSD, in PyTorch.
 
-The counterpart of the JAX package's ``ops/gf2_solve.py`` for the main
-path: the host helpers (numpy), the float-keyed reliability-ordered
-Gauss-Jordan ``ordered_gauss_jordan_key`` (the plain version of the CUDA
-kernel in ``ops.gf2_cuda``), and the sortless OSD-CS sweep.
+The counterpart of the JAX package's ``ops/gf2_solve.py``: the host
+helpers (numpy), the float-keyed reliability-ordered Gauss-Jordan
+``ordered_gauss_jordan_key`` (the plain version of the CUDA kernel in
+``ops.gf2_cuda``), the sortless OSD-CS sweep and the dense OSD-E sweep.
 
 The PCM is shared by every shot; only the reliability order of columns
 differs per shot. The elimination keeps the matrix row-packed ([m, W+1, B]
@@ -119,8 +119,8 @@ def analyze_patterns(patterns, k: int) -> dict:
 
     Recognizes the OSD-CS layout (k weight-1 rows followed by weight-2
     pairs) so the sweep can use the linearized path-metric trick; anything
-    else is reported as ``"dense"`` (OSD-E), whose sweep is not ported yet.
-    Index arrays are numpy; the caller moves them to its device.
+    else is ``"dense"`` (OSD-E), swept by ``_osd_sweep_dense``. Index and
+    pattern arrays are numpy; the caller moves them to its device.
     """
     pats = np.asarray(patterns, dtype=np.uint8)
     K = pats.shape[0]
@@ -304,9 +304,14 @@ def _sum_in_column_order(piv_col_bm, terms):
 
 
 def _support_metric(solution, llr_bm):
-    """[B] f32 path metric of ``solution`` [B, n]: the sum of ``llr_bm``
-    [n, B] over its support, in ascending column from +0.0 in float64,
-    rounded once to float32 (the kernel's order for ``min_pm``)."""
+    """[B] f32 path metric of ``solution`` [B, n]: ``_support_sum`` rounded
+    once to float32 (the kernel's order for ``min_pm``)."""
+    return _support_sum(solution, llr_bm).float()
+
+
+def _support_sum(solution, llr_bm):
+    """[B] f64 sum of ``llr_bm`` [n, B] over the support of ``solution``
+    [B, n], in ascending column from +0.0."""
     B, n = solution.shape
     dev = solution.device
     iota_n = torch.arange(n, device=dev)[:, None]
@@ -317,7 +322,7 @@ def _support_metric(solution, llr_bm):
     acc = torch.zeros((B,), dtype=torch.float64, device=dev)
     for t in terms:
         acc = acc + t
-    return acc.float()
+    return acc
 
 
 def _top_nonpivot_columns(rel_t, nonpiv, order_w):
@@ -435,6 +440,78 @@ def _osd_sweep_cs_sortless(gj, rel, channel_llr, pair_i, pair_j, *, order_w):
     return solution, _support_metric(solution, llr_bm)
 
 
+def _osd_sweep_dense(gj, rel, channel_llr, patterns, *, supp):
+    """OSD-E sweep (the JAX ``_osd_sweep_dense``): every candidate pattern
+    over the ``supp`` most unreliable non-pivot columns, evaluated densely.
+
+    ``patterns`` [K, k] 0/1 (numpy or tensor), nonzero in its first
+    ``supp`` columns only; ``rel`` [B, n] the reliability key. The
+    candidate columns are the first ``supp`` non-pivot columns in (key,
+    column) order: the JAX ``_ht_cols`` (the first k non-pivot columns of
+    the stable argsort of the key) cut to the support, which is what the
+    sweep reads of it, found by ``_top_nonpivot_columns``.
+
+    Where JAX sums the path metrics in f32 einsums, each candidate's
+    metric here is summed in float64 from the float32 terms, pm0 (itself an f64
+    sum over the OSD-0 support in ascending column) first, then the pivots'
+    weights in pivot order, then the candidate columns' priors in
+    reliability order, one rounding per add. That order is the same on the
+    CPU and the card, so both pick the same candidate: the least metric,
+    ties to the lower pattern index, taken if below pm0. Against JAX a shot
+    may differ only where two candidates' f64 metrics tie exactly (ROADMAP
+    §3). ``min_pm`` is the chosen solution's metric (``_support_metric``).
+
+    Memory: the candidates' pivot flips [K, R, B] in float32, 4*K*R*B
+    bytes for K = 2**order - 1 candidates and R pivots, 226 MB at order 10,
+    R = 216 and B = 256; the caller's OSD bucket B bounds it.
+    """
+    osd0 = gj["osd0"]
+    B, n = osd0.shape
+    dev = osd0.device
+    reduced = gj["reduced_wm"]  # [W, m, B]
+    piv_col_bm = gj["piv_col"].T.long()  # [R, B]
+    piv_row_bm = gj["piv_row"].T.long()
+    sol_bm = gj["sol_bits"].T.to(torch.float32)  # [R, B]
+    R = piv_col_bm.shape[0]
+
+    llr = torch.as_tensor(channel_llr, dtype=torch.float32, device=dev)
+    llr_bm = llr[:, None].expand(n, B) if llr.ndim == 1 else llr.T
+    pm0 = _support_sum(osd0, llr_bm)
+    llr_piv = torch.gather(llr_bm, 0, piv_col_bm)  # [R, B]
+    w = (llr_piv * (1.0 - 2.0 * sol_bm)).double()
+
+    nonpiv = torch.ones((n, B), dtype=torch.bool, device=dev)
+    nonpiv.scatter_(0, piv_col_bm, False)
+    ht = _top_nonpivot_columns(rel.to(torch.float32).T, nonpiv, supp)  # [supp, B]
+    sub_cols = _extract_bitcols(reduced, ht)  # [supp, m, B]
+    coords_sub = torch.gather(sub_cols, 1, piv_row_bm[None].expand(supp, R, B))  # [supp, R, B]
+    llr_cand = torch.gather(llr_bm, 0, ht).double()  # [supp, B]
+
+    pats = torch.as_tensor(patterns, device=dev)
+    p_sub = pats[:, :supp].to(torch.float32)  # [K, supp]
+    K = p_sub.shape[0]
+    # 0/1 products summed over at most supp terms: exact in any float order
+    flips = torch.remainder(p_sub @ coords_sub.reshape(supp, R * B), 2.0).reshape(K, R, B)
+    pm = pm0[None, :].expand(K, B)
+    for r in range(R):
+        pm = pm + torch.where(flips[:, r] != 0, w[r], 0.0)
+    for t in range(supp):
+        pm = pm + torch.where(p_sub[:, t, None] != 0, llr_cand[t], 0.0)
+
+    best = pm.argmin(dim=0)  # [B]
+    best_pm = torch.gather(pm, 0, best[None])[0]
+    use_cand = best_pm < pm0
+
+    best_pat = p_sub[best].T  # [supp, B]
+    flip_best = torch.remainder((best_pat[:, None, :] * coords_sub).sum(dim=0), 2.0)
+    y = torch.remainder(sol_bm + flip_best, 2.0)  # [R, B]
+    out = torch.zeros((n, B), dtype=torch.uint8, device=dev)
+    out.scatter_(0, piv_col_bm, y.to(torch.uint8))
+    out.scatter_(0, ht, best_pat.to(torch.uint8))
+    solution = torch.where(use_cand[:, None], out.T, osd0)
+    return solution, _support_metric(solution, llr_bm)
+
+
 def osd_decode(
     H_words,
     syndrome,
@@ -447,48 +524,48 @@ def osd_decode(
     k: int,
     meta: dict,
 ):
-    """OSD-CS or OSD-0: eliminate by reliability, sweep the candidates.
+    """OSD: eliminate by reliability, sweep the candidates.
 
     ``reliability``: [B, n] float — smaller = more likely in error = tried
-    first. ``meta`` is the static ``analyze_patterns`` result with its
-    pair indices already on the device. The CS branch (float keys,
-    sortless sweep) and the OSD-0 branch (``meta["kind"] == "none"`` or
-    ``k == 0``: the elimination and its OSD-0 solution) of the JAX
-    ``osd_decode`` are ported; OSD-E is not. With a 1-D ``channel_llr``
-    the CS branch is ``ops.gf2_cuda.osd_cs_fused`` (one fused launch on
-    the card, the plain elimination and sweep on the CPU); a 2-D prior and
-    the OSD-0 branch run the elimination through ``ops.gf2_cuda.
-    gauss_jordan_key`` and the sweep here. The JAX OSD-0 branch eliminates
-    in the order of a stable argsort of the reliability; the float-keyed
-    elimination picks the same pivots (the smallest live key, ties to the
-    lower column), so both branches feed it the reliability directly.
+    first. ``meta`` is the static ``analyze_patterns`` result (its pair
+    indices or patterns may already be on the device). The three branches
+    of the JAX ``osd_decode``: OSD-0 (``meta["kind"] == "none"`` or
+    ``k == 0``: the elimination and its OSD-0 solution), OSD-CS (float
+    keys, sortless sweep) and OSD-E (``"dense"``: ``_osd_sweep_dense``).
+    With a 1-D ``channel_llr`` the CS branch is ``ops.gf2_cuda.
+    osd_cs_fused`` (one fused launch on the card, the plain elimination
+    and sweep on the CPU); a 2-D prior, OSD-0 and OSD-E run the
+    elimination through ``ops.gf2_cuda.gauss_jordan_key`` and the sweep
+    here. The JAX OSD-0 and OSD-E branches eliminate in the order of a
+    stable argsort of the reliability; the float-keyed elimination picks
+    the same pivots (the smallest live key, ties to the lower column), so
+    every branch feeds it the reliability directly. (The JAX integer-order
+    CS sweep ``_osd_sweep_cs``, reached only through its Pallas
+    elimination engines, gives the sortless sweep's solutions but at
+    exact ties; ``tests/test_torch_osd_e.py`` holds the two against each
+    other.)
     """
     from .gf2_cuda import gauss_jordan_key, osd_cs_fused
 
-    if meta["kind"] not in ("none", "cs") and k != 0:
-        raise NotImplementedError(
-            f"OSD with candidate structure {meta['kind']!r} is not ported"
-        )
-    cs = meta["kind"] == "cs" and k != 0
-    if cs and torch.as_tensor(channel_llr).ndim == 1:
+    kind = meta["kind"] if k != 0 else "none"
+    if kind == "cs" and torch.as_tensor(channel_llr).ndim == 1:
         return osd_cs_fused(
             H_words, syndrome, reliability, channel_llr, meta["pair_i"], meta["pair_j"],
             m=m, n=n, rank=rank, order_w=int(meta["order_w"]),
         )
     gj = gauss_jordan_key(H_words, syndrome, reliability, m=m, n=n, rank=rank)
-    if not cs:
+    if kind == "none":
         llr = torch.as_tensor(channel_llr, dtype=torch.float32, device=syndrome.device)
-        pm0 = (llr * gj["osd0"]).sum(dim=1)
-        return {
-            "solution": gj["osd0"],
-            "osd0": gj["osd0"],
-            "min_pm": pm0,
-            "inconsistent": gj["inconsistent"],
-        }
-    solution, min_pm = _osd_sweep_cs_sortless(
-        gj, reliability, channel_llr, meta["pair_i"], meta["pair_j"],
-        order_w=int(meta["order_w"]),
-    )
+        solution, min_pm = gj["osd0"], (llr * gj["osd0"]).sum(dim=1)
+    elif kind == "cs":
+        solution, min_pm = _osd_sweep_cs_sortless(
+            gj, reliability, channel_llr, meta["pair_i"], meta["pair_j"],
+            order_w=int(meta["order_w"]),
+        )
+    else:
+        solution, min_pm = _osd_sweep_dense(
+            gj, reliability, channel_llr, meta["patterns"], supp=int(meta["support"]),
+        )
     return {
         "solution": solution,
         "osd0": gj["osd0"],

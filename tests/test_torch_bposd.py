@@ -107,9 +107,15 @@ def test_gf2_matmul_exact():
 
 
 def test_unported_osd_methods_raise():
+    """Every OSD method of the JAX package is ported: an unknown one raises,
+    OSD-E (all its JAX aliases) builds, and "off" runs BP alone."""
     H = np.array([[1, 1, 0], [0, 1, 1]], np.uint8)
-    with pytest.raises(ValueError, match="not ported"):
-        BPOSD(H, np.full(3, 0.1), osd_method="osd_e", device="cpu")
+    with pytest.raises(ValueError, match="unknown osd_method"):
+        BPOSD(H, np.full(3, 0.1), osd_method="osd_x", device="cpu")
+    H5 = np.array([[1, 1, 0, 1, 0], [0, 1, 1, 0, 1]], np.uint8)  # k = 3
+    for alias in ("osd_e", "osde", "e", "exhaustive", "1"):
+        dec = BPOSD(H5, np.full(5, 0.1), osd_method=alias, osd_order=2, device="cpu")
+        assert dec.osd_method == "osd_e" and dec._osd_meta["kind"] == "dense"
     dec = BPOSD(H, np.full(3, 0.1), osd_method="off", device="cpu", max_iter=5)
     res = dec.decode_batch(np.array([[1, 0]], np.uint8))
     assert not res.osd_applied.any()

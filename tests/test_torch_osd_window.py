@@ -174,8 +174,11 @@ def test_osd_window_order_bound(bb72):
     with pytest.raises(ValueError, match="osd_order"):
         OSDWindow(bb72.hx, np.full(bb72.N, 0.01), osd_method="osd_cs", osd_order=100,
                   device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        OSDWindow(bb72.hx, np.full(bb72.N, 0.01), osd_method="osd_e", device="cpu")
+    with pytest.raises(ValueError, match="unknown osd_method"):
+        OSDWindow(bb72.hx, np.full(bb72.N, 0.01), osd_method="osd_x", device="cpu")
+    dec = OSDWindow(bb72.hx, np.full(bb72.N, 0.01), osd_method="osd_e", osd_order=3,
+                    device="cpu")
+    assert dec.patterns.shape == (7, dec.k)  # 2**3 - 1 candidates
 
 
 def test_osd_window_candidates_and_cs_beats_osd0(bb72):

@@ -15,6 +15,8 @@ share.
     python3 tools/torch_profile_main_path.py --path cc_bpgd
     python3 tools/torch_profile_main_path.py --path global
     python3 tools/torch_profile_main_path.py --path sw_288_w4
+    python3 tools/torch_profile_main_path.py --path bp4_osdcs
+    python3 tools/torch_profile_main_path.py --path camel
 
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
@@ -49,13 +51,23 @@ decoder, ``sliding_window_decoder``'s BP+OSD-CS-10 at its default knobs
 (f32) on the [[288,12,18]] W=4 windows (6 rounds, (W,F) = (4,1), p=0.005,
 576x4752/4896) over 16384 shots; stages as ``bposd`` (the interior
 windows' BP on the wide route, the edge windows' on the shared-table
-route; OSD on the cluster route). Seed 2024, as ``chip_smoke.py``.
+route; OSD on the cluster route). ``bp4_osdcs``: the bp4-osdcs parity
+row's decoder (``BP4OSD`` on the [[882,24]] QC-GHP code, p = 0.1, min-sum
+0.625, 100 iterations, OSD-CS-10 per basis), one ``core`` call on the
+2048 depolarizing shots of one batch of ``depolarizing_decoding``;
+``camel``: the camel-362 row's decoder (CAMEL on the [[362]]
+cycle-assembled code, p = 0.02, min-sum 0.8, 50 iterations), one
+``camel_core`` call on 1024 shots (4096 branch lanes). Their stages: the
+CN stage (``cn_update``, kernel A, a launch a basis an iteration), the
+per-variable sums, the rest of ``bp4_run`` (the variable side and the
+convergence test, torch ops), and OSD. Seed 2024, as ``chip_smoke.py``.
 
 Prints one JSON line with the stage seconds and the kernel launches of the
 timed decode, then one with the top kernels by device time, the busy
 share, and one stage's device time (the kernels launched inside it)
 beside its host time (the same calls' CPU time), both from the profiled
-decode: OSD on the first two paths, the BP bursts on the others.
+decode: OSD on the first two paths, ``bp4_run`` on the BP4 paths, the BP
+bursts on the others.
 """
 
 from __future__ import annotations
@@ -87,6 +99,9 @@ CC_SHOTS, CC_P = 65536, 0.04
 GLOBAL_BATCH = 8192
 # the sw-288-w4 row (tools/torch_validate_circuit_level.py): (N, p, rounds, W, F)
 SW_288_EXP = (288, 0.005, 6, 4, 1)
+# the BP4 paths: rows of harness.parity_rows.BP4_ROWS
+BP4_PATHS = ("bp4_osdcs", "camel")
+BP4_RUN_STAGE = "bp4_run (the variable side and convergence test, torch ops)"
 
 
 
@@ -98,7 +113,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("bposd", "osd_window", "gdg", "gdg_spans", "gdg_288_41",
-                                       "cc_bpgd", "global", "sw_288_w4"), default="bposd")
+                                       "cc_bpgd", "global", "sw_288_w4", *BP4_PATHS),
+                    default="bposd")
     ap.add_argument("--gdg-bucket", type=int, default=512,
                     help="GDG ensemble_bucket (shots per ensemble bucket)")
     args = ap.parse_args()
@@ -121,7 +137,10 @@ def main() -> int:
         gdg_window_factory,
         window_decoder_factory,
     )
+    from slidingwindowdecoder_torch.decoders import bp4 as bp4_decoder
     from slidingwindowdecoder_torch.harness.code_capacity import parity_code, parity_decoder
+    from slidingwindowdecoder_torch.harness.depolarizing import sample_depolarizing
+    from slidingwindowdecoder_torch.ops import bp4 as bp4_ops
     from slidingwindowdecoder_torch.ops import bp_cuda, decimation, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
@@ -134,6 +153,21 @@ def main() -> int:
         det = torch.as_tensor(((err @ code.hx.T.astype(np.float32)) % 2).astype(np.uint8),
                               device="cuda")
         dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
+    elif args.path in BP4_PATHS:
+        from slidingwindowdecoder_torch.harness.parity_rows import (
+            BP4_ROWS,
+            bp4_row_decoder,
+            row_code,
+        )
+
+        code = row_code(args.path)
+        p, _, _, shots = BP4_ROWS[args.path]
+        dec = bp4_row_decoder(args.path, "cuda")
+        ex, ez = sample_depolarizing(code.N, p, shots, np.random.default_rng(SEED))
+        det = torch.as_tensor(np.concatenate([
+            (ez.astype(np.float32) @ code.hx.T.astype(np.float32)) % 2,
+            (ex.astype(np.float32) @ code.hz.T.astype(np.float32)) % 2], axis=1
+        ).astype(np.uint8), device="cuda")
     else:
         exp, shots = {"gdg_288_41": (GDG_288_EXP, GDG_288_SHOTS),
                       "sw_288_w4": (SW_288_EXP, 16384),
@@ -148,7 +182,15 @@ def main() -> int:
     # (owner, attribute, stage name from the call's arguments) to time; the
     # last one is also the profiled stage
     ranged = OSD_STAGE
-    if args.path == "cc_bpgd":
+    if args.path in BP4_PATHS:
+        ranged = BP4_RUN_STAGE
+        patches = [
+            (bp4_ops, "cn_update", lambda *a, **k: "cn_update (kernel A)"),
+            (bp4_ops, "_col_sums", lambda *a: "per-variable sums (gathers, slot adds)"),
+            (bp4_decoder, "osd_decode", lambda *a, **k: "osd_decode (kernel B + sweep)"),
+            (bp4_decoder, "bp4_run", lambda *a, **k: BP4_RUN_STAGE),
+        ]
+    elif args.path == "cc_bpgd":
         ranged = BURST_STAGE
         patches = [
             (BPGD, "_shorten_state", lambda *a: "shortening (nothing to drop: new_n = n)"),
@@ -208,7 +250,10 @@ def main() -> int:
     setattr(decimation, sweep_name, counted_sweep)
 
     def run(d=det):
-        if args.path == "cc_bpgd":
+        if args.path in BP4_PATHS:
+            mx = dec.mx
+            out = (dec.camel_core if args.path == "camel" else dec.core)(d[:, :mx], d[:, mx:])
+        elif args.path == "cc_bpgd":
             out = dec.core(d)
         elif args.path == "global":
             out = [dec.core(d[lo:lo + GLOBAL_BATCH]) for lo in range(0, len(d), GLOBAL_BATCH)]
