@@ -180,14 +180,15 @@ Phases (any failure exits non-zero; nothing is caught):
    phenom-gdg ([hx | I] of [[288]], p = 0.03, p_synd = 1e-3, BP+OSD-CS-10
    and GDG), ``[shyps]``: shyps-window and shyps-global (r = 3, p = 0.001,
    4 rounds, BP+OSD-CS over the weight-1 candidates): each row through
-   ``harness.parity_rows.run_row`` on 4096-16384 shots from seed 2024,
+   ``run_row`` of ``tools/torch_validate_depolarizing.py`` on 4096-16384
+   shots from seed 2024,
    held to the port's own count (``ROW_FORMS``) and within 3 sigma of the
    reference's rate, with the launch counts read around it (``cn_update``
    with ``osd_cs_fused`` for BP4+OSD, ``cn_update`` alone for CAMEL,
    ``bp_span`` with ``osd_cs_fused`` or ``bp_span_pinned`` for the rest);
-   then the first 64 shots of bp4-osdcs, camel-362, phenom-osd and both
-   SHYPS forms on the card and by the plain versions on the CPU (no shot
-   may differ);
+   then the first 64 shots of every one of these rows on the card and by
+   the plain versions on the CPU (no shot may differ; phenom-gdg's CPU
+   half, GDG's pinned bursts on the 144x432 PCM, ~16 s on one thread);
 12. the CPU halves of every card-vs-CPU phase (``run_cpu_halves``);
 13. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
@@ -387,6 +388,14 @@ def wide_pcms():
     return dem144.chk, plan288.windows[1].mat
 
 
+def cn_bound_bytes(valid, m: int, B: int, itemsize: int) -> int:
+    """The bytes a check-node update of ``m`` checks at ``B`` columns must
+    move: the messages of the valid edges read and written, the checks'
+    int32 parities and their rows of the valid mask (the padding rows up to
+    ``m_pad`` and the invalid slots count nothing)."""
+    return 2 * int(valid.sum()) * B * itemsize + m * B * 4 + valid.shape[0] * m
+
+
 def phase_cn(plan):
     """Kernel A against its plain version, bit-exact, on random messages
     with ties, equal values and zeros, at the shapes of the unmasked BP:
@@ -430,7 +439,7 @@ def phase_cn(plan):
         ms = cuda_time_ms(lambda: cn_update(mv, valid, parity, alpha=1.0, clip=50.0), 50)
         plain_ms = cuda_time_ms(
             lambda: _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0), 5)
-        nbytes = 2 * mv.numel() * mv.element_size() + parity.numel() * 4 + valid.numel()
+        nbytes = cn_bound_bytes(valid, H.shape[0], B, mv.element_size())
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         shape = f"[{dc},{m_pad},{B}] {str(dtype)[6:]}"
         log(f"[cn] {H.shape[0]}x{H.shape[1]} {shape}: bit-exact={same} "
@@ -499,7 +508,7 @@ def phase_cn_pinned(plan):
         ms = cuda_time_ms(kern, 50)
         plain_ms = cuda_time_ms(
             lambda: _cn_update_sm(mv, valid, parity, alpha=1.0, clip=50.0, pinned=True), 5)
-        nbytes = 2 * mv.numel() * mv.element_size() + parity.numel() * 4 + valid.numel()
+        nbytes = cn_bound_bytes(valid, H.shape[0], B, mv.element_size())
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         shape = f"[{dc},{m_pad},{B}] {str(dtype)[6:]}"
         log(f"[cn_pinned] {H.shape[0]}x{H.shape[1]} {shape}: bit-exact={same} "
@@ -2212,9 +2221,9 @@ def phase_bp_span_bf16_ring(plans, gdet, captured: dict):
 
 # ---------------------------------------------------------------------------
 # BP4, CAMEL and the phenomenological and SHYPS drivers: short forms of six
-# of the parity rows of ``harness.parity_rows`` at seed 2024, through the
-# rows' entry points (``run_row``; the full rows run in
-# tools/torch_validate_depolarizing.py): the row, its shots here, the
+# of the parity rows of tools/torch_validate_depolarizing.py at seed 2024,
+# through the rows' entry points (its ``run_row``; the tool runs the full
+# rows): the row, its shots here, the
 # port's own count at seed 2024 (its first run on the card, PERF.md), and
 # the kernels it may launch (BP4's CN stage is kernel A; its OSD, the
 # windows' and the whole DEM's, kernel B; the other BP on the fused kernel)
@@ -2227,8 +2236,8 @@ ROW_FORMS = {
     "shyps-global": (4096, 29, ("bp_span", "osd_cs_fused")),
 }
 # the rows whose first shots are decoded on the card and on the CPU
-ROW_SLICES, ROW_SLICE_SHOTS = ("bp4-osdcs", "camel-362", "phenom-osd", "shyps-window",
-                               "shyps-global"), 64
+ROW_SLICES, ROW_SLICE_SHOTS = ("bp4-osdcs", "camel-362", "phenom-osd", "phenom-gdg",
+                               "shyps-window", "shyps-global"), 64
 # OSD-E in ``[osd_e]``: its order and the bucket (216x1728)
 OSD_E_ORDER, OSD_E_SHOTS = 7, 256
 
@@ -2285,7 +2294,7 @@ def phase_bp4_cn():
         ms = cuda_time_ms(kern, 50)
         plain_ms = cuda_time_ms(
             lambda: _cn_update_sm(mv, valid, parity, alpha=alpha, clip=50.0), 5)
-        nbytes = 2 * mv.numel() * 4 + parity.numel() * 4 + valid.numel()
+        nbytes = cn_bound_bytes(valid, H.shape[0], B, 4)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         shape = f"[{dc},{m_pad},{B}] float32"
         log(f"[bp4_cn] {name} {H.shape[0]}x{H.shape[1]} {shape}, alpha {alpha}: bit-exact on "
@@ -2381,16 +2390,29 @@ def phase_osd_e(plan, det):
     return {**res, "osd_e_ms": osd_e_ms, "order": OSD_E_ORDER, "candidates": len(pats)}
 
 
+def rows_tool():
+    """``tools/torch_validate_depolarizing.py``: the parity rows' knobs and
+    ``run_row``."""
+    from slidingwindowdecoder_torch.utils import cuda_build
+
+    tools = str(cuda_build.CSRC.parents[1] / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import torch_validate_depolarizing
+
+    return torch_validate_depolarizing
+
+
 def row_slice(name: str, dev: str):
     """The first ``ROW_SLICE_SHOTS`` shots of a row's decoder at seed 2024
     on ``dev`` (the card's half, or a worker task on the CPU): its per-shot
     corrections (numpy) and seconds. The bp4 and CAMEL shots are the first
     ones of the row's samples; the phenomenological shots are the driver's
     draw at that batch size; the SHYPS shots are ``decode_shyps``'s."""
-    from slidingwindowdecoder_torch.harness import parity_rows as pr
     from slidingwindowdecoder_torch.harness.depolarizing import sample_depolarizing
     from slidingwindowdecoder_torch.harness.shyps import decode_shyps
 
+    pr = rows_tool()
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     kind = pr.ROWS[name][0]
@@ -2427,16 +2449,16 @@ def phase_rows(tag: str, names):
     differ."""
     import torch
 
-    from slidingwindowdecoder_torch.harness.parity_rows import ROWS, run_row
     from slidingwindowdecoder_torch.utils.metrics import rates_compatible
 
+    tool = rows_tool()
     res, pending = {}, []
     for name in names:
         shots, exact, kernels = ROW_FORMS[name]
-        kind, _, ref, jax_count = ROWS[name]
+        kind, _, ref, jax_count = tool.ROWS[name]
         reset_counts()
         with contextlib.redirect_stdout(sys.stderr):
-            r = run_row(kind, shots, SEED, "cuda")
+            r = tool.run_row(kind, shots, SEED, "cuda")
         torch.cuda.synchronize()
         launches, plain = read_counts()
         nf = r["failures"]

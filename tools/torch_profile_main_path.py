@@ -99,7 +99,7 @@ CC_SHOTS, CC_P = 65536, 0.04
 GLOBAL_BATCH = 8192
 # the sw-288-w4 row (tools/torch_validate_circuit_level.py): (N, p, rounds, W, F)
 SW_288_EXP = (288, 0.005, 6, 4, 1)
-# the BP4 paths: rows of harness.parity_rows.BP4_ROWS
+# the BP4 paths: rows of torch_validate_depolarizing.BP4_ROWS
 BP4_PATHS = ("bp4_osdcs", "camel")
 BP4_RUN_STAGE = "bp4_run (the variable side and convergence test, torch ops)"
 
@@ -154,11 +154,7 @@ def main() -> int:
                               device="cuda")
         dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
     elif args.path in BP4_PATHS:
-        from slidingwindowdecoder_torch.harness.parity_rows import (
-            BP4_ROWS,
-            bp4_row_decoder,
-            row_code,
-        )
+        from torch_validate_depolarizing import BP4_ROWS, bp4_row_decoder, row_code
 
         code = row_code(args.path)
         p, _, _, shots = BP4_ROWS[args.path]

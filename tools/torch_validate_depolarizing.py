@@ -5,7 +5,9 @@ on one CUDA card.
 Runs the seven rows of ``docs/PARITY.md`` that go through the port's
 depolarizing, phenomenological and SHYPS drivers, with the reference's
 parameters as the JAX package's ``tools/validate_parity.py`` sets them
-(held in ``harness.parity_rows``), and prints one JSON line per row:
+(``ROWS`` and the knobs below; ``chip_smoke.py`` and
+``tools/torch_profile_main_path.py`` import them from here), and prints
+one JSON line per row:
 failures, flagged, shots, shots/s, the launches of each kernel (the driver's warm-up decode
 included), the JAX package's count at seed 7 (``docs/parity_results.jsonl``,
 its TPU runs) and whether the failure rate lies within 3 sigma of the
@@ -48,7 +50,118 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _shyps_ref(ler_per_round: float, shots: int = 20000) -> tuple[int, int]:
+    """The reference's (failures, shots) from its LER per round over 4 rounds."""
+    return round((1 - (1 - ler_per_round) ** 4) * shots), shots
+
+
+# name -> (runner, default shots, (reference failures, shots), the JAX
+# package's failures at seed 7 and its shots)
+ROWS = {
+    "camel-362": ("camel", 32768, (26, 100_000), (12, 32768)),
+    "bp4-osd0": ("bp4_osd0", 32768, (77, 100_000), (25, 32768)),
+    "bp4-osdcs": ("bp4_osdcs", 32768, (22, 100_000), (4, 32768)),
+    "phenom-osd": ("phenom_osd", 65536, (20200, 1_000_000), (1268, 65536)),
+    "phenom-gdg": ("phenom_gdg", 32768, (1360, 1_000_000), (34, 32768)),
+    "shyps-window": ("shyps_window", 16384, _shyps_ref(2.13e-3), (128, 16384)),
+    "shyps-global": ("shyps_global", 16384, _shyps_ref(2.35e-3), (126, 16384)),
+}
+
+# the depolarizing rows: p, the ``BP4OSD`` knobs, CAMEL or not, and the
+# driver's batch (CAMEL decodes 4 branch lanes a shot)
+BP4_ROWS = {
+    "camel": (0.02, dict(max_iter=50, ms_scaling_factor=0.8, osd_method="off", osd_order=0),
+              True, 1024),
+    "bp4_osd0": (0.1, dict(max_iter=100, ms_scaling_factor=0.625, osd_method="osd_0",
+                           osd_order=0), False, 2048),
+    "bp4_osdcs": (0.1, dict(max_iter=100, ms_scaling_factor=0.625, osd_method="osd_cs",
+                            osd_order=10), False, 2048),
+}
+# the phenomenological rows: (p, p_synd), the decoders' knobs, the batch
+PHENOM_P = (0.03, 1e-3)
+PHENOM_OSD_KNOBS = dict(max_iter=100, ms_scaling_factor=0.625, osd_method="osd_cs",
+                        osd_order=10)
+PHENOM_GDG_KNOBS = dict(max_iter=8, ms_scaling_factor=0.625, gdg_factor=0.625,
+                        max_iter_per_step=6, max_step=40, max_tree_depth=4,
+                        max_side_depth=20, max_side_branch_step=30,
+                        max_tree_branch_step=30, low_error_mode=True, ensemble_bucket=256)
+PHENOM_BATCH = 16384
+# the SHYPS rows' ``decode_shyps`` arguments (but the window form's flag)
+SHYPS_KNOBS = dict(r=3, p=0.001, num_repeat=4, max_iter=1000, osd_order=0, W=3, F=1)
+
+
+def row_code(kind: str):
+    """The code of a depolarizing or phenomenological row: the [[362]]
+    cycle-assembled code (CAMEL), the [[882,24]] QC-GHP code (bp4) or the
+    [[288,12,18]] BB code (phenom)."""
+    from slidingwindowdecoder_torch.codes import (
+        bb_code_by_n,
+        create_cycle_assemble_codes,
+        create_cyclic_permuting_matrix,
+        create_QC_GHP_codes,
+    )
+
+    if kind == "camel":
+        return create_cycle_assemble_codes(19, 3)
+    if kind.startswith("bp4"):
+        return create_QC_GHP_codes(63, create_cyclic_permuting_matrix(7, [27, 54, 0]),
+                                   [0, 1, 6])
+    return bb_code_by_n(288)[0]
+
+
+def bp4_row_decoder(kind: str, device=None):
+    """The ``BP4OSD`` that ``depolarizing_decoding`` builds for a
+    depolarizing row (uniform p/3 priors)."""
+    from slidingwindowdecoder_torch.decoders import BP4OSD
+
+    code = row_code(kind)
+    p, knobs, _, _ = BP4_ROWS[kind]
+    probs = np.full(code.N, p / 3)
+    return BP4OSD(code.hx, code.hz, channel_probs_x=probs, channel_probs_y=probs,
+                  channel_probs_z=probs, device=device, **knobs)
+
+
+def phenom_row_decoder(kind: str, pcm, priors, device=None):
+    """The decoder of a phenomenological row on ``[hx | I]``."""
+    from slidingwindowdecoder_torch.decoders import BPOSD, GDG
+
+    if kind == "phenom_osd":
+        return BPOSD(pcm, priors, device=device, **PHENOM_OSD_KNOBS)
+    return GDG(pcm, priors, device=device, **PHENOM_GDG_KNOBS)
+
+
+def run_row(kind: str, shots: int, seed: int, device=None) -> dict:
+    """One row through the port's driver on ``device`` (None means
+    "cuda"): {"failures", "flagged", "shots", "seconds", "shots_per_s"}
+    (``seconds`` as the driver times it; no flags on the phenomenological
+    rows, whose driver counts none)."""
+    from slidingwindowdecoder_torch.harness.depolarizing import depolarizing_decoding
+    from slidingwindowdecoder_torch.harness.phenomenological import decode_phenomenological
+    from slidingwindowdecoder_torch.harness.shyps import decode_shyps
+
+    if kind in BP4_ROWS:
+        p, knobs, camel, batch = BP4_ROWS[kind]
+        r = depolarizing_decoding(row_code(kind), p, shots, camel=camel, batch_size=batch,
+                                  seed=seed, verbose=False, device=device, **knobs)
+    elif kind.startswith("phenom"):
+        r = decode_phenomenological(
+            row_code(kind), *PHENOM_P, shots,
+            {"d": lambda pcm, pr: phenom_row_decoder(kind, pcm, pr, device)},
+            batch_size=PHENOM_BATCH, seed=seed, verbose=False)["d"]
+        r["num_flagged"] = None
+    else:
+        r = decode_shyps(num_shots=shots, window=kind == "shyps_window", seed=seed,
+                         verbose=False, device=device, **SHYPS_KNOBS)
+        r = {"num_err": r["num_failed"], "num_flagged": r["num_flagged"], "shots": shots,
+             "seconds": r["seconds"], "shots_per_sec": r["shots_per_sec"]}
+    return {"failures": r["num_err"], "flagged": r["num_flagged"], "shots": r["shots"],
+            "seconds": r["seconds"], "shots_per_s": r["shots_per_sec"]}
+
 
 
 def main() -> int:
@@ -63,7 +176,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from slidingwindowdecoder_torch.harness.parity_rows import ROWS, run_row
     from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
     from slidingwindowdecoder_torch.utils.metrics import rates_compatible
 
