@@ -49,7 +49,7 @@ Phases (any failure exits non-zero; nothing is caught):
    launch) on the card against the plain loop on the CPU at every shape
    the paths give it, on window-0 syndromes of the seed-2024 samples: the
    whole-batch pre-BP (masked f32, B=16384, 8 iterations) and phase A
-   (unmasked bf16, B=16384, 16 iterations), held on their first 256
+   (unmasked bf16, B=16384, 16 iterations), held on their first 128
    shots; a post-BP bucket (masked f32, B=512, shortened as ``OSDWindow``
    does, 200 iterations) and a phase-B bucket (unmasked bf16, B=1024, a
    48-iteration span), both with tail history; error, done, iterations
@@ -69,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught):
    counts read around it (``bp_span_pinned`` and ``osd_cs_fused`` only)
    and the failure count held to exactly the port's 309/16384 (and to 3
    sigma of the reference's 183/10000); then the first
-   256 of those shots, at full width (no shot may differ), and a small
+   128 of those shots, at full width (no shot may differ), and a small
    input, each on the card and by the plain versions on the CPU;
 8. the GDG path, the decoder of ``sliding_window_gdg`` (the reference's
    guessing.py: GDG with pre-BP 8 and the reference's ensemble defaults,
@@ -117,7 +117,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``bp_span`` with ``gauss_jordan_key`` or ``osd_cs_fused`` for OSD);
    ``[cc_device]``: ``run_cc_campaign_device`` for BPGD over all VNs on
    [[882]] and GDG's spans form on [[288,12,18]] at p=0.02, 65536 shots
-   each, within 3 sigma of the reference; ``[cc_slice]``: the first 256
+   each, within 3 sigma of the reference; ``[cc_slice]``: the first 128
    [[882]] shots by BPGD and GDG's spans form on the card and by the plain
    versions on the CPU, and by BPGD's two forms on the card, no shot
    differing;
@@ -166,7 +166,7 @@ Phases (any failure exits non-zero; nothing is caught):
    cluster route of ``osd_cs_fused`` only; the fused BP kernel on the first
    pre-BP call of each window shape (576x4896 and 576x4752, unmasked bf16,
    512 shots, 16 iterations, one shot a block) against the plain loop on
-   the CPU over 32 shots, bit-exact; then 16 shots on the card and by the
+   the CPU over 32 shots, bit-exact; then 8 shots on the card and by the
    plain versions on the CPU (no shot may differ);
    ``[bp_span_bf16_ring]``: the fused kernel with a bf16 history ring on the
    card against the plain loop on the CPU, bit-exact (ring, error, done,
@@ -189,13 +189,36 @@ Phases (any failure exits non-zero; nothing is caught):
    then the first 64 shots of every one of these rows on the card and by
    the plain versions on the CPU (no shot may differ; phenom-gdg's CPU
    half, GDG's pinned bursts on the 144x432 PCM, ~16 s on one thread);
+11d. the scale-out and the rest of the port (after phase 6 and before
+   step 12): ``[sharded]``, the flagship pipeline through
+   ``decode_sliding_window_sharded`` over a one-rank ``nccl`` shot mesh
+   (127.0.0.1, a free port, the group destroyed at the end of the phase)
+   on phase 6's samples and decoders: ``total_e_hat`` equal to phase 6's
+   bit for bit, exactly 414 failures from
+   ``evaluate_logical_errors_sharded``, launching ``bp_span`` and
+   ``osd_cs_fused`` only; ``[shard_step]``, ``shard_decode_step`` on
+   [[144]]'s hx at p = 0.02 over 4096 syndromes in the same group
+   (``bp_span`` and ``gauss_jordan_key`` only), its first 256 shots equal
+   to the plain versions' on the CPU; ``[sampler]``, ``make_dem_sampler``
+   on the flagship DEM for 16384 shots: exact GF(2) products, fault
+   counts within 3 sigma in all and 5 sigma each, its time beside the
+   card; ``[roofline]``, ``measure_bp_roofline`` on window 0 at B = 16384,
+   bf16, random syndromes: ``bp_iter_ms`` and ``hbm_bw_frac`` (at most
+   1.05); ``[cli]``, ``python -m slidingwindowdecoder_torch.harness.cli
+   sliding-window`` at the flagship defaults on 16384 shots as a
+   subprocess, its counts equal to the in-process
+   ``sliding_window_decoder``'s (``bp_span`` and ``osd_cs_fused``), its
+   3-sigma verdict against the reference's 2.14e-3 a round printed, and
+   the six other subcommands in-process through ``main`` at 256 shots;
+   ``[dryrun]``, ``dryrun_multichip(1)``: the five sharded cores in a
+   spawned one-rank ``nccl`` process against the same cores here;
 12. the CPU halves of every card-vs-CPU phase (``run_cpu_halves``);
 13. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 The card-vs-CPU phases run their card halves in place and defer their CPU
-halves (the 256 shortened, 32 GDG, 32 bf16 GDG and 16 [[288]] GDG shots,
-the 256 serial syndromes, the 32 global and 256 [[882]] shots, the small
+halves (the 128 shortened, 32 GDG, 32 bf16 GDG and 8 [[288]] GDG shots,
+the 256 serial syndromes, the 32 global and 128 [[882]] shots, the small
 [[72]] inputs, the 64-shot row slices) to step 12, after every timed phase, so that no rate or
 time the script reports is read under their load; they run there in eight
 single-threaded worker processes, which end on any exit.
@@ -215,15 +238,19 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# H100 SXM arithmetic rates outside the tensor cores: 132 SMs at 1.98 GHz,
-# times the results per clock per SM of compute capability 9.0 (CUDA C++
-# Programming Guide, arithmetic instruction throughput): 128 for float32
-# add, multiply and compare (the published 67 TFLOP/s counts an FMA as
-# two), 64 for 32-bit integer add, compare, shift and logic, 64 for
-# float64 add
-FP32_OPS_PER_S = 132 * 128 * 1.98e9
-INT32_OPS_PER_S = FP64_ADDS_PER_S = 132 * 64 * 1.98e9
+# the H100 SXM's device-memory and arithmetic peaks, and the bounds of the
+# kernels' work (their sources and counts: slidingwindowdecoder_torch/utils/roofline.py)
+from slidingwindowdecoder_torch.utils.roofline import (  # noqa: E402
+    H100,
+    cn_bound_bytes,
+    gj_ops as _gj_ops,
+    span_bound,
+)
+
+HBM_BYTES_PER_S = H100["hbm_bytes_per_s"]
+FP32_OPS_PER_S = H100["fp32_ops_per_s"]
+INT32_OPS_PER_S = H100["int32_ops_per_s"]
+FP64_ADDS_PER_S = H100["fp64_adds_per_s"]
 REF_FAILED, REF_SHOTS, SEED = 414, 16384, 2024  # the JAX package's flagship count
 # the shortened osd_window decode: the reference's own rate (docs/PARITY.md,
 # 183/10000 at p=0.004, W=3, 12 rounds), and the port's own count at seed
@@ -231,15 +258,11 @@ REF_FAILED, REF_SHOTS, SEED = 414, 16384, 2024  # the JAX package's flagship cou
 # bit-exact, so the count must not move)
 REF_SHORT_FAILED, REF_SHORT_SHOTS = 183, 10000
 SHORT_FAILED = 309
-# operations of one fused BP iteration, counted from csrc/bp_span.cu: per
-# valid edge the CN stage's two passes (clip 2, abs and cap 2, min update
-# 3, sign count 2; clip 2, abs and cap 2, select 2, sign 2, negate 1,
-# scale 1), the VN sum's add and the edge stage (subtract 1, pin test 2,
-# sign count 2); per VN the prior add, the rounding and the pin select
-SPAN_OPS_PER_EDGE, SPAN_OPS_PER_VN = 25, 3
 # the first shots of the same samples, decoded on the shortened path on the
-# card and by the plain versions on the CPU at full width
-SLICE_SHOTS = 256
+# card and by the plain versions on the CPU at full width (256 before the
+# scale-out phases joined the script; halved, with the [cc_slice] and
+# [gdg_wide] slices, to keep it under ~900 s)
+SLICE_SHOTS = 128
 # the GDG path: [[144]] W=3 at p=0.005 (docs/PARITY.md, "[[144]] SW GDG
 # W=3, p=0.005, pre-BP 8": the reference's 400/5000), 8192 shots; the
 # port's own count at seed 2024 (its first run on the card, PERF.md); the
@@ -265,7 +288,8 @@ CC_FAILED = {"bpgd": 30, "osd0": 2, "osdcs": 0}
 CC_DEVICE_SHOTS = 65536
 CC_DEVICE_REF = {"bpgd_all": (34, 1_000_000), "gdg_288": (1, 10_000_000)}
 # the first shots of the [[882]] samples, decoded on the card and on the CPU
-CC_SLICE_SHOTS = 256
+# (256 before the scale-out phases joined the script)
+CC_SLICE_SHOTS = 128
 # the [[882]] shots whose first OSD bucket holds kernel B against its plain
 # version at 441x882
 CC_OSD_CHECK_SHOTS = 8192
@@ -386,14 +410,6 @@ def wide_pcms():
     _, _, dem144, _ = build_bb_window_experiment(144, 0.004, 12, 3, 1)
     _, _, _, plan288 = build_bb_window_experiment(288, 0.005, 6, 4, 1)
     return dem144.chk, plan288.windows[1].mat
-
-
-def cn_bound_bytes(valid, m: int, B: int, itemsize: int) -> int:
-    """The bytes a check-node update of ``m`` checks at ``B`` columns must
-    move: the messages of the valid edges read and written, the checks'
-    int32 parities and their rows of the valid mask (the padding rows up to
-    ``m_pad`` and the invalid slots count nothing)."""
-    return 2 * int(valid.sum()) * B * itemsize + m * B * 4 + valid.shape[0] * m
 
 
 def phase_cn(plan):
@@ -525,16 +541,6 @@ def phase_cn_pinned(plan):
         del mv, parity, out, ref
     cn_update.launches = cn_update.pinned_launches = 0
     return result
-
-
-def _gj_ops(m: int, n: int, W: int, rank: int, B: int, xor_rows: int) -> int:
-    """32-bit operations of the elimination on these inputs: per step the
-    OR over the unused rows' words, the key scan and the pivot-column bit
-    test, and the W+1 word XORs of every row that holds the pivot bit
-    (``xor_rows``, summed over steps and shots, counted by the plain
-    version)."""
-    per_shot = sum((m - r) * W + n + m for r in range(rank))
-    return per_shot * B + xor_rows * (W + 1)
 
 
 # kernel B (csrc/gauss_jordan.cu) per 256-shot bucket at 216x1728 before
@@ -952,15 +958,13 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     hist_rows = ((args[5] == -1).sum(dim=1).cpu() if masked and args[5] is not None
                  else torch.full((B,), n))
     hist_writes = int(((ran - kw["hist_from"]).clamp_min(0) * hist_rows).sum())
-    ops = shot_iters * (edges * SPAN_OPS_PER_EDGE + n * SPAN_OPS_PER_VN)
-    # bytes of the rows not done at entry (a done row's block is neither
-    # read nor compared): its message block read and written, its int32
-    # syndrome and sign seed, its VN state and error, and the ring's writes
+    # the rows not done at entry (a done row's block is neither read nor
+    # compared) and the ring's writes (utils/roofline.py:span_bound)
     live = int((~args[8]).sum())
     ring_t = args[6].element_size()
-    nbytes = live * (2 * dc * m_pad * t + 8 * m_pad + 2 * n) + ring_t * hist_writes
-    # all at the float32 rate, though the sign counts run at the integer one
-    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound = span_bound(live=live, shot_iters=shot_iters, hist_writes=hist_writes, edges=edges,
+                       n=n, dc=dc, m_pad=m_pad, msg_bytes=t, ring_bytes=ring_t)
+    ops, nbytes, ops_ms, bytes_ms = (bound[k] for k in ("ops", "bytes", "ops_ms", "bytes_ms"))
     # shared-memory traffic of one shot-iteration, from the code: CN two
     # reads and a write per edge; the VN gather with its indices, the
     # prior and the rounded posterior; the edge stage's index, posterior,
@@ -1991,11 +1995,12 @@ GDG_BF16_SLICE_SHOTS = 32
 # steps 40; 47 branches), then BP+OSD-CS-10 on the last window; the
 # reference's 136/20000 and, with the last-window OSD, 85/20000; the
 # port's own counts at seed 2024 over GDG_WIDE_SHOTS shots (its first run
-# on the card, PERF.md); the shots of its card-vs-CPU slice
+# on the card, PERF.md); the shots of its card-vs-CPU slice (16 before the
+# scale-out phases joined the script)
 GDG_WIDE_EXP = (288, 0.005, 6, 4, 1)
 GDG_WIDE_KNOBS = dict(GDG_BF16_KNOBS, max_iter=16, max_step=60, max_tree_depth=4,
                       max_side_depth=20, max_tree_branch_step=40, max_side_branch_step=40)
-GDG_WIDE_SHOTS, GDG_WIDE_SLICE_SHOTS = 512, 16
+GDG_WIDE_SHOTS, GDG_WIDE_SLICE_SHOTS = 512, 8
 REF_GDG_WIDE, REF_GDG_WIDE_OSD = (136, 20000), (85, 20000)
 GDG_WIDE_FAILED, GDG_WIDE_OSD_FAILED = 4, 3
 # the serial work queue on window 0 of the GDG path's samples
@@ -2490,6 +2495,289 @@ def phase_rows(tag: str, names):
     return res, pending
 
 
+# [shard_step]: [[144]]'s hx at p = 0.02, syndromes of code-capacity errors
+# from seed 2024, BP of 32 iterations and OSD-0; the first shots also on
+# the CPU
+SHARD_STEP_P, SHARD_STEP_SHOTS, SHARD_STEP_CPU_SHOTS = 0.02, 4096, 256
+# [cli]: the reference's flagship rate (docs/PARITY.md: 2.14e-3 a round, 12
+# rounds); the six other subcommands' shots, run in-process on the card
+REF_LER_PER_ROUND = 2.14e-3
+CLI_OTHER_SHOTS = 256
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded(plan, det, obs, factory, main_e_hat, code144):
+    """``[sharded]`` and ``[shard_step]`` in a one-rank ``nccl`` group on
+    the card (127.0.0.1 and a free port), destroyed at the end of the
+    phase whatever happens. ``[sharded]``: ``decode_sliding_window_sharded``
+    over the shot mesh on the flagship's samples with the flagship's
+    decoders: ``total_e_hat`` equal to phase 6's ``decode_sliding_window``
+    bit for bit, ``evaluate_logical_errors_sharded`` counting exactly
+    ``REF_FAILED``, only ``bp_span`` and ``osd_cs_fused`` launched.
+    ``[shard_step]``: ``shard_decode_step`` on [[144]]'s hx: only
+    ``bp_span`` and ``gauss_jordan_key`` launched, its first shots equal to
+    the plain versions' on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from slidingwindowdecoder_torch.parallel.distributed import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from slidingwindowdecoder_torch.parallel.mesh import make_shot_mesh, shard_decode_step
+    from slidingwindowdecoder_torch.windows.pipeline import (
+        decode_sliding_window_sharded,
+        evaluate_logical_errors_sharded,
+    )
+
+    shots = det.shape[0]
+    rng = np.random.default_rng(SEED)
+    errs = (rng.random((SHARD_STEP_SHOTS, code144.N)) < SHARD_STEP_P).astype(np.uint8)
+    synds = ((errs @ code144.hx.T) % 2).astype(np.uint8)
+    prior = np.full(code144.N, SHARD_STEP_P)
+    t0 = time.perf_counter()
+    info = initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda",
+                                  timeout_s=300)
+    try:
+        mesh = make_shot_mesh("cuda")
+        log(f"[sharded] group: backend {dist.get_backend()}, {info['num_processes']} rank, "
+            f"mesh on {mesh.device}, set up in {time.perf_counter() - t0:.1f}s")
+        if dist.get_backend() != "nccl" or mesh.size != 1:
+            raise SystemExit("[sharded] not a one-rank nccl group")
+        det_dev = torch.as_tensor(det, device=mesh.device)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = decode_sliding_window_sharded(plan, det_dev, factory, mesh)
+        ev = evaluate_logical_errors_sharded(plan, det_dev, obs, out["total_e_hat"], mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+        same = bool((out["total_e_hat"].cpu().numpy() == main_e_hat).all())
+        log(f"[sharded] {shots} shots in {dt:.3f}s -> {shots / dt:.1f} shots/s; failed "
+            f"{ev['num_failed']} flagged {ev['num_flagged']} (all-reduced); total_e_hat equal "
+            f"to decode_sliding_window's: {same}; launches {launches}; plain calls {plain}")
+        if not same or ev["num_failed"] != REF_FAILED:
+            raise SystemExit(f"[sharded] {ev['num_failed']} failures (want {REF_FAILED}); "
+                             f"total_e_hat equal: {same}")
+        check_kernels("[sharded]", launches, plain, ("bp_span", "osd_cs_fused"))
+        sharded = {"shots": shots, "seconds": dt, "shots_per_s": shots / dt,
+                   "num_failed": ev["num_failed"], "num_flagged": ev["num_flagged"],
+                   "launches": launches}
+
+        shard_decode_step(mesh, code144.hx, prior, synds[:256])  # warm-up, set-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        step = shard_decode_step(mesh, code144.hx, prior, synds, num_iter=32)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = read_counts()
+    finally:
+        shutdown_distributed()
+    k = SHARD_STEP_CPU_SHOTS
+    t0 = time.perf_counter()
+    cpu = shard_decode_step(make_shot_mesh("cpu"), code144.hx, prior, synds[:k], num_iter=32)
+    cpu_s = time.perf_counter() - t0
+    card_err = step["error"].cpu().numpy()
+    diff = int((card_err[:k] != cpu["error"].numpy()).any(axis=1).sum())
+    resid = (card_err.astype(np.int64) @ code144.hx.T + synds) % 2
+    log(f"[shard_step] [[144]] hx, p={SHARD_STEP_P}, {SHARD_STEP_SHOTS} syndromes: {dt * 1e3:.1f} "
+        f"ms (set-up included), num_errors {step['num_errors']} (residual check "
+        f"{int(resid.any(axis=1).sum())}); first {k} shots vs the CPU plain versions: "
+        f"{diff} differing, CPU {cpu_s:.1f}s; launches {launches}; plain calls {plain}")
+    if diff or step["num_errors"] != int(resid.any(axis=1).sum()):
+        raise SystemExit("[shard_step] the card disagrees with the CPU plain versions")
+    check_kernels("[shard_step]", launches, plain, ("bp_span", "gauss_jordan_key"))
+    return sharded, {"shots": SHARD_STEP_SHOTS, "ms": dt * 1e3, "num_errors": step["num_errors"],
+                     "launches": launches}
+
+
+def phase_sampler(dem):
+    """``[sampler]``: ``make_dem_sampler`` on the flagship DEM for
+    ``REF_SHOTS`` shots from a card generator seeded with ``SEED``: the
+    detectors and observables equal the faults' products with the DEM in
+    int64 on the host (sparse), the total fault count lies within 3 sigma of
+    ``shots * priors.sum()`` and no fault's count beyond 5 sigma of ``shots
+    * prior``; its time (CUDA events, after a warm-up) beside the card."""
+    import scipy.sparse as sp
+    import torch
+
+    from slidingwindowdecoder_torch.circuits import make_dem_sampler
+
+    sample = make_dem_sampler(dem, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sample(gen, REF_SHOTS)  # warm-up
+    gen.manual_seed(SEED)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    det, obs, faults = sample(gen, REF_SHOTS)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    f = sp.csr_matrix(faults.cpu().numpy().astype(np.int64))
+    det_ok = np.array_equal(det.cpu().numpy(), (f @ sp.csr_matrix(dem.chk.T.astype(np.int64))
+                                                ).toarray() % 2)
+    obs_ok = np.array_equal(obs.cpu().numpy(), (f @ sp.csr_matrix(dem.obs.T.astype(np.int64))
+                                                ).toarray() % 2)
+    counts = np.asarray(f.sum(axis=0)).ravel()
+    pr = dem.priors.astype(np.float64)
+    mean, sigma = REF_SHOTS * pr.sum(), math.sqrt(REF_SHOTS * (pr * (1 - pr)).sum())
+    z_fault = np.abs(counts - REF_SHOTS * pr) / np.sqrt(REF_SHOTS * pr * (1 - pr))
+    log(f"[sampler] {REF_SHOTS} x {dem.num_faults} faults -> {dem.chk.shape[0]} detectors in "
+        f"{ms:.3f} ms on {card_line()}; products exact: det {det_ok}, obs {obs_ok}; faults "
+        f"{int(counts.sum())} vs {mean:.1f} +- {sigma:.1f}; largest fault z {z_fault.max():.2f}")
+    if not (det_ok and obs_ok) or abs(counts.sum() - mean) > 3 * sigma or z_fault.max() > 5:
+        raise SystemExit("[sampler] the samples fail their checks")
+    return {"shots": REF_SHOTS, "ms": ms, "faults": int(counts.sum()), "expected": mean,
+            "max_fault_z": float(z_fault.max())}
+
+
+def phase_cli():
+    """``[cli]``: ``python -m slidingwindowdecoder_torch.harness.cli
+    sliding-window`` at the flagship defaults on ``REF_SHOTS`` seed-``SEED``
+    shots as one subprocess; its counts equal the in-process
+    ``sliding_window_decoder``'s with the same arguments (whose launches are
+    the path's: ``bp_span`` and ``osd_cs_fused``), with the 3-sigma verdict
+    against the reference's ``REF_LER_PER_ROUND``; then the six other
+    subcommands in-process through ``main`` on the card at
+    ``CLI_OTHER_SHOTS`` shots, each returning 0 and writing its JSON, with
+    no plain call."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import slidingwindowdecoder_torch
+    from slidingwindowdecoder_torch.harness import cli
+    from slidingwindowdecoder_torch.harness.circuit_level import sliding_window_decoder
+
+    seed = ["--shots", str(REF_SHOTS), "--seed", str(SEED)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sliding_window.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "slidingwindowdecoder_torch.harness.cli", "sliding-window",
+             *seed, "--quiet", "--json", path], capture_output=True, text=True, timeout=600,
+            cwd=Path(slidingwindowdecoder_torch.__file__).parents[1])
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"[cli] sliding-window exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+        with open(path) as fh:
+            res = json.load(fh)
+        reset_counts()
+        ref = sliding_window_decoder(N=144, p=0.004, num_repeat=12, num_shots=REF_SHOTS,
+                                     max_iter=200, W=3, F=1, method=1, seed=SEED,
+                                     verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        keys = ("num_failed", "num_flagged", "window_flagged", "num_windows", "ler")
+        same = all(res[k] == ref[k] for k in keys)
+        p_ref = 1 - (1 - REF_LER_PER_ROUND) ** 12
+        mean, sigma = p_ref * REF_SHOTS, math.sqrt(REF_SHOTS * p_ref * (1 - p_ref))
+        log(f"[cli] sliding-window subprocess ({sub_s:.1f}s in all): failed {res['num_failed']} "
+            f"flagged {res['num_flagged']}, LER/round {res['ler_per_round']:.4e}, "
+            f"{res['shots_per_sec']:.1f} shots/s; in-process driver failed {ref['num_failed']} "
+            f"flagged {ref['num_flagged']}, {ref['shots_per_sec']:.1f} shots/s; counts equal: "
+            f"{same}; 3-sigma verdict against the reference's {REF_LER_PER_ROUND}/round "
+            f"({mean:.1f} +- 3*{sigma:.1f}): "
+            f"{'within' if abs(res['num_failed'] - mean) <= 3 * sigma else 'outside'}")
+        if not same:
+            raise SystemExit("[cli] the subprocess's counts differ from the in-process driver's")
+        check_kernels("[cli] sliding-window (in-process)", launches, plain,
+                      ("bp_span", "osd_cs_fused"))
+        total = dict(launches)
+        few = ["--shots", str(CLI_OTHER_SHOTS), "--seed", str(SEED)]
+        others = {"gdg-window": [], "code-capacity": ["--batch", str(CLI_OTHER_SHOTS)],
+                  "global": [], "phenomenological": ["--batch", str(CLI_OTHER_SHOTS)],
+                  "depolarizing": ["--batch", str(CLI_OTHER_SHOTS)], "shyps": []}
+        runs = {}
+        for name, extra in others.items():
+            path = os.path.join(tmp, f"{name}.json")
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([name, *few, *extra, "--quiet", "--json", path])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches, plain = read_counts()
+            with open(path) as fh:
+                out = json.load(fh)
+            ran = sorted(k for k, v in launches.items() if v)
+            log(f"[cli] {name}: rc {rc}, {dt:.1f}s, JSON {json.dumps(out)[:300]}; kernels {ran}; "
+                f"plain calls {plain}")
+            if rc != 0 or any(plain.values()) or not ran:
+                raise SystemExit(f"[cli] {name} failed on the card")
+            runs[name] = {"seconds": dt, "kernels": ran}
+            for k, v in launches.items():
+                total[k] += v
+    return {"sliding_window": {k: res[k] for k in ("num_failed", "num_flagged", "ler_per_round",
+                                                   "shots_per_sec")},
+            "others": runs, "launches": total}
+
+
+def phase_roofline(plan):
+    """``[roofline]``: ``measure_bp_roofline`` on window 0's graph at
+    ``REF_SHOTS`` shots, bf16, on uniformly random syndromes (BP converges
+    on none, so every row runs every iteration): its iteration time and
+    shares of the card's peaks; fails if the modelled bytes would move
+    faster than the card's memory rate (``hbm_bw_frac`` > 1.05)."""
+    import torch
+
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.utils.roofline import measure_bp_roofline
+
+    spec = plan.windows[0]
+    graph = compile_graph(spec.mat)
+    garr = graph_tensors(graph, "cuda")
+    llr = torch.as_tensor(np.log((1 - spec.prior) / spec.prior).astype(np.float32),
+                          device="cuda")
+    rng = np.random.default_rng(SEED)
+    synds = torch.as_tensor(rng.integers(0, 2, (REF_SHOTS, spec.mat.shape[0]), dtype=np.uint8),
+                            device="cuda")
+    reset_counts()
+    res = measure_bp_roofline(garr, graph, llr, synds, msg_dtype="bfloat16")
+    launches, plain = read_counts()
+    check_kernels("[roofline]", launches, plain, ("bp_span",))
+    if launches["bp_span"] != res["calls"]:
+        raise SystemExit(f"[roofline] {res['calls']} timed calls made {launches['bp_span']} "
+                         "bp_span launches, not one each")
+    log(f"[roofline] window 0 ({spec.mat.shape[0]}x{spec.mat.shape[1]}), B={REF_SHOTS}, bf16: "
+        f"bp_iter_ms {res['bp_iter_ms']:.5f}, hbm_bw_frac {res['hbm_bw_frac']:.5f}, mfu "
+        f"{res['mfu']:.5f}, roofline_headroom_x {res['roofline_headroom_x']:.3f} "
+        f"({json.dumps(res)}) on {card_line()}")
+    if res["hbm_bw_frac"] > 1.05:
+        raise SystemExit("[roofline] the modelled bytes beat the card's memory rate: the model "
+                         "is wrong")
+    return res
+
+
+def phase_dryrun():
+    """``[dryrun]``: ``dryrun_multichip(1)`` on the card: the five sharded
+    cores in a spawned one-rank ``nccl`` process, held against the same
+    cores in this process (whose launches are read, with no plain call)."""
+    from slidingwindowdecoder_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    reset_counts()
+    summary = dryrun_multichip(1, device="cuda", timeout_s=600)
+    launches, plain = read_counts()
+    log(f"[dryrun] {json.dumps(summary)} in {time.perf_counter() - t0:.1f}s; this process's "
+        f"launches {launches}; plain calls {plain}")
+    if any(plain.values()):
+        raise SystemExit("[dryrun] a plain version ran on the card")
+    return {"summary": summary, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2521,17 +2809,24 @@ def main() -> int:
     osd_cs = phase_osd_cs(plan, det)
     osd_e = phase_osd_e(plan, det)
     span = phase_bp_span(plan, det)
-    main_res = phase_path("main", plan, det, obs,
-                          window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS),
-                          num_repeat, (REF_FAILED, REF_SHOTS), REF_FAILED,
-                          ("bp_span", "osd_cs_fused"))
+    flagship_factory = window_decoder_factory(False, device="cuda", **FLAGSHIP_KNOBS)
+    main_res = phase_path("main", plan, det, obs, flagship_factory, num_repeat,
+                          (REF_FAILED, REF_SHOTS), REF_FAILED, ("bp_span", "osd_cs_fused"))
+    main_e_hat = main_res.pop("e_hat")
+    from slidingwindowdecoder_torch.codes import bb_code_by_n
+
+    sharded_res, shard_step_res = phase_sharded(plan, det, obs, flagship_factory, main_e_hat,
+                                                bb_code_by_n(144)[0])
+    del main_e_hat
+    log(json.dumps({"sharded": sharded_res, "shard_step": shard_step_res}))
+    sampler_res = phase_sampler(dem)
+    roofline_res = phase_roofline(plan)
     exp72 = (72, 0.01, 3, 2, 1)
     _, _, dem72, plan72 = build_bb_window_experiment(*exp72)
     det72, obs72, _ = sample_dem_numpy(dem72, 128, np.random.default_rng(SEED))
     pending = [phase_card_vs_cpu(  # the deferred CPU halves, run after the last phase
         "small", exp72, plan72, det72, obs72, "bposd",
         dict(max_iter=30, osd_order=2, phase_a_iters=None, phase_b_spans=None))]
-    main_res.pop("e_hat")
     log(json.dumps({"main_path": main_res}))
     short_res = phase_path("osd_window", plan, det, obs,
                            window_decoder_factory(True, device="cuda"), num_repeat,
@@ -2605,6 +2900,10 @@ def main() -> int:
         rows[tag], halves = phase_rows(tag, names)
         pending += halves
         log(json.dumps({f"{tag}_rows": rows[tag]}))
+    cli_res = phase_cli()
+    log(json.dumps({"cli": cli_res}))
+    dryrun_res = phase_dryrun()
+    log(json.dumps({"sampler": sampler_res, "roofline": roofline_res, "dryrun": dryrun_res}))
     run_cpu_halves(pending)
 
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
@@ -2619,7 +2918,11 @@ def main() -> int:
                    "global": sum(r["launches"][k] for r in global_res.values()),
                    "sw_wide": sum(r["launches"][k] for r in wide_res.values()),
                    **{tag: sum(r["launches"][k] for r in forms.values())
-                      for tag, forms in rows.items()}}
+                      for tag, forms in rows.items()},
+                   "sharded": sharded_res["launches"][k],
+                   "shard_step": shard_step_res["launches"][k],
+                   "cli": cli_res["launches"][k],
+                   "dryrun_reference": dryrun_res["launches"][k]}
                for k in main_res["launches"]}
     for res, name in ((span["bp_span"], "bp_span"), (osd_cs, "osd_cs_fused"),
                       (gj_cluster["osd_cs_fused_cluster"], "osd_cs_fused_cluster")):

@@ -132,3 +132,31 @@ def sample_dem_numpy(dem: DemMatrices, shots: int, rng: np.random.Generator):
     det = np.mod(f32 @ dem.chk.T.astype(np.float32), 2.0)
     obs = np.mod(f32 @ dem.obs.T.astype(np.float32), 2.0)
     return det.astype(np.uint8), obs.astype(np.uint8), faults
+
+
+def make_dem_sampler(dem: DemMatrices, device=None):
+    """An on-device sampler ``f(generator, shots) -> (det, obs, faults)``.
+
+    Bernoulli draws per fault against ``dem.priors`` from the caller's
+    ``torch.Generator`` (on ``device``; None means "cuda", raising without
+    a card), then the two GF(2) products on the device (float32, exact:
+    every count is below 2**24). The shot axis leads, so the result splits
+    over a shot mesh by rows. All three outputs are uint8.
+    """
+    import torch
+
+    from ..utils.device import resolve_device
+    from ..windows.pipeline import _gf2_matmul
+
+    dev = resolve_device(device)
+    priors = torch.as_tensor(dem.priors, dtype=torch.float32, device=dev)
+    chk_t = torch.as_tensor(dem.chk.T, dtype=torch.float32, device=dev)  # [F, D]
+    obs_t = torch.as_tensor(dem.obs.T, dtype=torch.float32, device=dev)  # [F, O]
+
+    def sample(generator: torch.Generator, shots: int):
+        u = torch.rand((shots, priors.shape[0]), generator=generator, device=dev)
+        faults = (u < priors).to(torch.uint8)
+        del u
+        return _gf2_matmul(faults, chk_t), _gf2_matmul(faults, obs_t), faults
+
+    return sample

@@ -765,9 +765,11 @@ class GDG:
     (bp_guessing_decoder.pyx:160-338).
 
     The constructor is the JAX package's, less ``cn_engine`` (the kernels
-    are chosen by shape) and ``ensemble_early_exit`` (the host-stepped form
-    always stops when every column has finished; the results are the
-    same), plus ``device`` (None means "cuda"; raises without a card).
+    are chosen by shape), plus ``device`` (None means "cuda"; raises
+    without a card). ``ensemble_early_exit`` is accepted, as in JAX, and
+    changes nothing: JAX's fixed-trip bursts (False) give the results of
+    its early-exit ones, and here every burst is a ``bp_run`` with its
+    default early exit. The ensemble stops when every column has finished.
     Every mode runs ``gdg_ensemble_spans``: "fused" and "host_loop" with
     unit spans on every column (host-stepped), "spans" over
     ``ensemble_spans`` (default ``default_spans``) in buckets of
@@ -807,6 +809,7 @@ class GDG:
         ensemble_mode: str = "fused",
         ensemble_spans=None,
         row_bucket: int = 2048,
+        ensemble_early_exit: bool = False,
         device=None,
     ):
         if ensemble_mode not in ("fused", "host_loop", "spans"):
@@ -840,6 +843,7 @@ class GDG:
         self.new_n = min(self.n, 2 * self.m) if new_n is None else min(new_n, self.n)
         self.ensemble_bucket = int(ensemble_bucket)
         self.ensemble_mode = ensemble_mode
+        self.ensemble_early_exit = bool(ensemble_early_exit)
 
         self.graph = compile_graph(pcm)
         self.garr = graph_tensors(self.graph, self.device)

@@ -163,6 +163,7 @@ def bp_loop(
     freeze_messages: bool = True,
     posterior_matmul: bool = False,
     return_synd: bool = False,
+    early_exit: bool = True,
 ):
     """Up to ``num_iter`` BP iterations as torch ops around the CN stage
     ``ops.bp_cuda.cn_update``: the plain version of the fused kernel
@@ -180,7 +181,9 @@ def bp_loop(
     ``(mv_sm, hist_t, error, done, iters)``, and with ``return_synd`` also
     ``synd_hat`` [m_pad, B] int8: each shot's decoded syndrome at its last
     executed iteration, the target ``synd_t`` for a shot done at entry
-    (pad rows 0).
+    (pad rows 0). ``early_exit=False`` runs all ``num_iter`` trips with no
+    host read of the all-done flag (the per-shot freeze masks finished
+    shots, so the results are the same).
 
     The iterations run on the shots not done at entry only (one host read
     of which they are): a shot done at entry keeps every input, its
@@ -204,7 +207,7 @@ def bp_loop(
     live = (~done).nonzero()[:, 0]
     kw = dict(num_iter=num_iter, hist_from=hist_from, alpha=alpha, clip=clip,
               masked=masked, freeze_messages=freeze_messages,
-              posterior_matmul=posterior_matmul)
+              posterior_matmul=posterior_matmul, early_exit=early_exit)
     if live.numel() == B:
         mv_sm, hist_t, err_t, done, iters, sodd = _bp_iterations(
             garr, mv_sm, prior, parity, synd_t, vn_t, hist_t, error.T, done, iters, **kw)
@@ -228,7 +231,7 @@ def bp_loop(
 
 def _bp_iterations(garr, mv_sm, prior, parity, synd_t, vn_t, hist_t, err_t, done, iters, *,
                    num_iter, hist_from, alpha, clip, masked, freeze_messages,
-                   posterior_matmul):
+                   posterior_matmul, early_exit=True):
     """``bp_loop``'s iterations on the shots given, their messages already
     pinned at entry in masked mode. ``vn_t`` and ``err_t`` are [n, B];
     ``hist_t`` is written in place. Returns (mv_sm, hist_t, err_t, done,
@@ -256,7 +259,7 @@ def _bp_iterations(garr, mv_sm, prior, parity, synd_t, vn_t, hist_t, err_t, done
 
     i = 0
     while i < num_iter:
-        if i % EXIT_CHECK_EVERY == 0 and bool(done.all()):
+        if early_exit and i % EXIT_CHECK_EVERY == 0 and bool(done.all()):
             break
         mc = cn_update(mv_sm, valid, parity, alpha=alpha, clip=clip, pinned=masked)
         mc_flat = mc.reshape(dc * m_pad, B)
@@ -325,6 +328,7 @@ def bp_run(
     return_synd: bool = False,
     hist_update: str = "masked",
     hist_dtype: str = "float32",
+    early_exit: bool = True,
 ):
     """Run up to ``num_iter`` BP iterations with per-shot convergence
     freeze (the JAX ``bp_run``).
@@ -341,6 +345,11 @@ def bp_run(
     from a frozen run's, and no other output does. The plain loop checks
     the all-done exit on the host every ``EXIT_CHECK_EVERY`` iterations;
     the fused kernel freezes every done shot and exits per block.
+    ``early_exit=False`` (the JAX fixed-trip form) runs ``bp_loop`` for all
+    ``num_iter`` trips with no all-done read (on the card around the
+    ``cn_update`` kernel, not the fused one). The per-shot freeze masks
+    every done shot, so every output is bit-identical to
+    ``early_exit=True``.
     ``history_mode="tail"`` records history only over the final 4
     iterations. ``posterior_matmul=True`` takes the per-VN message sum as
     a dense product with ``garr["vn_inc"]`` (the JAX bf16 form, kept for
@@ -406,10 +415,13 @@ def bp_run(
         transposed=transposed,
     )
     mv_sm, prior = args[1], args[2]
-    fused = mv_sm.device.type == "cpu" or (
-        prior.ndim == 1 and not posterior_matmul
-        and span_route(garr, mv_sm.shape[2], mv_sm.dtype) is not None)
-    out = (bp_span if fused else bp_loop)(*args, **kw, return_synd=return_synd)
+    if not early_exit:
+        out = bp_loop(*args, **kw, return_synd=return_synd, early_exit=False)
+    else:
+        fused = mv_sm.device.type == "cpu" or (
+            prior.ndim == 1 and not posterior_matmul
+            and span_route(garr, mv_sm.shape[2], mv_sm.dtype) is not None)
+        out = (bp_span if fused else bp_loop)(*args, **kw, return_synd=return_synd)
     mv_sm, hist_t, err_out, done, iters = out[:5]
     if transposed:
         err_out = err_out.T

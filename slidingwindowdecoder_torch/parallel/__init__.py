@@ -1,1 +1,2 @@
-"""Monte-Carlo checkpoints (numpy and the standard library only)."""
+"""Scale-out: shot meshes and collectives over ``torch.distributed``,
+Monte-Carlo checkpoints and elastic recovery."""

@@ -33,6 +33,14 @@ def batch_seed(root_seed: int, process_id: int, batch_index: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
+def batch_rng(root_seed: int, process_id: int, batch_index: int) -> np.random.Generator:
+    """The canonical per-(host, batch) numpy generator: pure in its
+    arguments (the JAX package's ``batch_rng``)."""
+    return np.random.default_rng(
+        np.random.SeedSequence([int(root_seed), int(process_id), int(batch_index)])
+    )
+
+
 class MonteCarloCheckpoint:
     def __init__(self, path: str, process_id: int = 0):
         self.path = path

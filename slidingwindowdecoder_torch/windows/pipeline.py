@@ -116,6 +116,57 @@ def decode_sliding_window(
     }
 
 
+def decode_sliding_window_sharded(
+    plan,
+    det_data,
+    decoder_factory,
+    mesh=None,
+    *,
+    device=None,
+    verbose: bool = False,
+):
+    """The full (W, F) pipeline, optionally sharded over a shot mesh
+    (``parallel.mesh.ShotMesh``): ``decode_sliding_window`` on this rank's
+    shots.
+
+    Without ``mesh`` it decodes every shot on ``device`` (None means
+    "cuda"; raises without a card). With ``mesh`` this rank decodes its
+    contiguous block of rows of ``det_data`` (the whole batch [S, D]; S
+    must divide over the ranks) on the mesh's device. Decode state is
+    rank-local and there is no collective (the counts are reduced in
+    ``evaluate_logical_errors_sharded``).
+
+    Returns {"total_e_hat": this rank's corrections [S / size, C] (all S
+    without a mesh), "corrected_det", "window_seconds"} (the JAX keys).
+    """
+    if mesh is not None:
+        det_data = det_data[mesh.rows(det_data.shape[0])]
+        device = mesh.device
+    out = decode_sliding_window(plan, det_data, decoder_factory, device=device,
+                                verbose=verbose, collect_window_stats=False)
+    return {k: out[k] for k in ("total_e_hat", "corrected_det", "window_seconds")}
+
+
+def evaluate_logical_errors_sharded(plan, det_data, obs_data, total_e_hat, mesh):
+    """Final accounting over a shot mesh: ``evaluate_logical_errors`` on
+    this rank's rows of ``det_data`` / ``obs_data`` (the whole batch), then
+    one ``all_reduce`` of the two counts, the only communication of the
+    whole pipeline. ``total_e_hat`` is this rank's rows (as
+    ``decode_sliding_window_sharded`` returns them) or the whole batch's.
+    Returns {"failed": this rank's rows (numpy), "num_flagged",
+    "num_failed"} (the counts over the mesh)."""
+    from ..parallel.distributed import global_sums
+
+    rows = mesh.rows(det_data.shape[0])
+    if total_e_hat.shape[0] != rows.stop - rows.start:
+        total_e_hat = total_e_hat[rows]
+    ev = evaluate_logical_errors(plan, det_data[rows], obs_data[rows], total_e_hat,
+                                 device=mesh.device)
+    n_flagged, n_failed = global_sums([ev["num_flagged"], ev["num_failed"]], mesh.group)
+    return {"failed": ev["failed"], "num_flagged": int(n_flagged),
+            "num_failed": int(n_failed)}
+
+
 def evaluate_logical_errors(plan, det_data, obs_data, total_e_hat, *, device=None):
     """Final accounting, matching osd.py:184-189: a shot fails if its global
     residual syndrome is nonzero (flagged) OR any observable is flipped."""

@@ -16,14 +16,14 @@ shot may differ there only, with both corrections satisfying the syndrome
 at equal f64 weight (as in ``test_torch_gf2.py::test_osd_cs_matches_jax``).
 """
 
-import contextlib
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from slidingwindowdecoder_torch.circuits import sample_dem_numpy
 from slidingwindowdecoder_torch.codes import bb_code_by_n
 from slidingwindowdecoder_torch.decoders import GDG
 from slidingwindowdecoder_torch.decoders import gdg as tgdg
@@ -33,8 +33,11 @@ from slidingwindowdecoder_torch.ops import bp as tbp
 from slidingwindowdecoder_tpu.decoders import GDG as JGDG
 from slidingwindowdecoder_tpu.decoders import gdg as jgdg
 from slidingwindowdecoder_tpu.graphs.tanner import graph_device_arrays
-from slidingwindowdecoder_tpu.harness import circuit_level as jcl
 from slidingwindowdecoder_tpu.ops import bp as jbp
+
+sys.path.insert(0, str(Path(__file__).parent))
+from _torch_gdg_sw import torch_threads as _torch_threads  # noqa: E402
+from _torch_gdg_sw import weight as _weight  # noqa: E402
 
 # tests/test_gdg.py:241-313's knobs, at min-sum factor 1.0
 KW = dict(max_iter=24, ms_scaling_factor=1.0, gdg_factor=1.0, max_iter_per_step=6,
@@ -56,20 +59,6 @@ def _inputs(code, priors):
     probs = P * (0.75 + 0.5 * rng.random(code.N)) if priors == "jittered" else np.full(code.N, P)
     errs = (rng.random((SHOTS, code.N)) < probs).astype(np.uint8)
     return probs, ((errs @ code.hx.T) % 2).astype(np.uint8)
-
-
-@contextlib.contextmanager
-def _torch_threads(k):
-    """At most ``k`` torch intra-op threads inside the block. Where the
-    test workers share the cores, a decode of many small ops spends its
-    time in threads waiting on each other: a 2-3 s bb72 decode took
-    minutes, a 30 s sliding-window decode over ten."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(k, n))
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -117,10 +106,6 @@ def test_decode_bp_llr_sum_matches_jax(bb72):
     assert 0 < int(out_t["converged"].sum()) < SHOTS
     for k in ("llr_sum", "history", "error", "converged", "iterations"):
         np.testing.assert_array_equal(np.asarray(out_t[k]), np.asarray(out_j[k]), err_msg=k)
-
-
-def _weight(llr, e):
-    return float(np.asarray(e, np.float64) @ llr.astype(np.float64))
 
 
 @pytest.mark.parametrize("low_error_mode", [False, True])
@@ -218,64 +203,3 @@ def test_ensemble_steps_stop_when_all_finished(bb72, monkeypatch):
     depths = [d for d, _ in seen]
     assert depths[0] == 0 and max(depths) < dec.D_max - 10
     assert {bn for _, bn in seen} == {16 * dec.NB}
-
-
-SW = dict(N=72, p=0.01, num_repeat=3, num_shots=128, W=2, F=1, max_iter=8, seed=2024,
-          verbose=False)
-
-
-@pytest.fixture(scope="module")
-def jax_sw():
-    """The JAX ``sliding_window_gdg`` with ``last_win_osd`` on the [[72]]
-    smoke experiment (its GDG counts are those without), with the GDG
-    corrections of its timed decode, read from its window pipeline's
-    result (the driver returns only the OSD-redone ones)."""
-    seen, pipeline = [], jcl.decode_sliding_window
-
-    def keep_total(*a, **k):
-        out = pipeline(*a, **k)
-        seen.append(np.asarray(out["total_e_hat"]))
-        return out
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jcl, "decode_sliding_window", keep_total)
-        res = jcl.sliding_window_gdg(ensemble_mode="host_loop", last_win_osd=True, **SW)
-    _, _, dem, plan = jcl.build_bb_window_experiment(72, 0.01, 3, 2, 1)
-    det, _, _ = sample_dem_numpy(dem, SW["num_shots"], np.random.default_rng(SW["seed"]))
-    return res, seen[-1], plan, det
-
-
-@pytest.mark.parametrize("last_win_osd", [False, True])
-def test_sliding_window_gdg_matches_jax(jax_sw, last_win_osd):
-    """[[72]] x3 rounds, W=2, p=0.01, 128 shots from seed 2024, pre-BP 8:
-    the GDG corrections, failures and flags equal JAX's; with
-    ``last_win_osd`` the BPOSD re-decode of the last window too, where a
-    shot may differ only at an exact OSD-CS tie (ROADMAP section 3)."""
-    rj, total_j, plan, det = jax_sw
-    # 32-shot ensemble buckets (JAX: its default 64): the results do not
-    # depend on the bucket, and the CPU decode takes half the time
-    with _torch_threads(2):
-        rt = tcl.sliding_window_gdg(device="cpu", last_win_osd=last_win_osd,
-                                    ensemble_bucket=32, **SW)
-    np.testing.assert_array_equal(rt["total_e_hat"].numpy(), total_j)
-    for k in ("num_failed", "num_flagged", "num_windows", "ler"):
-        assert rt[k] == rj[k], k
-    assert rt["num_failed"] > 0
-    if not last_win_osd:
-        assert "last_win_osd" not in rt
-        return
-    assert rt["last_win_osd"] == rj["last_win_osd"]
-    spec = plan.windows[-1]
-    tt, tj = rt["total_e_hat_osd"].numpy(), np.asarray(rj["total_e_hat_osd"])
-    np.testing.assert_array_equal(tt[:, :spec.col_start], tj[:, :spec.col_start])
-    cols = slice(spec.col_start, spec.col_end)
-    prefix = total_j.copy()
-    prefix[:, spec.col_start:] = 0
-    synd = (det ^ (prefix.astype(np.int64) @ plan.chk.T % 2))[:, spec.row_start:spec.row_end]
-    llr = np.log((1 - spec.prior) / spec.prior)
-    differ = np.nonzero((tt != tj).any(axis=1))[0]
-    assert len(differ) <= 2
-    for i in differ:
-        for e in (tt[i, cols], tj[i, cols]):
-            np.testing.assert_array_equal((e.astype(np.int64) @ spec.mat.T) % 2, synd[i])
-        assert _weight(llr, tt[i, cols]) == pytest.approx(_weight(llr, tj[i, cols]), rel=1e-12)
