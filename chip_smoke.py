@@ -8,7 +8,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build the three hand-written kernel sources from
+1. build the four hand-written kernel sources from
    ``slidingwindowdecoder_torch/csrc`` (one ``nvcc`` each, started
    together);
 2. kernel A (min-sum check-node update) against its plain PyTorch version
@@ -21,6 +21,16 @@ Phases (any failure exits non-zero; nothing is caught):
 2b. ``[bp4_cn]``: kernel A at BP4's shapes, [6, 448, 2048] ([[882]], a
    bp4 row's batch) and [20, 192, 4096] ([[362]], CAMEL's 4 x 1024 branch
    lanes), f32, against its plain version: bit-exact on every valid edge;
+2c. ``[bp4_span]``: the fused BP4 kernel (``bp4_span.cu``: a whole
+   ``bp4_run`` call in one launch) against the plain per-op loop on the
+   card, on the ``bp4_run`` calls of the depolarizing rows' decoders: the
+   bp4 rows' [[882]] batch (2048 shots of seed 2024, min-sum 0.625, 100
+   iterations), CAMEL's [[362]] 4096 branch lanes (1024 shots, the last
+   variable decided to each Pauli, min-sum 0.8, 50 iterations), the [[882]]
+   batch with every seventh shot done at entry, on random syndromes (no
+   shot converges: every one runs all 100 iterations) and at 2047 shots:
+   all nine outputs bit-exact, with the kernel's time, the plain loop's
+   and the operations bound;
 3. the pinned kernel A (masked BP) against its plain version at [35, 224,
    B], B in {512, 16384}, on a [[288]] W=4 window (m_pad 608) and on the
    [[144]] global DEM graph (m_pad 960) at B=1024, f32 and bf16, and on
@@ -183,9 +193,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``run_row`` of ``tools/torch_validate_depolarizing.py`` on 4096-16384
    shots from seed 2024,
    held to the port's own count (``ROW_FORMS``) and within 3 sigma of the
-   reference's rate, with the launch counts read around it (``cn_update``
-   with ``osd_cs_fused`` for BP4+OSD, ``cn_update`` alone for CAMEL,
-   ``bp_span`` with ``osd_cs_fused`` or ``bp_span_pinned`` for the rest);
+   reference's rate, with the launch counts read around it (``bp4_span``
+   with ``osd_cs_fused`` for BP4+OSD, ``bp4_span`` alone for CAMEL, one
+   ``bp4_span`` launch per ``bp4_run`` call and kernel A never; ``bp_span``
+   with ``osd_cs_fused`` or ``bp_span_pinned`` for the rest);
    then the first 64 shots of every one of these rows on the card and by
    the plain versions on the CPU (no shot may differ; phenom-gdg's CPU
    half, GDG's pinned bursts on the 144x432 PCM, ~16 s on one thread);
@@ -242,6 +253,7 @@ import numpy as np
 # kernels' work (their sources and counts: slidingwindowdecoder_torch/utils/roofline.py)
 from slidingwindowdecoder_torch.utils.roofline import (  # noqa: E402
     H100,
+    bp4_span_bound,
     cn_bound_bytes,
     gj_ops as _gj_ops,
     span_bound,
@@ -373,14 +385,14 @@ def card_line() -> str:
 
 
 def phase_build():
-    """Build the three kernel sources (one ``nvcc`` each, started together)
+    """Build the four kernel sources (one ``nvcc`` each, started together)
     and, beside them, the probe copy of ``gauss_jordan.cu`` that
     ``[gj_cluster]`` times (``tools/torch_probe_gj_cluster.py``); waits for
     all four, so no build competes with a timed phase, and returns the
     probe build."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda
     from slidingwindowdecoder_torch.utils import cuda_build
 
     sys.path.insert(0, str(cuda_build.CSRC.parents[1] / "tools"))
@@ -389,7 +401,8 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         probe = pool.submit(probe_tool.build_probe)
-        secs = cuda_build.build([bp_cuda.SOURCE, bp_cuda.SPAN_SOURCE, gf2_cuda.SOURCE])
+        secs = cuda_build.build([bp_cuda.SOURCE, bp_cuda.SPAN_SOURCE, gf2_cuda.SOURCE,
+                                 bp4_cuda.SOURCE])
         probe = probe.result()
     log(f"[build] {time.perf_counter() - t0:.1f}s wall (the probe copy's included); per "
         f"source {secs}")
@@ -1157,10 +1170,11 @@ FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
 
 def reset_counts():
     """Every kernel wrapper's launch and plain-call count to 0."""
-    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda
 
     for k in (bp_cuda.cn_update, bp_cuda.bp_span):
         k.launches = k.pinned_launches = k.plain_calls = 0
+    bp4_cuda.bp4_span.launches = bp4_cuda.bp4_span.plain_calls = 0
     bp_cuda.bp_span.bf16_ring_launches = bp_cuda.bp_span.pinned_bf16_ring_launches = 0
     bp_cuda.bp_span.wide_launches = bp_cuda.bp_span.pinned_wide_launches = 0
     for k in (gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused):
@@ -1174,9 +1188,9 @@ def read_counts():
     ``bp_span_bf16_ring`` and ``bp_span_pinned_bf16_ring`` count the
     unmasked and the masked launches of either route that took a bf16
     history ring."""
-    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda
 
-    cn, span = bp_cuda.cn_update, bp_cuda.bp_span
+    cn, span, span4 = bp_cuda.cn_update, bp_cuda.bp_span, bp4_cuda.bp4_span
     gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "bp_span_bf16_ring": span.bf16_ring_launches,
@@ -1187,9 +1201,11 @@ def read_counts():
                 "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
-                "osd_cs_fused_cluster": osd.cluster_launches}
+                "osd_cs_fused_cluster": osd.cluster_launches,
+                "bp4_span": span4.launches}
     plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
-             "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls}
+             "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls,
+             "bp4_span": span4.plain_calls}
     return launches, plain
 
 
@@ -2233,8 +2249,8 @@ def phase_bp_span_bf16_ring(plans, gdet, captured: dict):
 # the kernels it may launch (BP4's CN stage is kernel A; its OSD, the
 # windows' and the whole DEM's, kernel B; the other BP on the fused kernel)
 ROW_FORMS = {
-    "bp4-osdcs": (8192, 2, ("cn_update", "osd_cs_fused")),
-    "camel-362": (4096, 0, ("cn_update",)),
+    "bp4-osdcs": (8192, 2, ("bp4_span", "osd_cs_fused")),
+    "camel-362": (4096, 0, ("bp4_span",)),
     "phenom-osd": (16384, 348, ("bp_span", "osd_cs_fused")),
     "phenom-gdg": (4096, 5, ("bp_span", "bp_span_pinned")),
     "shyps-window": (4096, 28, ("bp_span", "osd_cs_fused")),
@@ -2311,6 +2327,93 @@ def phase_bp4_cn():
         result[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "shape": shape}
     cn_update.launches = 0
     return result
+
+
+def _bp4_span_case(label, args, kw, reps: int = 10):
+    """One ``bp4_run`` call on the card: one ``bp4_span`` launch against the
+    plain per-op loop (``bp4_loop``: kernel A and torch ops) on the same
+    inputs, all nine outputs bit-exact; then both times and the bound
+    (``bp4_span_bound``: the shot-iterations this call ran)."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops import bp4_cuda
+    from slidingwindowdecoder_torch.ops.bp4 import bp4_loop, bp4_run
+
+    gx, gz = args[0], args[1]
+    before = bp4_cuda.bp4_span.launches
+    out = bp4_run(*args, **kw)
+    torch.cuda.synchronize()
+    if bp4_cuda.bp4_span.launches != before + 1:
+        raise SystemExit(f"[bp4_span] {label}: the kernel was not launched once")
+    ref = bp4_loop(*args, **kw)
+    names = ("mvx", "mvz", "lprx", "lpry", "lprz", "ex", "ez", "done", "iters")
+
+    def differ(got):
+        return [k for k, a, b in zip(names, got, ref)
+                if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+                    *((a.view(torch.int32), b.view(torch.int32)) if a.is_floating_point()
+                      else (a, b)))]
+
+    bad = differ(out)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(out, ref))
+    ms = cuda_time_ms(lambda: bp4_run(*args, **kw), reps)
+    plain_ms = cuda_time_ms(lambda: bp4_loop(*args, **kw), 2)
+    B, n = args[7].shape[0], gx["n"]
+    ran = out[8] - args[13]  # iterations each shot ran in this call
+    shot_iters, longest = int(ran.sum()), int(ran.max())
+    edges = sum(bp4_cuda.bp4_span_tables(g)["nnz"] for g in (gx, gz))
+    # each input read once (the stride-0 message views hold one block), each
+    # output written once
+    in_bytes = sum(t.untyped_storage().nbytes() for t in args[2:4]) + sum(
+        t.numel() * t.element_size() for t in args[4:14])
+    out_bytes = sum(t.numel() * t.element_size() for t in out)
+    bound = bp4_span_bound(shot_iters=shot_iters, edges=edges, n=n, in_bytes=in_bytes,
+                           out_bytes=out_bytes)
+    log(f"[bp4_span] {label}: {gx['m']}x{n} + {gz['m']}x{n}, B={B}, alpha {kw['alpha']}: "
+        f"bit-exact={not bad} max_abs_err={err}; {int((~args[12]).sum())} shots not done at "
+        f"entry, {shot_iters} shot-iterations, longest {longest}, {int(out[7].sum())} done; "
+        f"kernel {ms:.4f} ms ({ms / max(longest, 1):.5f} ms per iteration, one shot a block "
+        f"of 256 threads, {bp4_cuda.bp4_span_smem_bytes(gx, gz)} B shared), plain loop "
+        f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.5f} ms (ops {bound['ops']} -> "
+        f"{bound['ops_ms']:.5f} ms, MUFU {bound['mufu_ops']} -> {bound['mufu_ms']:.5f} ms, "
+        f"bytes {bound['bytes']} -> {bound['bytes_ms']:.5f} ms)")
+    if bad:
+        raise SystemExit(f"[bp4_span] {label}: the kernel disagrees with the plain loop on {bad}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "max_abs_err": err, "shot_iters": shot_iters,
+            "longest": longest,
+            "shape": f"[[{n}]] B={B}, {longest} iterations, {shot_iters} shot-iterations"}
+
+
+def phase_bp4_span():
+    """``[bp4_span]``: the fused BP4 kernel against the plain per-op loop on
+    the card (``_bp4_span_case``), on the ``bp4_run`` calls of the bp4 rows'
+    [[882]] batch (2048 shots) and of CAMEL's [[362]] 4096 branch lanes
+    (``bp4_row_call`` of ``tools/torch_validate_depolarizing.py``), the
+    [[882]] batch with every seventh shot done at entry (and iteration
+    counts carried in), on random syndromes (no shot converges) and at 2047
+    shots. Returns the cases, the [[882]] batch's leading."""
+    import torch
+
+    call = rows_tool().bp4_row_call
+    bp4, kw = call("bp4_osdcs", 2048, SEED)
+    cases = {"bp4 [[882]] 2048 shots": (bp4, kw)}
+    camel, ckw = call("camel", 1024, SEED)
+    cases["camel [[362]] 4096 lanes"] = (camel, ckw)
+    B = bp4[7].shape[0]
+    entry = list(bp4)
+    entry[12] = torch.arange(B, device="cuda") % 7 == 0
+    entry[13] = (torch.arange(B, device="cuda") % 5).int()
+    cases["bp4 [[882]], every 7th shot done at entry"] = (entry, kw)
+    cases["bp4 [[882]], random syndromes"] = call("bp4_osdcs", 2048, SEED, random_synd=True)
+    k = B - 1
+    ragged = [*bp4[:2], bp4[2][:, :, :k], bp4[3][:, :, :k], *bp4[4:7],
+              *(t[:k] for t in bp4[7:])]
+    cases["bp4 [[882]] 2047 shots"] = (ragged, kw)
+    res = {label: _bp4_span_case(label, a, k_) for label, (a, k_) in cases.items()}
+    if res["bp4 [[882]], random syndromes"]["shot_iters"] != B * kw["num_iter"]:
+        raise SystemExit("[bp4_span] a shot converged on random syndromes")
+    return res
 
 
 def phase_osd_e(plan, det):
@@ -2454,6 +2557,7 @@ def phase_rows(tag: str, names):
     differ."""
     import torch
 
+    from slidingwindowdecoder_torch.decoders import bp4 as bp4_decoder
     from slidingwindowdecoder_torch.utils.metrics import rates_compatible
 
     tool = rows_tool()
@@ -2462,10 +2566,24 @@ def phase_rows(tag: str, names):
         shots, exact, kernels = ROW_FORMS[name]
         kind, _, ref, jax_count = tool.ROWS[name]
         reset_counts()
-        with contextlib.redirect_stdout(sys.stderr):
-            r = tool.run_row(kind, shots, SEED, "cuda")
+        calls = [0]
+        orig = bp4_decoder.bp4_run
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return orig(*a, **k)
+
+        bp4_decoder.bp4_run = counted
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                r = tool.run_row(kind, shots, SEED, "cuda")
+        finally:
+            bp4_decoder.bp4_run = orig
         torch.cuda.synchronize()
         launches, plain = read_counts()
+        if calls[0] and launches["bp4_span"] != calls[0]:
+            raise SystemExit(f"[{tag}] {name}: {calls[0]} bp4_run calls made "
+                             f"{launches['bp4_span']} bp4_span launches, not one each")
         nf = r["failures"]
         ok = rates_compatible(nf, shots, *ref)
         log(f"[{tag}] {name}: failed {nf} flagged {r['flagged']} of {shots} (reference "
@@ -2802,6 +2920,7 @@ def main() -> int:
     cn = phase_cn(plan)
     cnp = phase_cn_pinned(plan)
     bp4_cn = phase_bp4_cn()
+    bp4_span = phase_bp4_span()
     gj = phase_gj(plan)
     t0 = time.perf_counter()
     det, obs, _ = sample_dem_numpy(dem, REF_SHOTS, np.random.default_rng(SEED))
@@ -2908,6 +3027,7 @@ def main() -> int:
 
     span_src = "slidingwindowdecoder_torch/csrc/bp_span.cu"
     cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
+    bp4_src = "slidingwindowdecoder_torch/csrc/bp4_span.cu"
     gj_src = "slidingwindowdecoder_torch/csrc/gauss_jordan.cu"
     by_path = {k: {"main": main_res["launches"][k], "osd_window": short_res["launches"][k],
                    "gdg": gdg_res["launches"][k], "gdg_spans": spans_res["launches"][k],
@@ -2982,6 +3102,14 @@ def main() -> int:
          "launches": sum(by_path["cn_update"].values()), "bound_by": "bytes",
          **cn, "bp4": {k: v for k, v in bp4_cn.items() if k != "max_abs_err"},
          "max_abs_err": max(cn["max_abs_err"], bp4_cn["max_abs_err"])},
+        {"name": "bp4_span", "route": "cuda", "source": bp4_src,
+         "replaces": "ops/bp_pallas.py:42 (_cn_kernel, JAX package; in BP4 the XLA "
+                     "ops/bp4.py:33 _cn_minsum_bm) with the XLA ops of ops/bp4.py:98 "
+                     "(bp4_run's iteration)",
+         "launches": sum(by_path["bp4_span"].values()),
+         **{k: v for k, v in bp4_span["bp4 [[882]] 2048 shots"].items()
+            if k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+         "max_abs_err": max(r["max_abs_err"] for r in bp4_span.values()), "cases": bp4_span},
         {"name": "cn_update_pinned", "route": "cuda", "source": cn_src,
          "replaces": "ops/bp_pallas.py:42 (_cn_kernel with pinned=True, JAX package)",
          "launches": sum(by_path["cn_update_pinned"].values()), "bound_by": "bytes", **cnp},

@@ -13,18 +13,25 @@ initial value and flip the check parities, as the reference's
 masked out of the check updates.
 
 Layout: the messages are slot-major [dc, m_pad, B] (shot index fastest) in
-float32, the layout of kernel A (``ops.bp_cuda.cn_update``, the CN stage
-of BP4: on a CUDA tensor one ``csrc/cn_update.cu`` launch a basis an
-iteration, on a CPU tensor its plain version ``ops.bp._cn_update_sm``);
-the JAX layout is [m, dc, B]. The check stage is the JAX
-``_cn_minsum_bm`` (the kernel's ``mag = (|x| == min1) ? min2 : min1``
-agrees with "the first argmin gets min2", since after a tie min2 ==
+float32, the layout of kernel A (``ops.bp_cuda.cn_update``); the JAX
+layout is [m, dc, B].
+
+Where it runs: ``bp4_run`` goes through the wrapper
+``ops.bp4_cuda.bp4_span``. On the card that is one launch of
+``csrc/bp4_span.cu``, every iteration of the call with both graphs' messages
+of a shot in shared memory; graphs past the kernel's shared-memory gate
+raise there (both BP4 graphs of the repo fit). Its plain version, and the
+route on CPU tensors, is the per-op loop ``bp4_loop``: the check stage is
+kernel A (on a CUDA tensor one ``csrc/cn_update.cu`` launch a basis an
+iteration, on a CPU tensor its plain version ``ops.bp._cn_update_sm``),
+the JAX ``_cn_minsum_bm`` (the kernel's ``mag = (|x| == min1) ? min2 :
+min1`` agrees with "the first argmin gets min2", since after a tie min2 ==
 min1). The variable side runs as torch ops, as it runs as XLA ops in JAX:
 the per-variable sums gather the messages per variable slot and add them
-slot by slot from slot 0 (``_col_sums``), and each edge's outgoing message
-is computed in the check-major layout directly, where JAX computes it
-variable-major and scatters it (the same arithmetic per valid edge; 0 at
-invalid slots).
+slot by slot from slot 0 (``_col_sums``), and each edge's outgoing
+message is computed in the check-major layout directly, where JAX
+computes it variable-major and scatters it (the same arithmetic per valid
+edge; 0 at invalid slots).
 """
 
 from __future__ import annotations
@@ -140,7 +147,22 @@ def _padded_t(garr, rows):
 def bp4_run(gx, gz, mvx, mvz, llr_x, llr_y, llr_z, synd_x, synd_z, vn_state, cn_x, cn_z,
             done, iters, *, num_iter: int, alpha: float = 1.0, clip: float = 50.0):
     """Run up to ``num_iter`` BP4 iterations with a per-shot freeze (the
-    JAX ``bp4_run``).
+    JAX ``bp4_run``): the arguments and results of ``bp4_loop``.
+
+    ``ops.bp4_cuda.bp4_span`` runs it: on CPU tensors the plain loop
+    ``bp4_loop``; on the card the whole call as one ``csrc/bp4_span.cu``
+    launch, with no host read inside it. The outputs are the same either
+    way.
+    """
+    from .bp4_cuda import bp4_span  # no top-level cycle
+
+    return bp4_span(gx, gz, mvx, mvz, llr_x, llr_y, llr_z, synd_x, synd_z, vn_state, cn_x,
+                    cn_z, done, iters, num_iter=num_iter, alpha=alpha, clip=clip)
+
+
+def bp4_loop(gx, gz, mvx, mvz, llr_x, llr_y, llr_z, synd_x, synd_z, vn_state, cn_x, cn_z,
+             done, iters, *, num_iter: int, alpha: float = 1.0, clip: float = 50.0):
+    """The per-op BP4 loop: the plain version of ``csrc/bp4_span.cu``.
 
     ``gx``/``gz``: ``graph_tensors`` of Hx and Hz; ``mvx``/``mvz`` their
     slot-major messages [dc, m_pad, B] f32; ``llr_*`` [n] channel LLRs;
@@ -152,10 +174,11 @@ def bp4_run(gx, gz, mvx, mvz, llr_x, llr_y, llr_z, synd_x, synd_z, vn_state, cn_
     A shot that is done keeps its state: ``iters`` counts the iterations in
     which a shot was active. The loop stops after ``num_iter`` iterations,
     or when every shot is done (read on the host every
-    ``EXIT_CHECK_EVERY`` iterations; a done shot changes nothing, so the
-    outputs do not depend on when). Returns (mvx, mvz, lpr_x, lpr_y,
-    lpr_z, err_x, err_z, done, iters): posteriors [B, n] f32, errors
-    [B, n] int8.
+    ``EXIT_CHECK_EVERY`` iterations, the loop's only host read; the
+    kernel has none. A done shot changes nothing, so the outputs do not
+    depend on when). Returns
+    (mvx, mvz, lpr_x, lpr_y, lpr_z, err_x, err_z, done, iters): posteriors
+    [B, n] f32, errors [B, n] int8.
     """
     bp4_graph(gx)
     bp4_graph(gz)

@@ -12,7 +12,8 @@ TB/s device memory; arithmetic outside the tensor cores at 132 SMs x
 (CUDA C++ Programming Guide, arithmetic instruction throughput): 128 for
 float32 add, multiply and compare (the published 67 TFLOP/s counts an FMA
 as two), 64 for 32-bit integer add, compare, shift and logic, and 64 for
-float64 add.
+float64 add; 16 for the special-function unit's MUFU instructions
+(``exp2``, ``log2``, reciprocal), which run beside the float32 pipe.
 
 The fused BP kernel (``csrc/bp_span.cu``) keeps a shot's message block in
 shared memory for the whole call, so its device-memory traffic is not the
@@ -21,7 +22,9 @@ entry it reads and writes the message block once a call, reads its int32
 syndrome and sign seed and its VN state and writes its error, and it
 writes the history ring at every iteration that records history. Only the
 ring's writes grow with the iterations; the operations grow with every
-shot-iteration run (``span_bound``, ``bp_iteration_model``).
+shot-iteration run (``span_bound``, ``bp_iteration_model``). The fused BP4
+kernel (``csrc/bp4_span.cu``) is bound the same way (``bp4_span_bound``):
+its messages stay in shared memory for the call.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ H100 = {
     "fp32_ops_per_s": 132 * 128 * 1.98e9,
     "int32_ops_per_s": 132 * 64 * 1.98e9,
     "fp64_adds_per_s": 132 * 64 * 1.98e9,
+    "mufu_ops_per_s": 132 * 16 * 1.98e9,
 }
 PEAKS = {"h100": H100}
 
@@ -40,6 +44,27 @@ PEAKS = {"h100": H100}
 # scale 1), the VN sum's add and the edge stage (subtract 1, pin test 2,
 # sign count 2); per VN the prior add, the rounding and the pin select
 SPAN_OPS_PER_EDGE, SPAN_OPS_PER_VN = 25, 3
+
+# instructions of CUDA's expf and log1pf on sm_90a that every argument
+# executes (tools/torch_count_sass.py, nvcc 12.9: the fewest on any path
+# through each function's SASS beyond a copy kernel's, constant moves and
+# barrier markers left out): the MUFU ones apart (expf's one ex2; log1pf is
+# a polynomial, no MUFU), the others one operation each at the float32 rate
+EXPF_OPS, EXPF_MUFU = 7, 1
+LOG1PF_OPS, LOG1PF_MUFU = 23, 0
+# operations of one fused BP4 iteration, counted from csrc/bp4_span.cu: per
+# edge of either graph the check stage's two passes (19, as SPAN_OPS_PER_EDGE
+# counts them), the variable sum's add, and the edge stage (decided test 1,
+# two subtracts, two negations, logaddexp's max, subtract, abs, negation and
+# add with one expf and one log1pf, the final subtract, the parity's shift,
+# mask and xor 3); per variable the three posteriors (4 adds), the hard
+# decision (6 compares, 3 selects), the error bits (4), and two log1pexp
+# terms (negation, subtract, abs, negation, max, add, one expf and one
+# log1pf each); the MUFU instructions of those expf and log1pf apart
+BP4_OPS_PER_EDGE = 19 + 1 + 14 + EXPF_OPS + LOG1PF_OPS
+BP4_OPS_PER_VN = 4 + 9 + 4 + 2 * (6 + EXPF_OPS + LOG1PF_OPS)
+BP4_MUFU_PER_EDGE = EXPF_MUFU + LOG1PF_MUFU
+BP4_MUFU_PER_VN = 2 * (EXPF_MUFU + LOG1PF_MUFU)
 
 
 def detect_chip(device=None) -> str:
@@ -98,6 +123,35 @@ def span_bound(*, live: int, shot_iters: int, hist_writes: int, edges: int, n: i
     return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def bp4_span_bound(*, shot_iters: int, edges: int, n: int, in_bytes: int,
+                   out_bytes: int) -> dict:
+    """The bound of one ``bp4_span`` call on its inputs: ``in_bytes`` read
+    once and ``out_bytes`` written once (the caller counts them from the
+    call's tensors), and ``shot_iters`` shot-iterations of
+    ``BP4_OPS_PER_EDGE`` operations on each of the ``edges`` valid edges of
+    both graphs and ``BP4_OPS_PER_VN`` on each of the ``n`` variables at
+    the float32 rate on the H100, beside their MUFU instructions
+    (``BP4_MUFU_PER_EDGE``, ``BP4_MUFU_PER_VN``) at the special-function
+    unit's rate, the two pipes running at once. The bound errs low: it
+    counts each ``expf`` and ``log1pf`` by the fewest instructions any
+    argument executes, none of the index and shared-memory address
+    arithmetic, and no latency.
+
+    Returns {"ops", "mufu_ops", "bytes", "ops_ms", "mufu_ms", "bytes_ms",
+    "bound_ms", "bound_by"}.
+    """
+    ops = shot_iters * (edges * BP4_OPS_PER_EDGE + n * BP4_OPS_PER_VN)
+    mufu = shot_iters * (edges * BP4_MUFU_PER_EDGE + n * BP4_MUFU_PER_VN)
+    nbytes = in_bytes + out_bytes
+    ops_ms = ops / H100["fp32_ops_per_s"] * 1e3
+    mufu_ms = mufu / H100["mufu_ops_per_s"] * 1e3
+    bytes_ms = nbytes / H100["hbm_bytes_per_s"] * 1e3
+    return {"ops": ops, "mufu_ops": mufu, "bytes": nbytes, "ops_ms": ops_ms,
+            "mufu_ms": mufu_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, mufu_ms, bytes_ms),
+            "bound_by": "operations" if max(ops_ms, mufu_ms) >= bytes_ms else "bytes"}
 
 
 def bp_iteration_model(graph, batch: float, msg_bytes: int, ring_bytes: int = 4) -> dict:

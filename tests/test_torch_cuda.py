@@ -6,6 +6,8 @@ without one. Run them there with
 """
 
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -665,3 +667,96 @@ def test_gdg_serial_card_matches_cpu(card):
     assert (rp.iterations > kw["max_iter"]).sum() >= 16
     for k in ("error", "converged", "iterations", "min_pm"):
         np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)
+
+
+def _bp4_call(code_name, shots, seed, *, random_synd=False):
+    """The ``bp4_run`` arguments of one BP4 decode on the card by a
+    depolarizing row's decoder (``bp4_row_call`` of
+    ``tools/torch_validate_depolarizing.py``): ``BP4OSD.core`` on [[882]]
+    (the bp4 rows: p = 0.1, 100 iterations at min-sum 0.625) or
+    ``camel_core`` on [[362]] (p = 0.02, 50 iterations at 0.8: 4 branch
+    lanes a shot, the last variable decided to each Pauli and its checks'
+    parities flipped), on depolarizing syndromes from ``seed`` or, with
+    ``random_synd``, uniformly random ones that BP4 converges on none of."""
+    tools = str(Path(__file__).resolve().parents[1] / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    from torch_validate_depolarizing import bp4_row_call
+
+    return bp4_row_call("bp4_osdcs" if code_name == "882" else "camel", shots, seed,
+                        random_synd=random_synd)
+
+
+def _bp4_span_matches_plain(args, kw):
+    """``bp4_run`` on the card (one ``bp4_span`` launch) against the plain
+    loop on the card: all nine outputs bit-equal. Returns the outputs."""
+    from slidingwindowdecoder_torch.ops.bp4 import bp4_loop, bp4_run
+    from slidingwindowdecoder_torch.ops.bp4_cuda import bp4_span
+
+    before = bp4_span.launches, bp4_span.plain_calls
+    out = bp4_run(*args, **kw)
+    assert (bp4_span.launches, bp4_span.plain_calls) == (before[0] + 1, before[1])
+    ref = bp4_loop(*args, **kw)
+    names = ("mvx", "mvz", "lprx", "lpry", "lprz", "ex", "ez", "done", "iters")
+    for name, a, b in zip(names, out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+    return out
+
+
+@pytest.mark.parametrize("code_name, shots", [("882", 2048), ("362", 1024), ("882", 2047)],
+                         ids=["882-2048", "362-camel-4096", "882-2047"])
+def test_bp4_span_matches_plain_loop(card, code_name, shots):
+    """The bp4 rows' [[882]] batch (2048 shots, and 2047) and CAMEL's 4096
+    [[362]] branch lanes: the fused kernel bit-exact against the plain loop
+    on the card; some shots converge and some run to ``num_iter``."""
+    args, kw = _bp4_call(code_name, shots, 5)
+    out = _bp4_span_matches_plain(args, kw)
+    done, iters = out[7], out[8]
+    assert 0 < int(done.sum()) < done.numel()
+    assert int((iters == kw["num_iter"]).sum()) > 0
+
+
+def test_bp4_span_done_at_entry_and_never_converging(card):
+    """Shots done at entry keep their incoming messages, zero posteriors and
+    errors and their counts; on random syndromes no shot converges and every
+    other shot runs all ``num_iter`` iterations: bit-exact against the plain
+    loop on the card."""
+    args, kw = _bp4_call("882", 2048, 9, random_synd=True)
+    B = args[7].shape[0]
+    done = torch.zeros(B, dtype=torch.bool, device="cuda")
+    done[::7] = True
+    args[12] = done
+    args[13] = torch.arange(B, dtype=torch.int32, device="cuda") % 5
+    kw = {**kw, "num_iter": 30}
+    out = _bp4_span_matches_plain(args, kw)
+    assert torch.equal(out[7], done)
+    assert torch.equal(out[8], args[13] + torch.where(done, 0, 30).int())
+    assert not out[2][done].any() and not out[5][done].any()
+
+
+def test_bp4_span_smem_layout_matches_kernel(card):
+    """The gate's shared-memory count (``bp4_span_smem_bytes``) equals the
+    kernel's own layout on [[882]] and [[362]]."""
+    import ctypes
+
+    from slidingwindowdecoder_torch.codes import (
+        create_cycle_assemble_codes,
+        create_cyclic_permuting_matrix,
+        create_QC_GHP_codes,
+    )
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops import bp4_cuda
+    from slidingwindowdecoder_torch.utils import cuda_build
+
+    fn = cuda_build.load(bp4_cuda.SOURCE).bp4_span_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    codes = (create_QC_GHP_codes(63, create_cyclic_permuting_matrix(7, [27, 54, 0]), [0, 1, 6]),
+             create_cycle_assemble_codes(19, 3))
+    for code in codes:
+        gx, gz = (graph_tensors(compile_graph(H), "cpu") for H in (code.hx, code.hz))
+        nnz = sum(bp4_cuda.bp4_span_tables(g)["nnz"] for g in (gx, gz))
+        assert fn(gx["n"], gx["m"] + gz["m"], nnz) == bp4_cuda.bp4_span_smem_bytes(gx, gz)

@@ -15,6 +15,7 @@ share.
     python3 tools/torch_profile_main_path.py --path cc_bpgd
     python3 tools/torch_profile_main_path.py --path global
     python3 tools/torch_profile_main_path.py --path sw_288_w4
+    python3 tools/torch_profile_main_path.py --path bp4_osd0
     python3 tools/torch_profile_main_path.py --path bp4_osdcs
     python3 tools/torch_profile_main_path.py --path camel
 
@@ -51,16 +52,20 @@ decoder, ``sliding_window_decoder``'s BP+OSD-CS-10 at its default knobs
 (f32) on the [[288,12,18]] W=4 windows (6 rounds, (W,F) = (4,1), p=0.005,
 576x4752/4896) over 16384 shots; stages as ``bposd`` (the interior
 windows' BP on the wide route, the edge windows' on the shared-table
-route; OSD on the cluster route). ``bp4_osdcs``: the bp4-osdcs parity
-row's decoder (``BP4OSD`` on the [[882,24]] QC-GHP code, p = 0.1, min-sum
-0.625, 100 iterations, OSD-CS-10 per basis), one ``core`` call on the
-2048 depolarizing shots of one batch of ``depolarizing_decoding``;
-``camel``: the camel-362 row's decoder (CAMEL on the [[362]]
-cycle-assembled code, p = 0.02, min-sum 0.8, 50 iterations), one
-``camel_core`` call on 1024 shots (4096 branch lanes). Their stages: the
-CN stage (``cn_update``, kernel A, a launch a basis an iteration), the
-per-variable sums, the rest of ``bp4_run`` (the variable side and the
-convergence test, torch ops), and OSD. Seed 2024, as ``chip_smoke.py``.
+route; OSD on the cluster route). ``bp4_osdcs`` / ``bp4_osd0``: the
+bp4-osdcs / bp4-osd0 parity row's decoder (``BP4OSD`` on the [[882,24]]
+QC-GHP code, p = 0.1, min-sum 0.625, 100 iterations, OSD-CS-10 / OSD-0
+per basis), one ``core`` call on the 2048 depolarizing shots of one batch
+of ``depolarizing_decoding``; ``camel``: the camel-362 row's decoder
+(CAMEL on the [[362]] cycle-assembled code, p = 0.02, min-sum 0.8, 50
+iterations), one ``camel_core`` call on 1024 shots (4096 branch lanes).
+Their stages: ``bp4_run`` (one ``bp4_span.cu`` launch a call), OSD, and
+the rest of ``core`` (initial messages, reliabilities, compaction, path
+metrics). On these paths a last JSON line accounts for the driver's timer
+(``depolarizing_decoding`` over four batches, whose timer, as the JAX
+driver's, holds the host sampling, the syndrome and logical-test products
+and the decode): the seconds of each, and the rate with and without the
+host work. Seed 2024, as ``chip_smoke.py``.
 
 Prints one JSON line with the stage seconds and the kernel launches of the
 timed decode, then one with the top kernels by device time, the busy
@@ -100,8 +105,10 @@ GLOBAL_BATCH = 8192
 # the sw-288-w4 row (tools/torch_validate_circuit_level.py): (N, p, rounds, W, F)
 SW_288_EXP = (288, 0.005, 6, 4, 1)
 # the BP4 paths: rows of torch_validate_depolarizing.BP4_ROWS
-BP4_PATHS = ("bp4_osdcs", "camel")
-BP4_RUN_STAGE = "bp4_run (the variable side and convergence test, torch ops)"
+BP4_PATHS = ("bp4_osd0", "bp4_osdcs", "camel")
+BP4_RUN_STAGE = "bp4_run (one bp4_span launch)"
+# batches of the driver's timed loop in the BP4 paths' account
+DRIVER_BATCHES = 4
 
 
 
@@ -139,9 +146,9 @@ def main() -> int:
     )
     from slidingwindowdecoder_torch.decoders import bp4 as bp4_decoder
     from slidingwindowdecoder_torch.harness.code_capacity import parity_code, parity_decoder
+    from slidingwindowdecoder_torch.harness import depolarizing
     from slidingwindowdecoder_torch.harness.depolarizing import sample_depolarizing
-    from slidingwindowdecoder_torch.ops import bp4 as bp4_ops
-    from slidingwindowdecoder_torch.ops import bp_cuda, decimation, gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, decimation, gf2_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
     gdg_paths = ("gdg", "gdg_spans", "gdg_288_41")
@@ -181,8 +188,6 @@ def main() -> int:
     if args.path in BP4_PATHS:
         ranged = BP4_RUN_STAGE
         patches = [
-            (bp4_ops, "cn_update", lambda *a, **k: "cn_update (kernel A)"),
-            (bp4_ops, "_col_sums", lambda *a: "per-variable sums (gathers, slot adds)"),
             (bp4_decoder, "osd_decode", lambda *a, **k: "osd_decode (kernel B + sweep)"),
             (bp4_decoder, "bp4_run", lambda *a, **k: BP4_RUN_STAGE),
         ]
@@ -262,7 +267,8 @@ def main() -> int:
     run()  # warm-up: cuBLAS handles, caching allocator, kernel libraries
     cn, span = bp_cuda.cn_update, bp_cuda.bp_span
     gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
-    for k in (cn, span, gj, osd):
+    span4 = bp4_cuda.bp4_span
+    for k in (cn, span, gj, osd, span4):
         k.launches = 0
     cn.pinned_launches = span.pinned_launches = gj.cluster_launches = osd.cluster_launches = 0
     span.bf16_ring_launches = span.pinned_bf16_ring_launches = 0
@@ -279,7 +285,8 @@ def main() -> int:
                 "cn_update": cn.launches, "cn_update_pinned": cn.pinned_launches,
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
-                "osd_cs_fused_cluster": osd.cluster_launches}
+                "osd_cs_fused_cluster": osd.cluster_launches,
+                "bp4_span": span4.launches}
     n_sweeps = sweeps[0]
 
     # per-stage wall time: wrap the decoder's stages with synchronizing
@@ -407,7 +414,48 @@ def main() -> int:
         ],
     }
     print(json.dumps(result))
+    if args.path in BP4_PATHS:
+        print(json.dumps(driver_account(depolarizing, args.path, code, p, shots)))
     return 0
+
+
+def driver_account(depolarizing, kind: str, code, p: float, batch: int) -> dict:
+    """``depolarizing_decoding`` with the row's knobs over ``DRIVER_BATCHES``
+    batches of ``batch`` shots, with its host sampling (``sample_depolarizing``)
+    and its GF(2) products (``_gf2``: the syndromes and the logical test)
+    timed inside its own timer: the seconds of each, the decode's (the
+    rest: ``decode_batch`` with its copies to and from the card), and the
+    driver's rate beside the rate of the decode alone."""
+    from torch_validate_depolarizing import BP4_ROWS
+
+    _, knobs, camel, _ = BP4_ROWS[kind]
+    spent = defaultdict(float)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            spent[name] += time.perf_counter() - t0
+            return r
+        return wrapper
+
+    originals = {name: getattr(depolarizing, name) for name in ("sample_depolarizing", "_gf2")}
+    for name, fn in originals.items():
+        setattr(depolarizing, name, timed(name, fn))
+    try:
+        r = depolarizing.depolarizing_decoding(
+            code, p, DRIVER_BATCHES * batch, camel=camel, batch_size=batch, seed=SEED,
+            verbose=False, device="cuda", **knobs)
+    finally:
+        for name, fn in originals.items():
+            setattr(depolarizing, name, fn)
+    host = spent["sample_depolarizing"] + spent["_gf2"]
+    decode = r["seconds"] - host
+    return {"driver": {"shots": r["shots"], "seconds": r["seconds"],
+                       "shots_per_s": r["shots_per_sec"], "num_err": r["num_err"]},
+            "host_sampling_s": spent["sample_depolarizing"], "gf2_products_s": spent["_gf2"],
+            "decode_s": decode, "host_share": host / r["seconds"],
+            "decode_only_shots_per_s": r["shots"] / decode}
 
 
 if __name__ == "__main__":

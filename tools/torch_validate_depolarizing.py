@@ -135,6 +135,37 @@ def phenom_row_decoder(kind: str, pcm, priors, device=None):
     return GDG(pcm, priors, device=device, **PHENOM_GDG_KNOBS)
 
 
+def bp4_row_call(kind: str, shots: int, seed: int, random_synd: bool = False):
+    """The ``bp4_run`` arguments (a list) and keywords of one decode by a
+    depolarizing row's decoder on the card (``bp4_row_decoder``): ``core``
+    (the bp4 rows) or ``camel_core`` (CAMEL: 4 branch lanes a shot) on
+    ``shots`` depolarizing samples of ``seed`` (the row's first batch at
+    that seed), or on uniformly random syndromes, which BP4 converges on
+    none of. The messages are the decode's stride-0 views over the batch."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import bp4 as bp4_decoder
+    from slidingwindowdecoder_torch.harness.depolarizing import sample_depolarizing
+
+    code, (p, _, camel, _) = row_code(kind), BP4_ROWS[kind]
+    dec = bp4_row_decoder(kind, "cuda")
+    rng = np.random.default_rng(seed)
+    ex, ez = sample_depolarizing(code.N, p, shots, rng)
+    sx, sz = (ez.astype(np.int64) @ code.hx.T) % 2, (ex.astype(np.int64) @ code.hz.T) % 2
+    if random_synd:
+        sx, sz = rng.integers(0, 2, sx.shape), rng.integers(0, 2, sz.shape)
+    calls = []
+    orig = bp4_decoder.bp4_run
+    bp4_decoder.bp4_run = lambda *a, **k: calls.append((list(a), k)) or orig(*a, **k)
+    try:
+        (dec.camel_core if camel else dec.core)(
+            *(torch.as_tensor(x.astype(np.uint8), device="cuda") for x in (sx, sz)))
+    finally:
+        bp4_decoder.bp4_run = orig
+    (args, kw), = calls
+    return args, kw
+
+
 def run_row(kind: str, shots: int, seed: int, device=None) -> dict:
     """One row through the port's driver on ``device`` (None means
     "cuda"): {"failures", "flagged", "shots", "seconds", "shots_per_s"}
@@ -176,7 +207,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda
     from slidingwindowdecoder_torch.utils.metrics import rates_compatible
 
     card = subprocess.run(
@@ -192,9 +223,10 @@ def main() -> int:
                 "gauss_jordan_key": (gf2_cuda.gauss_jordan_key, "launches"),
                 "osd_cs_fused": (gf2_cuda.osd_cs_fused, "launches"),
                 "gauss_jordan_key_cluster": (gf2_cuda.gauss_jordan_key, "cluster_launches"),
-                "osd_cs_fused_cluster": (gf2_cuda.osd_cs_fused, "cluster_launches")}
+                "osd_cs_fused_cluster": (gf2_cuda.osd_cs_fused, "cluster_launches"),
+                "bp4_span": (bp4_cuda.bp4_span, "launches")}
     plain = (bp_cuda.cn_update, bp_cuda.bp_span, gf2_cuda.gauss_jordan_key,
-             gf2_cuda.osd_cs_fused)
+             gf2_cuda.osd_cs_fused, bp4_cuda.bp4_span)
     for name in args.rows.split(",") if args.rows else ROWS:
         kind, default_shots, ref, jax_count = ROWS[name]
         shots = args.shots or default_shots
