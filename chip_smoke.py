@@ -8,7 +8,7 @@ toolkit (``nvcc``) and PyTorch built for CUDA:
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build the four hand-written kernel sources from
+1. build the five hand-written kernel sources from
    ``slidingwindowdecoder_torch/csrc`` (one ``nvcc`` each, started
    together);
 2. kernel A (min-sum check-node update) against its plain PyTorch version
@@ -76,11 +76,21 @@ Phases (any failure exits non-zero; nothing is caught):
 7. the shortened path: the same experiment and samples decoded window by
    window with ``OSDWindow`` (pre-BP 8, post-BP 200, OSD-CS-10, f32), the
    decoder of ``sliding_window_decoder(shorten=True)``, with the launch
-   counts read around it (``bp_span_pinned`` and ``osd_cs_fused`` only)
-   and the failure count held to exactly the port's 309/16384 (and to 3
+   counts read around it (``bp_span_pinned``, ``osd_cs_fused`` and
+   ``peel`` only) and the failure count held to exactly the port's 309/16384 (and to 3
    sigma of the reference's 183/10000); then the first
    128 of those shots, at full width (no shot may differ), and a small
    input, each on the card and by the plain versions on the CPU;
+7b. ``[peel]``: the peel kernel (``peel.cu``: degree-1 forcing to the
+   batch's fixpoint, no host read) against its plain loop on the card, on
+   the same inputs, every output bit-exact: on peel calls captured on the
+   card from window 0 of the seed-2024 samples (the GDG ensemble's
+   ``peel_t`` at step 4, [n, 512 x 22]; GDG's shortening ``peel``; the
+   shortened ``OSDWindow``'s first ``peel``; in step 10 the BPGD decode's
+   fourth ``peel`` on [[882]]) and on a built batch where one column forces
+   while the others are dead (the batch's sweep count, read from the
+   kernel's device counter, must be the live column's), with the kernel's
+   time, the plain loop's and the bytes bound;
 8. the GDG path, the decoder of ``sliding_window_gdg`` (the reference's
    guessing.py: GDG with pre-BP 8 and the reference's ensemble defaults,
    22 branches, 25 steps, f32): first the ensemble's BP burst
@@ -89,13 +99,17 @@ Phases (any failure exits non-zero; nothing is caught):
    of window 0 entering the step after the first message reinit, on the
    card against the plain loop on the CPU, bit-exact, with its time beside
    the bound and the call's layout conversions; then the [[144,12,12]]
-   experiment at p=0.005 over 8192 shots from seed 2024, with the launch
-   counts read around it (``bp_span`` for the pre-BP and
-   ``bp_span_pinned`` for the bursts only) and the failure count held to
-   exactly the port's own ``GDG_FAILED`` (and to 3 sigma of the
-   reference's 400/5000); then its first 32 shots at full width, and the
-   small input, each on the card and by the plain versions on the CPU (no
-   shot may differ);
+   experiment at p=0.005 over 8192 shots from seed 2024 in both ensemble
+   forms (``phase_gdg``): host-stepped (``ensemble_mode="host_loop"``),
+   then the default fused ``gdg_ensemble`` with every bucket's steps and
+   reduce under ``torch.cuda.set_sync_debug_mode("error")``, each with the
+   launch counts read around it (``bp_span`` for the pre-BP,
+   ``bp_span_pinned`` for the bursts and ``peel`` only) and the failure
+   counts held to exactly the port's own ``GDG_FAILED`` and
+   ``GDG_FUSED_FAILED`` (and to 3 sigma of the reference's 400/5000), the
+   forms differing on no window output where either converged; then the
+   fused form's first 32 shots at full width, and the small input, each on
+   the card and by the plain versions on the CPU (no shot may differ);
 9. ``[gdg_spans]``: the GDG path again with the span-compacted ensemble
    (``ensemble_mode="spans"``): exactly ``GDG_FAILED`` failures, and every
    correction and flag equal to the host-stepped form's, with its shots/s
@@ -104,12 +118,12 @@ Phases (any failure exits non-zero; nothing is caught):
 9b. ``[gdg_bf16]``: the GDG path at the JAX package's GDG parity knobs
    (bf16 messages and history ring, the spans form, 512-shot ensemble
    buckets) over the same 8192 shots: exactly ``GDG_BF16_FAILED`` failures
-   (and within 3 sigma of 400/5000), launching only ``bp_span`` and
-   ``bp_span_pinned`` with the bf16 ring, and its first 32 shots on the
+   (and within 3 sigma of 400/5000), launching only ``bp_span``,
+   ``bp_span_pinned`` with the bf16 ring and ``peel``, and its first 32 shots on the
    card and by the plain versions on the CPU (no shot may differ);
    ``[gdg_serial]``: the serial work queue (``GDG(multi_thread=False)``) on
-   window 0's PCM over 256 of its syndromes, on the card (``bp_span`` and
-   ``bp_span_pinned`` only) and on the CPU, no shot differing;
+   window 0's PCM over 256 of its syndromes, on the card (``bp_span``,
+   ``bp_span_pinned`` and ``peel`` only) and on the CPU, no shot differing;
 10. code capacity on the [[882,24]] QC-GHP code (``Misc.ipynb`` cell 10)
    at p=0.04, 65536 shots from seed 2024: first kernel B at 441x882 on
    the first OSD bucket of the BP+OSD-0 and BP+OSD-CS-10 decodes of the
@@ -123,7 +137,7 @@ Phases (any failure exits non-zero; nothing is caught):
    spans mode) and ``[cc_osd]`` (BP+OSD-0 and BP+OSD-CS-10 at min-sum
    0.625) through ``data_qubit_noise_decoding``, each held to its own
    count ``CC_FAILED`` and within 3 sigma of the reference's rate, with
-   the launch counts read around it (``bp_span_pinned`` for BPGD;
+   the launch counts read around it (``bp_span_pinned`` and ``peel`` for BPGD;
    ``bp_span`` with ``gauss_jordan_key`` or ``osd_cs_fused`` for OSD);
    ``[cc_device]``: ``run_cc_campaign_device`` for BPGD over all VNs on
    [[882]] and GDG's spans form on [[288,12,18]] at p=0.02, 65536 shots
@@ -172,8 +186,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``sliding_window_gdg`` on 512 seed-2024 shots: exactly
    ``GDG_WIDE_FAILED`` failures and ``GDG_WIDE_OSD_FAILED`` with the
    last-window BP+OSD-CS-10 (each within 3 sigma of 136 and 85 /20000),
-   launching ``bp_span``, ``bp_span_pinned`` with the bf16 ring and the
-   cluster route of ``osd_cs_fused`` only; the fused BP kernel on the first
+   launching ``bp_span``, ``bp_span_pinned`` with the bf16 ring, ``peel``
+   and the cluster route of ``osd_cs_fused`` only; the fused BP kernel on the first
    pre-BP call of each window shape (576x4896 and 576x4752, unmasked bf16,
    512 shots, 16 iterations, one shot a block) against the plain loop on
    the CPU over 32 shots, bit-exact; then 8 shots on the card and by the
@@ -285,6 +299,10 @@ SLICE_SHOTS = 128
 GDG_P, GDG_SHOTS = 0.005, 8192
 REF_GDG_FAILED, REF_GDG_SHOTS = 400, 5000
 GDG_FAILED = 675
+# the same path with the default fused ensemble (``gdg_ensemble``: every
+# step of a bucket, no host read from the first step to the reduce); its own
+# count at seed 2024 (its first run on the card, PERF.md)
+GDG_FUSED_FAILED = 675
 GDG_BUCKET = 512
 GDG_SLICE_SHOTS, GDG_SLICE_BUCKET = 32, 32
 # code capacity: the [[882,24]] QC-GHP code (Misc.ipynb cell 10) at p=0.04,
@@ -306,9 +324,9 @@ CC_SLICE_SHOTS = 128
 # version at 441x882
 CC_OSD_CHECK_SHOTS = 8192
 # which kernels each code-capacity decoder may launch
-CC_KERNELS = {"bpgd": ("bp_span_pinned",), "osd0": ("bp_span", "gauss_jordan_key"),
-              "osdcs": ("bp_span", "osd_cs_fused"), "bpgd_all": ("bp_span_pinned",),
-              "gdg_288": ("bp_span", "bp_span_pinned")}
+CC_KERNELS = {"bpgd": ("bp_span_pinned", "peel"), "osd0": ("bp_span", "gauss_jordan_key"),
+              "osdcs": ("bp_span", "osd_cs_fused"), "bpgd_all": ("bp_span_pinned", "peel"),
+              "gdg_288": ("bp_span", "bp_span_pinned", "peel")}
 # the whole-block decode (``global_decoder``) of the [[144]] DEM (936x8784)
 # at p=0.004 from seed 2024 in 8192-shot chunks, by form: its arguments,
 # shots, the rates its count is compared with (failed, shots), whether it
@@ -328,7 +346,7 @@ GLOBAL_FORMS = {
               ("bp_span_wide", "osd_cs_fused_cluster")),
     "shortened": ({"shorten": True}, 16384,
                   {"reference": (90, 10000), "JAX package, seed 7": (98, 16384)}, False, 78,
-                  ("bp_span_wide_pinned", "osd_cs_fused_cluster")),
+                  ("bp_span_wide_pinned", "osd_cs_fused_cluster", "peel")),
     "osd0": ({"osd_method": "osd_0"}, 8192, {}, False, 151,
              ("bp_span_wide", "gauss_jordan_key_cluster")),
 }
@@ -385,14 +403,14 @@ def card_line() -> str:
 
 
 def phase_build():
-    """Build the four kernel sources (one ``nvcc`` each, started together)
+    """Build the five kernel sources (one ``nvcc`` each, started together)
     and, beside them, the probe copy of ``gauss_jordan.cu`` that
     ``[gj_cluster]`` times (``tools/torch_probe_gj_cluster.py``); waits for
-    all four, so no build competes with a timed phase, and returns the
+    all of them, so no build competes with a timed phase, and returns the
     probe build."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda, peel_cuda
     from slidingwindowdecoder_torch.utils import cuda_build
 
     sys.path.insert(0, str(cuda_build.CSRC.parents[1] / "tools"))
@@ -402,7 +420,7 @@ def phase_build():
     with ThreadPoolExecutor(1) as pool:
         probe = pool.submit(probe_tool.build_probe)
         secs = cuda_build.build([bp_cuda.SOURCE, bp_cuda.SPAN_SOURCE, gf2_cuda.SOURCE,
-                                 bp4_cuda.SOURCE])
+                                 bp4_cuda.SOURCE, peel_cuda.SOURCE])
         probe = probe.result()
     log(f"[build] {time.perf_counter() - t0:.1f}s wall (the probe copy's included); per "
         f"source {secs}")
@@ -1162,6 +1180,151 @@ def phase_bp_span_gdg(plan, det, bucket: int):
     return res
 
 
+# the [peel] phase: which call of each path's peel it captures (0-based),
+# and the built stop-rule case (a path graph of PEEL_PATH_N VNs over
+# PEEL_PATH_COLUMNS columns)
+PEEL_GDG_CALL = 8  # peel_t of step 4's select (two peels a step)
+PEEL_BPGD_CALL = 3
+PEEL_PATH_N, PEEL_PATH_COLUMNS = 64, 4096
+
+
+def _capture_call(module, name: str, index: int, run):
+    """(garr, state) of call ``index`` of ``module.<name>`` (a peel) while
+    ``run()`` decodes on the card, the state cloned; the decode stops
+    there."""
+    calls, orig = [], getattr(module, name)
+
+    def capture(garr, *state, **k):
+        calls.append((garr, tuple(_clone(t) for t in state)))
+        if len(calls) > index:
+            raise _Captured
+        return orig(garr, *state, **k)
+
+    setattr(module, name, capture)
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        setattr(module, name, orig)
+    if len(calls) <= index:
+        raise SystemExit(f"[peel] {module.__name__}.{name} ran {len(calls)} calls, want "
+                         f"{index + 1}")
+    return calls[index]
+
+
+def _peel_case(label, garr, state, transposed: bool, reps: int, want_sweeps=None):
+    """One peel call on the card (``peel_t`` if ``transposed``, else
+    ``peel``: the kernel) against the plain loop on the same inputs on the
+    card, every output bit-exact; the kernel's time, the plain loop's, the
+    bound and the batch's sweeps from the kernel's device counter."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops import decimation, peel_cuda
+    from slidingwindowdecoder_torch.utils.roofline import peel_bound
+
+    kernel = decimation.peel_t if transposed else decimation.peel
+    plain = functools.partial(decimation._peel_loop, transposed=transposed)
+    stats = peel_cuda.sweep_stats("cuda")
+    s0 = stats.clone()
+    out = kernel(garr, *state)
+    torch.cuda.synchronize()
+    sweeps, column_sweeps = (stats - s0).tolist()
+    ref = plain(garr, *state)
+    differ = [k for k, a, b in zip(("vn", "cn", "deg", "dead"), out, ref)
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    if differ or (want_sweeps is not None and sweeps != want_sweeps):
+        raise SystemExit(f"[peel] {label}: the kernel differs from the plain loop in {differ}; "
+                         f"{sweeps} sweeps (want {want_sweeps})")
+    ms = cuda_time_ms(lambda: kernel(garr, *state), reps)
+    plain_ms = cuda_time_ms(lambda: plain(garr, *state), max(2, reps // 10))
+    B = state[3].shape[0]
+    bound = peel_bound(n=garr["n"], m=garr["m"], B=B, dc=garr["dc"], dv=garr["dv"],
+                       column_sweeps=column_sweeps)
+    decided = [int((x[0] != -1).sum()) for x in (state, out)]
+    dead = [int(x[3].sum()) for x in (state, out)]
+    log(f"[peel] {label}: {list(state[0].shape)} {'peel_t' if transposed else 'peel'}, "
+        f"{sweeps} sweeps, {column_sweeps} column-sweeps; decided {decided[0]} -> "
+        f"{decided[1]}, dead {dead[0]} -> {dead[1]} of {B}; bit-exact; kernel {ms:.4f} ms, "
+        f"plain loop {plain_ms:.4f} ms ({plain_ms / ms:.1f}x), bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}; {ms / bound['bound_ms']:.2f}x)")
+    return {"shape": list(state[0].shape), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "sweeps": sweeps,
+            "column_sweeps": column_sweeps, "max_abs_err": 0}
+
+
+def phase_peel(plan, det, gplan, gdet):
+    """``[peel]``: the peel kernel (``csrc/peel.cu``) against its plain loop
+    on the card, bit-exact, on the peel calls of the window paths captured
+    on the card from window 0 of the seed-2024 samples: the GDG ensemble's
+    ``peel_t`` (step 4's, a 512-shot bucket x 22 branches) and the GDG
+    shortening's ``peel`` (512 shots), the shortened ``OSDWindow``'s
+    ``peel`` (its first post-BP bucket); and on a built batch where the stop
+    rule decides the result: a path graph of ``PEEL_PATH_N`` VNs, one
+    column live and forced from both ends (ceil((n-2)/2) forcing sweeps),
+    the others dead and forced from one end, which the batch must stop at
+    the live column's last sweep, in both layouts."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import gdg, osd_window
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.harness.circuit_level import (
+        gdg_window_factory,
+        window_decoder_factory,
+    )
+    from slidingwindowdecoder_torch.ops import decimation
+
+    res = {}
+    spec = gplan.windows[0]
+    synd = torch.as_tensor(gdet[:, spec.row_start:spec.row_end], device="cuda")
+    dec = gdg_window_factory(max_iter=8, ensemble_bucket=GDG_BUCKET, device="cuda")(spec)
+    garr, st = _capture_call(gdg, "peel_t", PEEL_GDG_CALL, lambda: dec.core(synd))
+    res["GDG ensemble peel_t"] = _peel_case("GDG ensemble (step 4)", garr, st, True, 50)
+    garr, st = _capture_call(gdg, "peel", 0, lambda: dec.core(synd))
+    res["GDG shortening peel"] = _peel_case("GDG shortening", garr, st, False, 50)
+    spec = plan.windows[0]
+    synd = torch.as_tensor(det[:, spec.row_start:spec.row_end], device="cuda")
+    dec = window_decoder_factory(True, device="cuda")(spec)
+    garr, st = _capture_call(osd_window, "peel", 0, lambda: dec.core(synd))
+    res["shortened peel"] = _peel_case("shortened OSDWindow", garr, st, False, 50)
+
+    n, B = PEEL_PATH_N, PEEL_PATH_COLUMNS
+    H = np.zeros((n - 1, n), np.uint8)
+    H[np.arange(n - 1), np.arange(n - 1)] = H[np.arange(n - 1), np.arange(1, n)] = 1
+    garr = graph_tensors(compile_graph(H), "cuda")
+    mask = torch.zeros((B, n), dtype=torch.bool, device="cuda")
+    mask[:, 0] = True
+    mask[B // 2, n - 1] = True  # the live column: forced from both ends
+    dead = torch.ones(B, dtype=torch.bool, device="cuda")
+    dead[B // 2] = False
+    synd = torch.zeros((B, n - 1), dtype=torch.uint8, device="cuda")
+    zeros = torch.zeros((B, n), dtype=torch.int8, device="cuda")
+    want = -(-(n - 2) // 2) + 1
+    st = decimation.vn_set_values(garr, *decimation.init_decimation_state(garr, synd)[:3], dead,
+                                  mask, zeros)
+    res["stop rule peel"] = _peel_case("stop rule, batch-major", garr, st, False, 20, want)
+    st = decimation.init_decimation_state_t(garr, synd.T.contiguous())
+    st = decimation.vn_set_values_t(garr, *st[:3], dead, mask.T.contiguous(),
+                                    zeros.T.contiguous())
+    res["stop rule peel_t"] = _peel_case("stop rule, transposed", garr, st, True, 20, want)
+    return res
+
+
+def phase_peel_bpgd(code, synd):
+    """``[peel]`` on BPGD's peel: call ``PEEL_BPGD_CALL`` of ``bpgd.peel``
+    in ``BPGD.core`` (spans mode, max_step 100) on the [[882]] syndromes,
+    captured on the card, against the plain loop there."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import bpgd
+    from slidingwindowdecoder_torch.harness.code_capacity import parity_decoder
+
+    dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
+    garr, st = _capture_call(bpgd, "peel", PEEL_BPGD_CALL,
+                             lambda: dec.core(torch.as_tensor(synd, device="cuda")))
+    return {"BPGD peel": _peel_case("BPGD (step 3)", garr, st, False, 50)}
+
+
 # the flagship's bench knobs (bench.py:76-136); the shortened path runs
 # ``sliding_window_decoder(shorten=True)``'s decoder at its defaults
 FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
@@ -1169,8 +1332,9 @@ FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
 
 
 def reset_counts():
-    """Every kernel wrapper's launch and plain-call count to 0."""
-    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda
+    """Every kernel wrapper's launch and plain-call count to 0, and the peel
+    kernel's device counter of sweeps."""
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda, peel_cuda
 
     for k in (bp_cuda.cn_update, bp_cuda.bp_span):
         k.launches = k.pinned_launches = k.plain_calls = 0
@@ -1179,6 +1343,17 @@ def reset_counts():
     bp_cuda.bp_span.wide_launches = bp_cuda.bp_span.pinned_wide_launches = 0
     for k in (gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused):
         k.launches = k.cluster_launches = k.plain_calls = 0
+    peel_cuda.peel_fixpoint.launches = peel_cuda.peel_fixpoint.plain_calls = 0
+    peel_cuda.sweep_stats("cuda").zero_()
+
+
+def peel_sweeps() -> dict:
+    """The peel kernel's batch sweeps and column-sweeps since
+    ``reset_counts`` (one host read of its device counter)."""
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    batch, column = peel_cuda.sweep_stats("cuda").tolist()
+    return {"sweeps": batch, "column_sweeps": column}
 
 
 def read_counts():
@@ -1187,10 +1362,12 @@ def read_counts():
     route, ``bp_span_wide`` / ``bp_span_wide_pinned`` its wide route;
     ``bp_span_bf16_ring`` and ``bp_span_pinned_bf16_ring`` count the
     unmasked and the masked launches of either route that took a bf16
-    history ring."""
-    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda
+    history ring; ``peel`` counts the calls of the peel kernel (each its
+    two passes)."""
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda, peel_cuda
 
     cn, span, span4 = bp_cuda.cn_update, bp_cuda.bp_span, bp4_cuda.bp4_span
+    peel = peel_cuda.peel_fixpoint
     gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
     launches = {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
                 "bp_span_bf16_ring": span.bf16_ring_launches,
@@ -1202,10 +1379,10 @@ def read_counts():
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
                 "osd_cs_fused_cluster": osd.cluster_launches,
-                "bp4_span": span4.launches}
+                "bp4_span": span4.launches, "peel": peel.launches}
     plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
              "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls,
-             "bp4_span": span4.plain_calls}
+             "bp4_span": span4.plain_calls, "peel": peel.plain_calls}
     return launches, plain
 
 
@@ -1244,6 +1421,7 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact, kerne
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches, plain = read_counts()
+    sweeps = peel_sweeps()
 
     e_hat = out["total_e_hat"]
     if tuple(e_hat.shape) != (shots, plan.chk.shape[1]) or int(e_hat.max()) > 1:
@@ -1259,7 +1437,7 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact, kerne
     for i, (c, sec) in enumerate(zip(out["window_counts"], wsec)):
         log(f"[{name}] window {i}: post-BP {c['post_bp']}, OSD {c['osd']}, "
             f"dead {c['dead']}, {sec * 1e3:.1f} ms")
-    log(f"[{name}] kernel launches {launches}; plain calls {plain}")
+    log(f"[{name}] kernel launches {launches}; plain calls {plain}; peel sweeps {sweeps}")
     p_ref = ref[0] / ref[1]
     mean, sigma = p_ref * shots, math.sqrt(shots * p_ref * (1 - p_ref))
     if abs(nf - mean) > 3 * sigma or nf != exact:
@@ -1271,7 +1449,7 @@ def phase_path(name, plan, det, obs, factory, num_repeat: int, ref, exact, kerne
         "window_p50_s": float(np.percentile(wsec, 50)),
         "window_p99_s": float(np.percentile(wsec, 99)),
         "num_failed": nf, "num_flagged": ev["num_flagged"], "ler_per_round": ler_round,
-        "window_counts": out["window_counts"], "launches": launches,
+        "window_counts": out["window_counts"], "launches": launches, "peel_sweeps": sweeps,
         "e_hat": e_hat.cpu().numpy(),
     }
 
@@ -1323,6 +1501,98 @@ def results_differ(a, b, shots: int):
     return differ
 
 
+def phase_gdg(plan, det, obs, num_repeat: int):
+    """``[gdg]``: the GDG path in both forms of its ensemble, through
+    ``phase_path``. First ``ensemble_mode="host_loop"`` (one flag read
+    after each step; it stops once every column has finished): exactly
+    ``GDG_FAILED``. Then the default "fused" form (``gdg_ensemble``: every
+    one of ``D_max`` steps a bucket), each bucket from its first step
+    through its reduce under ``torch.cuda.set_sync_debug_mode("error")``
+    (any host read raises): exactly ``GDG_FUSED_FAILED``. Each window
+    decoder's input syndromes and outputs are kept on the card in both
+    runs; a shot whose input to a window is the same in both may differ in
+    that window's output only where neither form converged (a column that
+    died in a peel keeps being swept in the fused form's extra steps, and
+    is read only for a shot with no converged branch). Returns (the fused
+    form's result, the host-stepped form's)."""
+    import torch
+
+    from slidingwindowdecoder_torch.decoders import gdg
+    from slidingwindowdecoder_torch.harness.circuit_level import gdg_window_factory
+
+    kernels = ("bp_span", "bp_span_pinned", "peel")
+    ref = (REF_GDG_FAILED, REF_GDG_SHOTS)
+    seen, core = {}, gdg.GDG.core
+
+    def recorded(form):
+        def wrapped(self, synds):
+            out = core(self, synds)
+            seen.setdefault(form, []).append(
+                (synds.clone(), out["error"].clone(), out["converged"].clone()))
+            return out
+        return wrapped
+
+    factory = functools.partial(gdg_window_factory, max_iter=8, ensemble_bucket=GDG_BUCKET,
+                                device="cuda")
+    gdg.GDG.core = recorded("host_loop")
+    try:
+        host = phase_path("gdg_host_loop", plan, det, obs, factory(ensemble_mode="host_loop"),
+                          num_repeat, ref, GDG_FAILED, kernels)
+    finally:
+        gdg.GDG.core = core
+
+    step, reduce = gdg._ensemble_step, gdg._ensemble_reduce
+    watch = {"steps": 0, "reduces": 0}
+
+    def watched_step(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        watch["steps"] += 1
+        return step(*a, **k)
+
+    def watched_reduce(*a, **k):
+        out = reduce(*a, **k)
+        torch.cuda.set_sync_debug_mode("default")
+        watch["reduces"] += 1
+        return out
+
+    gdg.GDG.core = recorded("fused")
+    gdg._ensemble_step, gdg._ensemble_reduce = watched_step, watched_reduce
+    try:
+        fused = phase_path("gdg", plan, det, obs, factory(), num_repeat, ref, GDG_FUSED_FAILED,
+                           kernels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        gdg.GDG.core = core
+        gdg._ensemble_step, gdg._ensemble_reduce = step, reduce
+    D_max = factory()(plan.windows[0]).D_max
+    if not watch["reduces"] or watch["steps"] != watch["reduces"] * D_max:
+        raise SystemExit(f"[gdg] the fused ensembles ran {watch['steps']} steps in "
+                         f"{watch['reduces']} buckets, want {D_max} a bucket")
+    same_in = differ = differ_converged = 0
+    for (s_h, e_h, c_h), (s_f, e_f, c_f) in zip(seen["host_loop"], seen["fused"]):
+        same = (s_h == s_f).all(dim=1)
+        diff = same & (e_h != e_f).any(dim=1)
+        same_in += int(same.sum())
+        differ += int(diff.sum())
+        differ_converged += int((diff & (c_h | c_f)).sum())
+    shots_differing = int((fused["e_hat"] != host["e_hat"]).any(axis=1).sum())
+    log(f"[gdg] fused {fused['shots_per_s']:.1f} shots/s, failed {fused['num_failed']}; "
+        f"host-stepped {host['shots_per_s']:.1f} shots/s, failed {host['num_failed']}; "
+        f"{watch['reduces']} buckets' {watch['steps']} steps and reduces ran with no host "
+        f"read; window "
+        f"decodes with the same input {same_in} of {len(seen['fused']) * det.shape[0]}, "
+        f"outputs differing {differ} (converged in either form: {differ_converged}); "
+        f"corrections differing {shots_differing} of {det.shape[0]}")
+    if len(seen["fused"]) != len(seen["host_loop"]) or differ_converged:
+        raise SystemExit("[gdg] the fused form differs from the host-stepped one on a "
+                         "converged shot")
+    fused.update(ensemble_bucket=GDG_BUCKET, no_sync_steps=watch["steps"],
+                 no_sync_buckets=watch["reduces"],
+                 window_outputs_differing=differ, shots_differing=shots_differing)
+    host["ensemble_bucket"] = GDG_BUCKET
+    return fused, host
+
+
 def phase_gdg_spans(plan, det, obs, num_repeat: int, host_res):
     """The GDG path again with ``ensemble_mode="spans"`` (row buckets of
     2048 columns at most, lane dormancy): the spans form computes the
@@ -1353,7 +1623,7 @@ def phase_gdg_spans(plan, det, obs, num_repeat: int, host_res):
     try:
         res = phase_path("gdg_spans", plan, det, obs, factory, num_repeat,
                          (REF_GDG_FAILED, REF_GDG_SHOTS), GDG_FAILED,
-                         ("bp_span", "bp_span_pinned"))
+                         ("bp_span", "bp_span_pinned", "peel"))
     finally:
         gdg._ensemble_step, gdg.gdg_ensemble_spans = step, spans_fn
     differ = int((res.pop("e_hat") != host_res["e_hat"]).any(axis=1).sum())
@@ -2060,7 +2330,7 @@ def phase_gdg_bf16(exp, plan, det, obs, num_repeat: int, captured: dict):
     with burst_capture(captured):
         res = phase_path("gdg_bf16", plan, det, obs, factory, num_repeat,
                          (REF_GDG_FAILED, REF_GDG_SHOTS), GDG_BF16_FAILED,
-                         ("bp_span", "bp_span_pinned", "bp_span_pinned_bf16_ring"))
+                         ("bp_span", "bp_span_pinned", "bp_span_pinned_bf16_ring", "peel"))
     la = res["launches"]
     if la["bp_span_pinned_bf16_ring"] != la["bp_span_pinned"]:
         raise SystemExit(f"[gdg_bf16] a burst ran without the bf16 ring: {la}")
@@ -2092,7 +2362,7 @@ def phase_gdg_serial(exp, plan, det):
         f"syndromes, {queued} past the pre-BP: converged {int(rc.converged.sum())}; "
         f"{tc:.2f}s card ({len(synd) / tc:.1f} shots/s); launches {launches}; plain calls "
         f"{plain}")
-    check_kernels("[gdg_serial]", launches, plain, ("bp_span", "bp_span_pinned"))
+    check_kernels("[gdg_serial]", launches, plain, ("bp_span", "bp_span_pinned", "peel"))
     if not queued:
         raise SystemExit("[gdg_serial] no syndrome reached the queue")
 
@@ -2156,7 +2426,7 @@ def phase_gdg_wide(captured: dict, plan, det, obs):
                          f"{GDG_WIDE_OSD_FAILED} within 3 sigma")
     check_kernels("[gdg_wide]", launches, plain, ("bp_span", "bp_span_pinned",
                                                   "bp_span_pinned_bf16_ring",
-                                                  "osd_cs_fused_cluster"))
+                                                  "osd_cs_fused_cluster", "peel"))
     if launches["bp_span_pinned_bf16_ring"] != launches["bp_span_pinned"]:
         raise SystemExit(f"[gdg_wide] a burst ran without the bf16 ring: {launches}")
     shapes = {tuple(w.mat.shape) for w in plan.windows}
@@ -2252,7 +2522,7 @@ ROW_FORMS = {
     "bp4-osdcs": (8192, 2, ("bp4_span", "osd_cs_fused")),
     "camel-362": (4096, 0, ("bp4_span",)),
     "phenom-osd": (16384, 348, ("bp_span", "osd_cs_fused")),
-    "phenom-gdg": (4096, 5, ("bp_span", "bp_span_pinned")),
+    "phenom-gdg": (4096, 5, ("bp_span", "bp_span_pinned", "peel")),
     "shyps-window": (4096, 28, ("bp_span", "osd_cs_fused")),
     "shyps-global": (4096, 29, ("bp_span", "osd_cs_fused")),
 }
@@ -2905,7 +3175,6 @@ def main() -> int:
     from slidingwindowdecoder_torch.circuits import sample_dem_numpy
     from slidingwindowdecoder_torch.harness.circuit_level import (
         build_bb_window_experiment,
-        gdg_window_factory,
         window_decoder_factory,
     )
 
@@ -2950,7 +3219,7 @@ def main() -> int:
     short_res = phase_path("osd_window", plan, det, obs,
                            window_decoder_factory(True, device="cuda"), num_repeat,
                            (REF_SHORT_FAILED, REF_SHORT_SHOTS), SHORT_FAILED,
-                           ("bp_span_pinned", "osd_cs_fused"))
+                           ("bp_span_pinned", "osd_cs_fused", "peel"))
     pending += [
         phase_card_vs_cpu("osd_window_slice", exp, plan, det[:SLICE_SHOTS], obs[:SLICE_SHOTS],
                           "osd_window", {}),
@@ -2963,19 +3232,16 @@ def main() -> int:
     _, _, gdem, gplan = build_bb_window_experiment(*gexp)
     gdet, gobs, _ = sample_dem_numpy(gdem, GDG_SHOTS, np.random.default_rng(SEED))
     gdg_burst = phase_bp_span_gdg(gplan, gdet, GDG_BUCKET)
-    gdg_res = phase_path("gdg", gplan, gdet, gobs,
-                         gdg_window_factory(max_iter=8, ensemble_bucket=GDG_BUCKET,
-                                            device="cuda"),
-                         num_repeat, (REF_GDG_FAILED, REF_GDG_SHOTS), GDG_FAILED,
-                         ("bp_span", "bp_span_pinned"))
-    gdg_res["ensemble_bucket"] = GDG_BUCKET
+    peel = phase_peel(plan, det, gplan, gdet)
+    gdg_res, gdg_host = phase_gdg(gplan, gdet, gobs, num_repeat)
     k = GDG_SLICE_SHOTS
     pending += [
         phase_card_vs_cpu("gdg_slice", gexp, gplan, gdet[:k], gobs[:k], "gdg",
                           dict(max_iter=8, ensemble_bucket=GDG_SLICE_BUCKET)),
         phase_card_vs_cpu("gdg_small", exp72, plan72, det72, obs72, "gdg", dict(max_iter=8))]
-    log(json.dumps({"gdg_path": {k: v for k, v in gdg_res.items() if k != "e_hat"}}))
-    spans_res = phase_gdg_spans(gplan, gdet, gobs, num_repeat, gdg_res)
+    log(json.dumps({"gdg_path": {k: v for k, v in gdg_res.items() if k != "e_hat"},
+                    "gdg_host_loop_path": {k: v for k, v in gdg_host.items() if k != "e_hat"}}))
+    spans_res = phase_gdg_spans(gplan, gdet, gobs, num_repeat, gdg_host)
     log(json.dumps({"gdg_spans_path": spans_res}))
     bursts = {}
     bf16_res, half = phase_gdg_bf16(gexp, gplan, gdet, gobs, num_repeat, bursts)
@@ -2991,6 +3257,7 @@ def main() -> int:
     cc_synd = cc_samples(code882)
     phase_osd_882(code882, cc_synd[:CC_OSD_CHECK_SHOTS], gj, osd_cs)
     bpgd_burst = phase_bp_span_bpgd(code882, cc_synd[:CC_SHOTS])
+    peel.update(phase_peel_bpgd(code882, cc_synd[:CC_SHOTS]))
     cc_res = phase_cc_host(code882)
     cc_dev = phase_cc_device(code882)
     pending += phase_cc_slice(cc_synd)
@@ -3029,8 +3296,10 @@ def main() -> int:
     cn_src = "slidingwindowdecoder_torch/csrc/cn_update.cu"
     bp4_src = "slidingwindowdecoder_torch/csrc/bp4_span.cu"
     gj_src = "slidingwindowdecoder_torch/csrc/gauss_jordan.cu"
+    peel_src = "slidingwindowdecoder_torch/csrc/peel.cu"
     by_path = {k: {"main": main_res["launches"][k], "osd_window": short_res["launches"][k],
-                   "gdg": gdg_res["launches"][k], "gdg_spans": spans_res["launches"][k],
+                   "gdg": gdg_res["launches"][k], "gdg_host_loop": gdg_host["launches"][k],
+                   "gdg_spans": spans_res["launches"][k],
                    "gdg_bf16": bf16_res["launches"][k], "gdg_serial": serial_res["launches"][k],
                    "gdg_wide": wide_gdg["launches"][k],
                    "code_capacity": sum(r["launches"][k] for r in (*cc_res.values(),
@@ -3134,6 +3403,13 @@ def main() -> int:
                      "(_osd_sweep_cs_sortless) at shapes beyond one block",
          "launches": sum(by_path["osd_cs_fused_cluster"].values()),
          **gj_cluster["osd_cs_fused_cluster"]},
+        {"name": "peel", "route": "cuda", "source": peel_src,
+         "replaces": "no Pallas kernel: the XLA lax.while_loop of ops/decimation.py:79 (peel) "
+                     "and :231 (peel_t), JAX package",
+         "launches": sum(by_path["peel"].values()),
+         **{k: v for k, v in peel["GDG ensemble peel_t"].items()
+            if k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+         "max_abs_err": 0, "cases": peel},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]

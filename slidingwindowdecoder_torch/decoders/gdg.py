@@ -19,15 +19,20 @@ bf16: each write rounds the f32 posterior once; every reader takes f32
 images), VN arrays [n, BN], CN arrays [m_pad, BN]
 with inert pad rows. Each decimation step is one masked ``bp_run`` burst
 (on the card one launch of the pinned fused kernel ``csrc/bp_span.cu``),
-the select and aggressive decimation, the guess, two peels and the
-side-branch message reinit, then one host read of whether every column has
-finished. The JAX package's "fused" (one compiled loop over all steps) and
-"host_loop" forms give identical results, so both run this host-stepped
-form here: one driver, ``gdg_ensemble_spans``, with unit spans and no
-compaction. Its "spans" form cuts the depth loop into static spans and,
-before each, sorts the finished columns out of the walk (row
-compaction); a side or tree-side column stays dormant until its
-activation depth and then copies its source column (lane dormancy).
+the select and aggressive decimation, the guess, two peels (on the card
+each one launch of ``csrc/peel.cu``) and the side-branch message reinit.
+The JAX package's default "fused" form (``gdg_ensemble``) runs all
+``D_max`` steps with no host read between the first and the reduce (or,
+with ``early_exit``, reads one flag a step: whether any column is
+unfinished). Its "host_loop" form reads that flag after every step and
+stops once every column has finished, which is ``gdg_ensemble`` with
+``early_exit``. The two differ only in the columns that died in a peel,
+which the extra steps' peels keep sweeping; ``_ensemble_reduce`` reads
+such a column only for a shot none of whose branches converged. Its
+"spans" form cuts the depth loop into static spans and, before each,
+sorts the finished columns out of the walk (row compaction); a side or
+tree-side column stays dormant until its activation depth and then
+copies its source column (lane dormancy).
 
 ``multi_thread=False`` runs the reference's default, the serial work
 queue ``gdg_serial`` (bp_guessing_decoder.pyx:254-338): batch-major state,
@@ -288,17 +293,16 @@ def _select_and_decimate_t(
         agg = mC | mD | mA
 
     cand = eligible & ~agg
-    big = torch.tensor(MAX_PM, dtype=torch.float32, device=vn_t.device)
-    key_any = torch.where(cand, hist_sum, big)
-    key_neg = torch.where(cand & all_neg, hist_sum, big)
-    has_neg = (key_neg < big).any(dim=0)
-    has_any = (key_any < big).any(dim=0)
-    big_i = torch.tensor(1 << 30, dtype=scan_rank_t.dtype, device=vn_t.device)
+    # python scalars, not device tensors: no host-to-device copy
+    key_any = torch.where(cand, hist_sum, MAX_PM)
+    key_neg = torch.where(cand & all_neg, hist_sum, MAX_PM)
+    has_neg = (key_neg < MAX_PM).any(dim=0)
+    has_any = (key_any < MAX_PM).any(dim=0)
     kmin_neg = key_neg.amin(dim=0, keepdim=True)
     kmin_any = key_any.amin(dim=0, keepdim=True)
     # scan ranks are distinct within a column, so each argmin is unique
-    vn_neg = torch.where(key_neg <= kmin_neg, scan_rank_t, big_i).argmin(dim=0)
-    vn_any = torch.where(key_any <= kmin_any, scan_rank_t, big_i).argmin(dim=0)
+    vn_neg = torch.where(key_neg <= kmin_neg, scan_rank_t, 1 << 30).argmin(dim=0)
+    vn_any = torch.where(key_any <= kmin_any, scan_rank_t, 1 << 30).argmin(dim=0)
     guess_vn = torch.where(has_neg, vn_neg, vn_any)
     favor = torch.where(has_neg, True, kmin_any[0] <= 0.0).to(torch.int8)
 
@@ -502,8 +506,9 @@ def gdg_ensemble_spans(
     buckets of ``row_bucket`` columns (the largest divisor of BN up to
     it) that cover unfinished columns run the span's steps, every step of
     it, as in JAX (row compaction); a bucket may hold finished columns,
-    which the step freezes. The host-stepped form of the JAX package is
-    unit spans and ``row_bucket`` None (``GDG`` "fused" and "host_loop").
+    which the step freezes. Unit spans and ``row_bucket`` None give the
+    host-stepped form of the JAX package (``gdg_ensemble`` with
+    ``early_exit``, ``GDG``'s "host_loop").
 
     ``copy_plan`` = (copy_at, copy_from) per lane (``build_branch_tables``)
     turns on lane dormancy: a lane that shares another lane's decisions up
@@ -573,6 +578,56 @@ def gdg_ensemble_spans(
             for k, v in sub.items():
                 carry[k][..., idx] = v
         d0 += sp
+    return _ensemble_reduce(carry, llr, BK, NB)
+
+
+def gdg_ensemble(
+    garr,
+    llr,
+    syndrome,
+    scan_rank,
+    vn_state0,
+    cn_state0,
+    cn_degree0,
+    dead0,
+    tables,
+    *,
+    num_iter: int,
+    alpha: float,
+    clip: float,
+    low_error_mode: bool,
+    msg_dtype: str = "float32",
+    hist_dtype: str = "float32",
+    early_exit: bool = False,
+):
+    """The branch ensemble over ``BK`` shots (``syndrome`` [BK, m]) as the
+    JAX ``gdg_ensemble`` runs it: ``_ensemble_init``, ``_ensemble_step``
+    for each depth ``d`` in ``range(D_max)`` on every column, then
+    ``_ensemble_reduce``. ``tables``: the output of
+    ``build_branch_tables``; the per-shot inputs as ``gdg_ensemble_spans``
+    takes them.
+
+    ``early_exit`` False (JAX's ``fori_loop``): every step runs, with no
+    host read from the first step to the reduce; a step whose columns have
+    all finished still sweeps each column once in its peels, which moves
+    only the columns that died. True (JAX's ``while_loop``): before step
+    ``d``, one host read of whether any column is unfinished (not halted
+    and ``d`` within its budget), and the loop stops when none is."""
+    BK = syndrome.shape[0]
+    NB, D_max = tables["num_branches"], tables["D_max"]
+    dev = syndrome.device
+    carry, synd, rank_b = _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0,
+                                         cn_state0, cn_degree0, dead0, NB, msg_dtype,
+                                         hist_dtype)
+    tt = tile_branch_tables(tables, BK, dev)
+    reinit_any = tables["reinit"].any(axis=0)
+    for d in range(D_max):
+        if early_exit and not bool((~carry["halted"] & (d < tt["budget_row"])).any()):
+            break
+        carry = _ensemble_step(garr, llr, synd, rank_b, tt, bool(reinit_any[d]), d, carry,
+                               num_iter=num_iter, alpha=alpha, clip=clip,
+                               low_error_mode=low_error_mode, msg_dtype=msg_dtype,
+                               hist_dtype=hist_dtype)
     return _ensemble_reduce(carry, llr, BK, NB)
 
 
@@ -766,15 +821,18 @@ class GDG:
 
     The constructor is the JAX package's, less ``cn_engine`` (the kernels
     are chosen by shape), plus ``device`` (None means "cuda"; raises
-    without a card). ``ensemble_early_exit`` is accepted, as in JAX, and
-    changes nothing: JAX's fixed-trip bursts (False) give the results of
-    its early-exit ones, and here every burst is a ``bp_run`` with its
-    default early exit. The ensemble stops when every column has finished.
-    Every mode runs ``gdg_ensemble_spans``: "fused" and "host_loop" with
-    unit spans on every column (host-stepped), "spans" over
-    ``ensemble_spans`` (default ``default_spans``) in buckets of
-    ``row_bucket`` columns, with lane dormancy unless a user schedule
-    misses an activation depth (then each lane recomputes its prefix).
+    without a card). ``ensemble_mode``: "fused" (the default) runs
+    ``gdg_ensemble``, all ``D_max`` steps of a bucket with no host read
+    between the first step and the reduce; with ``ensemble_early_exit``
+    it reads one flag a step and stops once every column has finished
+    (the JAX while-form). "host_loop" is that early-exit form whatever
+    ``ensemble_early_exit`` says (the JAX host-stepped form). "spans" runs
+    ``gdg_ensemble_spans`` over ``ensemble_spans`` (default
+    ``default_spans``) in buckets of ``row_bucket`` columns, one count
+    read a span, with lane dormancy unless a user schedule misses an
+    activation depth (then each lane recomputes its prefix); it too stops
+    once every column has finished. The forms differ only where a column
+    died in a peel and no branch of its shot converged (module docstring).
     ``hist_dtype`` ("float32" or "bfloat16", else ``ValueError``) is the
     ensemble's history ring. ``multi_thread=False`` runs the reference's
     default serial work queue ``gdg_serial`` instead of the ensemble (its
@@ -894,8 +952,10 @@ class GDG:
         non-converged shots (sorted by syndrome weight, so that a bucket's
         columns finish together), each bucket shortened and run through the
         ensemble (or ``gdg_serial``). One host read of how many shots are
-        left, then one per ensemble step (host-stepped form) or per span
-        (spans form), or the serial queue's, besides the peels' reads.
+        left, then none inside the fused ensemble (one per step with
+        ``ensemble_early_exit``), one per step (host-stepped form) or per
+        span (spans form), or the serial queue's; on CPU tensors also the
+        plain peels' reads.
 
         Returns dict: error [B, n] uint8, converged [B] bool, iterations
         [B] int32 (pre-BP plus all branches' burst iterations), min_pm [B]
@@ -917,18 +977,22 @@ class GDG:
         n_todo = int((~converged).sum())
         kw = dict(num_iter=self.num_iter_per_step, alpha=self.gdg_factor, clip=self.clip,
                   low_error_mode=self.low_error_mode, msg_dtype=self.msg_dtype,
-                  hist_dtype=self.hist_dtype, spans=(1,) * self.D_max)
+                  hist_dtype=self.hist_dtype)
+        ensemble = gdg_ensemble
         if self.ensemble_mode == "spans":
+            ensemble = gdg_ensemble_spans
             kw.update(spans=self.ensemble_spans, row_bucket=self.row_bucket,
                       copy_plan=self._copy_plan)
+        else:  # "fused"; "host_loop" is its early-exit form
+            kw.update(early_exit=self.ensemble_early_exit or self.ensemble_mode == "host_loop")
         for b in range(-(-n_todo // bucket)):
             idx = order[b * bucket:(b + 1) * bucket]
             s = synds[idx]
             done_c = converged[idx]
             vn0, cn0, cd0, dead0, rank_pos = self._shorten_state(s, llr_sum[idx])
             if self.multi_thread:
-                out = gdg_ensemble_spans(self.garr, self._llr_dev, s, rank_pos, vn0, cn0,
-                                         cd0, dead0, self.tables, **kw)
+                out = ensemble(self.garr, self._llr_dev, s, rank_pos, vn0, cn0, cd0, dead0,
+                               self.tables, **kw)
             else:
                 out = gdg_serial(
                     self.garr, self._llr_dev, s, rank_pos, vn0, cn0, cd0, dead0,

@@ -519,6 +519,15 @@ def span_inputs(
     return args, kw
 
 
+def check_syndrome(garr, error):
+    """Decoded syndrome over the full PCM, decided VNs included (the JAX
+    ``check_syndrome``): [B, n] 0/1 error -> [B, m] int32, each check's
+    sum over its valid slots mod 2 (the pad index n reads an appended
+    zero column)."""
+    err_e = torch.nn.functional.pad(error.to(torch.int32), (0, 1))[:, garr["cn_vn"].long()]
+    return (err_e * garr["cn_valid"].to(torch.int32)).sum(dim=-1, dtype=torch.int32) % 2
+
+
 def history_sum(hist):
     """[n, 4, B] posterior history ring (f32 or bf16) -> [B, n] f32 sum of
     its 4 slots, taken slot by slot in f32: the order of the JAX (XLA)

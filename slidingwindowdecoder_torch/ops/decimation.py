@@ -17,8 +17,10 @@ State is batched ([B, n] / [B, m]) with values:
 All decisions of a sweep apply at once and conflicts set ``dead``; a dead
 branch's state is never used. Every op is integer arithmetic, so the
 results are bit-identical to the JAX package's. The JAX fixpoint loop
-(``lax.while_loop``) becomes a host loop that reads one scalar, whether
-another sweep is needed, once per sweep. The ``_t`` forms take
+(``lax.while_loop``) becomes, on the card, the hand-written kernel
+``csrc/peel.cu`` (``ops.peel_cuda``), which runs it with no host read; its
+plain version, run on CPU tensors, is a host loop that reads one scalar,
+whether another sweep is needed, once per sweep. The ``_t`` forms take
 their gathers slot by slot or in one packed pass where the JAX forms
 write whole per-edge arrays twice; the integers are the same.
 
@@ -31,6 +33,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import peel_cuda
+from .bp import check_syndrome
 
 
 def init_decimation_state(garr, syndrome):
@@ -71,9 +76,7 @@ def vn_set_values(garr, vn_state, cn_state, cn_degree, dead, set_mask, values):
     hit_zero = active & (new_degree == 0) & (delta_deg > 0)
     contradiction = hit_zero & (new_parity == 1)
     dead = dead | contradiction.any(dim=-1)
-    cn_state = torch.where(hit_zero & (new_parity == 0),
-                           torch.tensor(-1, dtype=torch.int8, device=cn_state.device),
-                           new_parity)
+    cn_state = new_parity.masked_fill(hit_zero & (new_parity == 0), -1)
     return vn_state, cn_state, new_degree, dead
 
 
@@ -97,16 +100,16 @@ def _sweep(garr, vn_state, cn_state, cn_degree, dead):
     return vn_state, cn_state, cn_degree, dead, more
 
 
-def peel(garr, vn_state, cn_state, cn_degree, dead):
-    """Iterate degree-1 forcing to a fixpoint.
+def peel(garr, vn_state, cn_state, cn_degree, dead, max_sweeps: int | None = None):
+    """Iterate degree-1 forcing to a fixpoint (the JAX ``peel``).
 
-    Each productive sweep decides at least one VN, so the loop ends. Each
-    sweep ends in one device-to-host read of ``more``.
+    One sweep, then another while a live shot forced a VN in the last one,
+    at most ``max_sweeps`` in all (None: to the fixpoint; each productive
+    sweep decides at least one VN, so the loop ends). On CUDA tensors one
+    call of ``csrc/peel.cu`` (``ops.peel_cuda.peel_fixpoint``, no host
+    read); on CPU tensors the plain loop ``_peel_loop``.
     """
-    *state, more = _sweep(garr, vn_state, cn_state, cn_degree, dead)
-    while bool(more):
-        *state, more = _sweep(garr, *state)
-    return tuple(state)
+    return _peel(garr, (vn_state, cn_state, cn_degree, dead), False, max_sweeps)
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +177,7 @@ def vn_set_values_t(garr, vn_t, cn_t, deg_t, dead, set_mask_t, values_t):
     hit_zero = active & (new_deg == 0) & (delta > 0)
     contradiction = hit_zero & (new_par == 1)
     dead = dead | contradiction.any(dim=0)
-    cn_t = torch.where(hit_zero & (new_par == 0),
-                       torch.tensor(-1, dtype=torch.int8, device=cn_t.device), new_par)
+    cn_t = new_par.masked_fill(hit_zero & (new_par == 0), -1)
     return vn_t, cn_t, new_deg, dead
 
 
@@ -198,14 +200,36 @@ def _sweep_t(garr, vn_t, cn_t, deg_t, dead):
     return vn_t, cn_t, deg_t, dead, more
 
 
-def peel_t(garr, vn_t, cn_t, deg_t, dead):
+def peel_t(garr, vn_t, cn_t, deg_t, dead, max_sweeps: int | None = None):
     """Transposed ``peel``: degree-1 forcing to the fixpoint of the JAX
-    ``peel_t`` (no ``max_sweeps``). The JAX loop runs a first sweep, then
-    another while the last one forced a VN in a live row; dead rows are
-    swept along. Each sweep ends in one device-to-host read of ``more``."""
-    *state, more = _sweep_t(garr, vn_t, cn_t, deg_t, dead)
-    while bool(more):
-        *state, more = _sweep_t(garr, *state)
+    ``peel_t``. The JAX loop runs a first sweep, then another while the
+    last one forced a VN in a live row, at most ``max_sweeps`` in all; dead
+    rows are swept along. On CUDA tensors one call of ``csrc/peel.cu``
+    (``ops.peel_cuda.peel_fixpoint``, no host read); on CPU tensors the
+    plain loop ``_peel_loop``."""
+    return _peel(garr, (vn_t, cn_t, deg_t, dead), True, max_sweeps)
+
+
+def _peel(garr, state, transposed: bool, max_sweeps):
+    """``peel`` / ``peel_t``: the kernel on a card's tensors (it raises on
+    any device but the CPU and a card), the plain loop on CPU tensors."""
+    if state[0].device.type != "cpu":
+        return peel_cuda.peel_fixpoint(garr, *state, transposed=transposed,
+                                       max_sweeps=max_sweeps)
+    peel_cuda.peel_fixpoint.plain_calls += 1
+    return _peel_loop(garr, *state, max_sweeps, transposed=transposed)
+
+
+def _peel_loop(garr, vn, cn, deg, dead, max_sweeps=None, *, transposed: bool = False):
+    """The plain version of ``csrc/peel.cu``: one ``_sweep`` (``_sweep_t``
+    if ``transposed``) of torch ops a sweep, each ending in one
+    device-to-host read of ``more``, at most ``max_sweeps`` sweeps."""
+    sweep = _sweep_t if transposed else _sweep
+    *state, more = sweep(garr, vn, cn, deg, dead)
+    sweeps = 1
+    while bool(more) and (max_sweeps is None or sweeps < max_sweeps):
+        *state, more = sweep(garr, *state)
+        sweeps += 1
     return tuple(state)
 
 
@@ -226,8 +250,7 @@ def unsatisfied_counts(garr, error, syndrome, cn_state, synd_hat=None):
     active checks whose decoded syndrome bit (``synd_hat`` [B, m], or that
     of ``error`` [B, n]) differs from the target. Returns [B, n] int32."""
     if synd_hat is None:
-        err_e = F.pad(error.to(torch.int32), (0, 1))[:, garr["cn_vn"].long()]
-        synd_hat = (err_e * garr["cn_valid"].to(torch.int32)).sum(dim=-1) % 2
+        synd_hat = check_syndrome(garr, error)
     unsat = (synd_hat.to(torch.int32) != syndrome.to(torch.int32)) & (cn_state != -1)
     unsat_e = F.pad(unsat.to(torch.int8), (0, 1))[:, garr["vn_cn"].long()]
     return (unsat_e * garr["vn_valid"].to(torch.int8)).sum(dim=-1, dtype=torch.int32)

@@ -24,7 +24,10 @@ writes the history ring at every iteration that records history. Only the
 ring's writes grow with the iterations; the operations grow with every
 shot-iteration run (``span_bound``, ``bp_iteration_model``). The fused BP4
 kernel (``csrc/bp4_span.cu``) is bound the same way (``bp4_span_bound``):
-its messages stay in shared memory for the call.
+its messages stay in shared memory for the call. The peel kernel
+(``csrc/peel.cu``) keeps each column's decimation state in shared memory
+for all its sweeps, so its traffic is one read and one write of the state
+(``peel_bound``).
 """
 
 from __future__ import annotations
@@ -152,6 +155,27 @@ def bp4_span_bound(*, shot_iters: int, edges: int, n: int, in_bytes: int,
             "mufu_ms": mufu_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, mufu_ms, bytes_ms),
             "bound_by": "operations" if max(ops_ms, mufu_ms) >= bytes_ms else "bytes"}
+
+
+def peel_bound(*, n: int, m: int, B: int, dc: int, dv: int, column_sweeps: int) -> dict:
+    """The bound of one ``peel`` / ``peel_t`` call (``csrc/peel.cu``) on
+    ``B`` columns of an m x n graph: each column's state read once and
+    written once at its real rows (int8 VN states n, int8 check states and
+    int32 degrees of the m checks, the dead flag), the int32 tables read
+    once (``dc`` slots of each check, ``dv`` of each VN); and
+    ``column_sweeps`` column-sweeps (the call's data: each column's sweeps
+    up to its fixpoint or the batch's stop) of two integer operations on
+    each check (the degree-1 test), at the int32 rate on the H100.
+
+    Returns {"ops", "bytes", "ops_ms", "bytes_ms", "bound_ms", "bound_by"}.
+    """
+    ops = column_sweeps * 2 * m
+    nbytes = 2 * B * (n + 5 * m + 1) + 4 * (m * dc + n * dv)
+    ops_ms = ops / H100["int32_ops_per_s"] * 1e3
+    bytes_ms = nbytes / H100["hbm_bytes_per_s"] * 1e3
+    return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def bp_iteration_model(graph, batch: float, msg_bytes: int, ring_bytes: int = 4) -> dict:

@@ -760,3 +760,131 @@ def test_bp4_span_smem_layout_matches_kernel(card):
         gx, gz = (graph_tensors(compile_graph(H), "cpu") for H in (code.hx, code.hz))
         nnz = sum(bp4_cuda.bp4_span_tables(g)["nnz"] for g in (gx, gz))
         assert fn(gx["n"], gx["m"] + gz["m"], nnz) == bp4_cuda.bp4_span_smem_bytes(gx, gz)
+
+
+def _peel_states(rng, H, B, transposed, dev):
+    """Random decisions (60 % of the VNs, random values; every fourth
+    column decides none) from a random syndrome, a fifth of the columns
+    dead at entry, on ``dev``: (garr, state)."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops import decimation as dec
+
+    garr = graph_tensors(compile_graph(H), dev)
+    m, n = H.shape
+    synd = torch.as_tensor(rng.integers(0, 2, (B, m)).astype(np.uint8), device=dev)
+    mask = rng.random((B, n)) < 0.6
+    mask[::4] = False
+    mask = torch.as_tensor(mask, device=dev)
+    vals = torch.as_tensor(rng.integers(0, 2, (B, n)).astype(np.int8), device=dev)
+    dead = torch.as_tensor(rng.random(B) < 0.2, device=dev)
+    if transposed:
+        st = dec.init_decimation_state_t(garr, synd.T.contiguous())
+        return garr, dec.vn_set_values_t(garr, *st[:3], dead, mask.T.contiguous(),
+                                         vals.T.contiguous())
+    st = dec.init_decimation_state(garr, synd)
+    return garr, dec.vn_set_values(garr, *st[:3], dead, mask, vals)
+
+
+@pytest.mark.parametrize("max_sweeps", [None, 1, 3])
+@pytest.mark.parametrize("transposed", [False, True], ids=["peel", "peel_t"])
+def test_peel_kernel_matches_plain_loop(card, transposed, max_sweeps):
+    """``csrc/peel.cu`` against the plain loop on the same states on the
+    card, bit for bit, on a [[72]] window PCM with 301 columns (not a
+    multiple of a block's columns) and dead columns at entry; one launch a
+    call, and its device counters add the batch's sweeps."""
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.ops import decimation as dec
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    _, _, _, plan = build_bb_window_experiment(72, 0.01, 3, 2, 1)
+    rng = np.random.default_rng(17)
+    garr, st = _peel_states(rng, plan.windows[0].mat, 301, transposed, card)
+    stats0 = peel_cuda.sweep_stats(card).clone()
+    before = peel_cuda.peel_fixpoint.launches
+    out = (dec.peel_t if transposed else dec.peel)(garr, *st, max_sweeps=max_sweeps)
+    assert peel_cuda.peel_fixpoint.launches == before + 1
+    sweeps = int(peel_cuda.sweep_stats(card)[0] - stats0[0])
+    ref = dec._peel_loop(garr, *st, max_sweeps, transposed=transposed)
+    for name, a, b in zip(("vn", "cn", "deg", "dead"), out, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert 1 <= sweeps <= (max_sweeps or 10**9)
+    assert (out[0] != -1).sum() > (st[0] != -1).sum() and out[3].any()
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["peel", "peel_t"])
+def test_peel_kernel_stops_with_the_last_live_row(card, transposed):
+    """Two copies of a path graph of 16 VNs, a live column forced from both
+    ends and a dead one from one end: the kernel stops the dead column at
+    the live column's last sweep, as the plain loop does (8 sweeps)."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops import decimation as dec
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    n = 16
+    H = np.zeros((n - 1, n), np.uint8)
+    for i in range(n - 1):
+        H[i, i] = H[i, i + 1] = 1
+    garr = graph_tensors(compile_graph(H), card)
+    mask = torch.zeros((2, n), dtype=torch.bool, device=card)
+    mask[1, [0, n - 1]] = True
+    mask[0, 0] = True
+    dead = torch.tensor([True, False], device=card)
+    synd = torch.zeros((2, n - 1), dtype=torch.uint8, device=card)
+    zeros = torch.zeros((2, n), dtype=torch.int8, device=card)
+    if transposed:
+        st = dec.init_decimation_state_t(garr, synd.T.contiguous())
+        st = dec.vn_set_values_t(garr, *st[:3], dead, mask.T.contiguous(), zeros.T.contiguous())
+    else:
+        st = dec.init_decimation_state(garr, synd)
+        st = dec.vn_set_values(garr, *st[:3], dead, mask, zeros)
+    s0 = int(peel_cuda.sweep_stats(card)[0])
+    out = (dec.peel_t if transposed else dec.peel)(garr, *st)
+    assert int(peel_cuda.sweep_stats(card)[0]) - s0 == 8
+    ref = dec._peel_loop(garr, *st, transposed=transposed)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    vn = (out[0].T if transposed else out[0]).cpu().numpy()
+    np.testing.assert_array_equal(vn[0], [0] * 9 + [-1] * 7)
+
+
+def test_gdg_fused_card_matches_cpu_without_a_sync(card):
+    """GDG's fused ensemble (``gdg_ensemble``, fixed trips) on bb72
+    syndromes: no host read from each bucket's first step through its
+    reduce (under ``torch.cuda.set_sync_debug_mode("error")``), every step
+    of every bucket run, peels on the kernel, and the card's decode equals
+    the plain one on the CPU, shot for shot."""
+    from slidingwindowdecoder_torch.decoders import GDG
+    from slidingwindowdecoder_torch.decoders import gdg as gdg_mod
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    code, probs, synds = _cc_inputs(0.13, 64, 7)
+    kw = dict(max_iter=24, max_iter_per_step=6, max_step=40, max_tree_depth=3,
+              max_side_depth=10, max_tree_branch_step=20, max_side_branch_step=20,
+              ensemble_bucket=16, ensemble_mode="fused")
+    step, reduce = gdg_mod._ensemble_step, gdg_mod._ensemble_reduce
+    seen = {"steps": 0, "reduces": 0}
+
+    def watched_step(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        seen["steps"] += 1
+        return step(*a, **k)
+
+    def watched_reduce(*a, **k):
+        out = reduce(*a, **k)
+        torch.cuda.set_sync_debug_mode("default")
+        seen["reduces"] += 1
+        return out
+
+    dec_card = GDG(code.hx, probs, device=card, **kw)
+    before = peel_cuda.peel_fixpoint.launches
+    gdg_mod._ensemble_step, gdg_mod._ensemble_reduce = watched_step, watched_reduce
+    try:
+        rc = dec_card.decode_batch(synds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        gdg_mod._ensemble_step, gdg_mod._ensemble_reduce = step, reduce
+    assert seen["reduces"] > 0 and seen["steps"] == seen["reduces"] * dec_card.D_max
+    assert peel_cuda.peel_fixpoint.launches > before
+    rp = GDG(code.hx, probs, device="cpu", **kw).decode_batch(synds)
+    for k in ("error", "converged", "iterations", "min_pm"):
+        np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)

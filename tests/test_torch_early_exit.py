@@ -97,8 +97,10 @@ def test_fixed_trips_skip_the_all_done_read():
 
 def test_gdg_ensemble_early_exit_results_unchanged():
     """[[72]] hx at p=0.13, 32 jittered-prior shots, the knobs of
-    ``test_torch_gdg.py``: the port's GDG with either flag equals the JAX
-    GDG with ``ensemble_early_exit=False`` (host-stepped ensemble)."""
+    ``test_torch_gdg.py``: the port's GDG (fused ensemble) with either flag
+    equals the JAX GDG with ``ensemble_early_exit=False`` (host-stepped
+    ensemble); every shot converges here, so the fixed trips move no
+    output."""
     code, _, _ = bb_code_by_n(72)
     rng = np.random.default_rng(7)
     p = 0.13

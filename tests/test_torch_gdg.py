@@ -136,7 +136,8 @@ def test_gdg_matches_jax(bb72, jax_runs, priors, low_error_mode):
 @pytest.mark.usefixtures("one_thread")
 def test_gdg_bucket_invariance_and_modes(bb72):
     """Per-shot results do not depend on ``ensemble_bucket`` (8 or 16), and
-    the "fused" and "host_loop" modes (both host-stepped here) agree."""
+    the "fused" (``gdg_ensemble``, every step) and "host_loop" modes agree
+    (every shot converges here, so no dead column shows)."""
     probs, synds = _inputs(bb72, "jittered")
     res = [GDG(bb72.hx, probs, ensemble_bucket=bk, ensemble_mode=mode, device="cpu",
                **KW).decode_batch(synds)
@@ -191,7 +192,8 @@ def test_ensemble_steps_stop_when_all_finished(bb72, monkeypatch):
     the step at whose end every column has finished, well before D_max
     here; each bucket's carry has 16 shots x 22 branch columns."""
     probs, synds = _inputs(bb72, "jittered")
-    dec = GDG(bb72.hx, probs, ensemble_bucket=16, device="cpu", **KW)
+    dec = GDG(bb72.hx, probs, ensemble_bucket=16, ensemble_mode="host_loop", device="cpu",
+              **KW)
     seen, step = [], tgdg._ensemble_step
 
     def counted(garr, llr, synd, rank, tt, reinit_any, d, carry, **kw):

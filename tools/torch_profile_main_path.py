@@ -9,7 +9,7 @@ share.
 
     python3 tools/torch_profile_main_path.py                  # BPOSD flagship
     python3 tools/torch_profile_main_path.py --path osd_window
-    python3 tools/torch_profile_main_path.py --path gdg [--gdg-bucket 256]
+    python3 tools/torch_profile_main_path.py --path gdg [--gdg-bucket 256] [--gdg-mode host_loop]
     python3 tools/torch_profile_main_path.py --path gdg_spans
     python3 tools/torch_profile_main_path.py --path gdg_288_41
     python3 tools/torch_profile_main_path.py --path cc_bpgd
@@ -21,12 +21,15 @@ share.
 
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
-(pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, peel sweeps,
-post-BP buckets, OSD. Both at p=0.004 over 16384 shots. ``gdg``: the
-``sliding_window_gdg`` decoder (pre-BP 8, the GDG defaults, f32) at
-p=0.005 over 8192 shots; stages pre-BP, shortening, ensemble set-up, BP
-bursts, select and aggressive decimation, the guess's ``vn_set_values_t``,
-the transposed peels (sweeps, each ending in one host read), reduce.
+(pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, the peels (one
+``csrc/peel.cu`` call each), post-BP buckets, OSD. Both at p=0.004 over
+16384 shots. ``gdg``: the ``sliding_window_gdg`` decoder (pre-BP 8, the
+GDG defaults, f32) at p=0.005 over 8192 shots, its ensemble in the form
+``--gdg-mode`` names ("fused", the default: every step of a bucket, no
+host read between; "host_loop": a flag read after each step); stages
+pre-BP, shortening, ensemble set-up, BP bursts, select and aggressive
+decimation, the guess's ``vn_set_values_t``, the transposed peels (one
+``csrc/peel.cu`` call each), reduce.
 ``gdg_spans``: the same decoder with ``ensemble_mode="spans"`` (row buckets
 of 2048 at most, lane dormancy); its stages add the compaction's gathers.
 ``gdg_288_41``: the gdg-288-41 parity row's decoder ([[288,12,18]], 18
@@ -41,7 +44,7 @@ steps), so no device time or busy share.
 ``data_qubit_noise_decoding`` draws from seed 2024 at that batch size):
 no pre-BP, 12 masked iterations a step at ``gd_factor`` 0.8, max_step
 100, spans mode; stages the bursts, the decision's ``vn_set_values``, the
-peels (sweeps, a host read each) and the rest (the argmax, the step's
+peels (one ``csrc/peel.cu`` call each) and the rest (the argmax, the step's
 finished read, the compaction). ``global``: ``global_decoder``'s decoder
 (BP+OSD-CS-10 with the bench knobs and bf16 messages) on the whole [[144]]
 DEM (936x8784) at p=0.004, 16384 shots in two 8192-shot ``core`` calls as
@@ -124,6 +127,8 @@ def main() -> int:
                     default="bposd")
     ap.add_argument("--gdg-bucket", type=int, default=512,
                     help="GDG ensemble_bucket (shots per ensemble bucket)")
+    ap.add_argument("--gdg-mode", choices=("fused", "host_loop"), default="fused",
+                    help="the ensemble form of --path gdg")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -148,7 +153,7 @@ def main() -> int:
     from slidingwindowdecoder_torch.harness.code_capacity import parity_code, parity_decoder
     from slidingwindowdecoder_torch.harness import depolarizing
     from slidingwindowdecoder_torch.harness.depolarizing import sample_depolarizing
-    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, decimation, gf2_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda, peel_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
     gdg_paths = ("gdg", "gdg_spans", "gdg_288_41")
@@ -196,11 +201,11 @@ def main() -> int:
         patches = [
             (BPGD, "_shorten_state", lambda *a: "shortening (nothing to drop: new_n = n)"),
             (bpgd, "vn_set_values", lambda *a: "vn_set_values (the decision)"),
-            (bpgd, "peel", lambda *a: "peel (sweeps and host reads)"),
+            (bpgd, "peel", lambda *a: "peel (one peel.cu call each)"),
             (bpgd, "bp_run", lambda *a, **k: BURST_STAGE),
         ]
     elif args.path in gdg_paths:
-        knobs = {"gdg": dict(max_iter=8, ensemble_mode="fused"),
+        knobs = {"gdg": dict(max_iter=8, ensemble_mode=args.gdg_mode),
                  "gdg_spans": dict(max_iter=8, ensemble_mode="spans"),
                  "gdg_288_41": GDG_288_KNOBS}[args.path]
         factory = gdg_window_factory(ensemble_bucket=args.gdg_bucket, device="cuda", **knobs)
@@ -213,7 +218,7 @@ def main() -> int:
             (gdg, "_select_and_decimate_t",
              lambda *a, **k: "select and aggressive decimation (num_flip, C/D/A, guess)"),
             (gdg, "vn_set_values_t", lambda *a: "vn_set_values_t (aggressive set, guess)"),
-            (gdg, "peel_t", lambda *a, **k: "peel_t (sweeps and host reads)"),
+            (gdg, "peel_t", lambda *a, **k: "peel_t (one peel.cu call each)"),
             (gdg, "_ensemble_reduce", lambda *a: "reduce"),
             (gdg, "bp_run", lambda *a, **k: BURST_STAGE),
         ]
@@ -236,19 +241,11 @@ def main() -> int:
             (osd_window, "bp_run", lambda garr, mv, prior, synds, *_, **__: (
                 "pre-BP (full batch)" if synds.shape[0] == shots
                 else "post-BP (buckets)")),
-            (decimation, "_sweep", lambda *a: "peel sweeps"),
+            (osd_window, "peel", lambda *a: "peel (one peel.cu call each)"),
             (osd_window, "osd_decode", lambda *a, **k: OSD_STAGE),
         ]
 
-    sweeps = [0]
-    sweep_name = "_sweep" if args.path == "cc_bpgd" else "_sweep_t"
-    sweep_fn = getattr(decimation, sweep_name)
-
-    def counted_sweep(*a, **k):
-        sweeps[0] += 1
-        return sweep_fn(*a, **k)
-
-    setattr(decimation, sweep_name, counted_sweep)
+    sweep_stats = peel_cuda.sweep_stats("cuda")  # the peel kernel's device counter
 
     def run(d=det):
         if args.path in BP4_PATHS:
@@ -268,12 +265,13 @@ def main() -> int:
     cn, span = bp_cuda.cn_update, bp_cuda.bp_span
     gj, osd = gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused
     span4 = bp4_cuda.bp4_span
-    for k in (cn, span, gj, osd, span4):
+    peel = peel_cuda.peel_fixpoint
+    for k in (cn, span, gj, osd, span4, peel):
         k.launches = 0
     cn.pinned_launches = span.pinned_launches = gj.cluster_launches = osd.cluster_launches = 0
     span.bf16_ring_launches = span.pinned_bf16_ring_launches = 0
     span.wide_launches = span.pinned_wide_launches = 0
-    sweeps[0] = 0
+    sweep_stats.zero_()
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
@@ -286,8 +284,8 @@ def main() -> int:
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
                 "osd_cs_fused_cluster": osd.cluster_launches,
-                "bp4_span": span4.launches}
-    n_sweeps = sweeps[0]
+                "bp4_span": span4.launches, "peel": peel.launches}
+    n_sweeps, n_column_sweeps = sweep_stats.tolist()
 
     # per-stage wall time: wrap the decoder's stages with synchronizing
     # timers; a stage's time excludes that of the timed stages it calls
@@ -327,13 +325,15 @@ def main() -> int:
         "wall_s": wall, "shots_per_s": shots / wall, "staged_wall_s": total,
         "stages_s": dict(stages), "stage_calls": dict(calls), "launches": launches,
     }
+    res.update(peel_sweeps=n_sweeps, peel_column_sweeps=n_column_sweeps)
     if args.path in gdg_paths:
-        res.update(gdg_bucket=args.gdg_bucket, peel_sweeps=n_sweeps)
+        res.update(gdg_bucket=args.gdg_bucket)
+        if args.path == "gdg":
+            res.update(gdg_mode=args.gdg_mode)
     elif args.path == "cc_bpgd":
-        # host reads: one per peel sweep, one per step (whether every row
-        # halted; a burst is one step), one per span (rows left)
-        res.update(peel_sweeps=n_sweeps, bursts=launches["bp_span_pinned"],
-                   spans=len(dec.decim_spans))
+        # host reads: one per step (whether every row halted; a burst is one
+        # step), one per span (rows left); the peels read none
+        res.update(bursts=launches["bp_span_pinned"], spans=len(dec.decim_spans))
     print(json.dumps(res), flush=True)
     if args.path == "gdg_288_41":
         return 0
