@@ -81,16 +81,23 @@ Phases (any failure exits non-zero; nothing is caught):
    sigma of the reference's 183/10000); then the first
    128 of those shots, at full width (no shot may differ), and a small
    input, each on the card and by the plain versions on the CPU;
-7b. ``[peel]``: the peel kernel (``peel.cu``: degree-1 forcing to the
-   batch's fixpoint, no host read) against its plain loop on the card, on
-   the same inputs, every output bit-exact: on peel calls captured on the
-   card from window 0 of the seed-2024 samples (the GDG ensemble's
-   ``peel_t`` at step 4, [n, 512 x 22]; GDG's shortening ``peel``; the
-   shortened ``OSDWindow``'s first ``peel``; in step 10 the BPGD decode's
-   fourth ``peel`` on [[882]]) and on a built batch where one column forces
-   while the others are dead (the batch's sweep count, read from the
-   kernel's device counter, must be the live column's), with the kernel's
-   time, the plain loop's and the bytes bound;
+7b. ``[peel]``: the decide-and-peel kernel (``peel.cu``: a decision
+   applied as ``vn_set_values`` applies it, then degree-1 forcing to the
+   batch's fixpoint, one launch, no host read) against the plain pair
+   (``vn_set_values(_t)``'s torch ops, then the plain peel loop) on the
+   card, on the same inputs, every output bit-exact, and exactly one launch
+   a call: on the decide-and-peel calls captured on the card from window 0
+   of the seed-2024 samples (the GDG ensemble's aggressive decision and
+   guess at step 4, [n, 512 x 22]; GDG's shortening; the shortened
+   ``OSDWindow``'s first; in step 10 the BPGD decode's fourth decision on
+   [[882]]) and on a built batch where one column forces while the others
+   are dead (the batch's sweep count, read from the kernel's device
+   counter, must be the live column's); each also as the split pair the
+   decoders ran before (the torch ops, then the kernel with no decision),
+   bit-exact too; with the kernel's time, the split pair's, the plain
+   pair's and the bytes bound. Every decimating path's gate requires
+   every peel launch to take its decision and no ``vn_set_values`` torch
+   op on the card;
 8. the GDG path, the decoder of ``sliding_window_gdg`` (the reference's
    guessing.py: GDG with pre-BP 8 and the reference's ensemble defaults,
    22 branches, 25 steps, f32): first the ensemble's BP burst
@@ -1180,25 +1187,25 @@ def phase_bp_span_gdg(plan, det, bucket: int):
     return res
 
 
-# the [peel] phase: which call of each path's peel it captures (0-based),
-# and the built stop-rule case (a path graph of PEEL_PATH_N VNs over
-# PEEL_PATH_COLUMNS columns)
-PEEL_GDG_CALL = 8  # peel_t of step 4's select (two peels a step)
+# the [peel] phase: which call of each path's decide-and-peel entry point it
+# captures (0-based), and the built stop-rule case (a path graph of
+# PEEL_PATH_N VNs over PEEL_PATH_COLUMNS columns)
+PEEL_GDG_CALL = 4  # step 4's: the ensemble calls each entry point once a step
 PEEL_BPGD_CALL = 3
 PEEL_PATH_N, PEEL_PATH_COLUMNS = 64, 4096
 
 
 def _capture_call(module, name: str, index: int, run):
-    """(garr, state) of call ``index`` of ``module.<name>`` (a peel) while
-    ``run()`` decodes on the card, the state cloned; the decode stops
-    there."""
+    """(garr, args) of call ``index`` of ``module.<name>`` (a decide-and-peel
+    entry point: the state, then the decision) while ``run()`` decodes on
+    the card, the tensors cloned; the decode stops there."""
     calls, orig = [], getattr(module, name)
 
-    def capture(garr, *state, **k):
-        calls.append((garr, tuple(_clone(t) for t in state)))
+    def capture(garr, *args, **k):
+        calls.append((garr, tuple(_clone(t) for t in args)))
         if len(calls) > index:
             raise _Captured
-        return orig(garr, *state, **k)
+        return orig(garr, *args, **k)
 
     setattr(module, name, capture)
     try:
@@ -1213,57 +1220,95 @@ def _capture_call(module, name: str, index: int, run):
     return calls[index]
 
 
-def _peel_case(label, garr, state, transposed: bool, reps: int, want_sweeps=None):
-    """One peel call on the card (``peel_t`` if ``transposed``, else
-    ``peel``: the kernel) against the plain loop on the same inputs on the
-    card, every output bit-exact; the kernel's time, the plain loop's, the
-    bound and the batch's sweeps from the kernel's device counter."""
+def _peel_case(label, garr, args, transposed: bool, reps: int, want_sweeps=None):
+    """One decide-and-peel call on the card (``args``: the state, then a mask
+    with optional values, or an index, a value and a do-set flag a column)
+    through its entry point, one launch of ``csrc/peel.cu``, against the
+    plain pair on the same inputs on the card (``vn_set_values(_t)``'s
+    torch ops, then the plain peel loop), every output bit-exact; and the
+    split pair the decoders ran before the launch took the decision
+    (``vn_set_values(_t)``'s torch ops, then the kernel with no decision),
+    also bit-exact. The launches a call (must be 1), the batch's sweeps from
+    the kernel's device counter, the kernel's time, the split pair's, the
+    plain pair's and the bound."""
     import torch
 
     from slidingwindowdecoder_torch.ops import decimation, peel_cuda
-    from slidingwindowdecoder_torch.utils.roofline import peel_bound
+    from slidingwindowdecoder_torch.utils.roofline import decide_peel_bound
 
-    kernel = decimation.peel_t if transposed else decimation.peel
-    plain = functools.partial(decimation._peel_loop, transposed=transposed)
-    stats = peel_cuda.sweep_stats("cuda")
-    s0 = stats.clone()
-    out = kernel(garr, *state)
+    state, rest = args[:4], args[4:]
+    if len(rest) == 3:
+        form, decision = "index", dict(index=rest[0], value=rest[1], do_set=rest[2])
+        fused = decimation.set_index_and_peel_t if transposed else decimation.set_index_and_peel
+    else:
+        values = rest[1] if len(rest) > 1 else None
+        form = "mask" if values is None else "mask+values"
+        decision = dict(set_mask=rest[0], values=values)
+        fused = (decimation.set_values_and_peel_t if transposed
+                 else decimation.set_values_and_peel)
+    peel = decimation.peel_t if transposed else decimation.peel
+
+    def kernel():
+        return fused(garr, *state, *decision.values())
+
+    def pair():
+        return peel(garr, *decimation._plain_decision(garr, state, transposed, **decision))
+
+    def plain():
+        st = decimation._plain_decision(garr, state, transposed, **decision)
+        return decimation._peel_loop(garr, *st, transposed=transposed)
+
+    stats, fp = peel_cuda.sweep_stats("cuda"), peel_cuda.peel_fixpoint
+    s0, l0 = stats.clone(), (fp.launches, fp.decide_launches)
+    out = kernel()
     torch.cuda.synchronize()
+    launches = fp.launches - l0[0]
     sweeps, column_sweeps = (stats - s0).tolist()
-    ref = plain(garr, *state)
-    differ = [k for k, a, b in zip(("vn", "cn", "deg", "dead"), out, ref)
-              if a.dtype != b.dtype or not torch.equal(a, b)]
-    if differ or (want_sweeps is not None and sweeps != want_sweeps):
-        raise SystemExit(f"[peel] {label}: the kernel differs from the plain loop in {differ}; "
-                         f"{sweeps} sweeps (want {want_sweeps})")
-    ms = cuda_time_ms(lambda: kernel(garr, *state), reps)
-    plain_ms = cuda_time_ms(lambda: plain(garr, *state), max(2, reps // 10))
+    s0 = stats.clone()
+    split = pair()
+    torch.cuda.synchronize()
+    split_sweeps = (stats - s0).tolist()[0]
+    ref = plain()
+    differ = [k for k, a, b, c in zip(("vn", "cn", "deg", "dead"), out, ref, split)
+              if a.dtype != b.dtype or not torch.equal(a, b) or not torch.equal(c, b)]
+    if (differ or launches != 1 or fp.decide_launches - l0[1] != 1 or split_sweeps != sweeps
+            or (want_sweeps is not None and sweeps != want_sweeps)):
+        raise SystemExit(f"[peel] {label}: the kernel or the split pair differs from the plain "
+                         f"pair in {differ}; {launches} launches; {sweeps} sweeps, split "
+                         f"{split_sweeps} (want {want_sweeps})")
+    ms = cuda_time_ms(kernel, reps)
+    pair_ms = cuda_time_ms(pair, reps)
+    plain_ms = cuda_time_ms(plain, max(2, reps // 10))
     B = state[3].shape[0]
-    bound = peel_bound(n=garr["n"], m=garr["m"], B=B, dc=garr["dc"], dv=garr["dv"],
-                       column_sweeps=column_sweeps)
+    bound = decide_peel_bound(n=garr["n"], m=garr["m"], B=B, dc=garr["dc"], dv=garr["dv"],
+                              column_sweeps=column_sweeps, decision=form)
     decided = [int((x[0] != -1).sum()) for x in (state, out)]
     dead = [int(x[3].sum()) for x in (state, out)]
-    log(f"[peel] {label}: {list(state[0].shape)} {'peel_t' if transposed else 'peel'}, "
-        f"{sweeps} sweeps, {column_sweeps} column-sweeps; decided {decided[0]} -> "
-        f"{decided[1]}, dead {dead[0]} -> {dead[1]} of {B}; bit-exact; kernel {ms:.4f} ms, "
-        f"plain loop {plain_ms:.4f} ms ({plain_ms / ms:.1f}x), bound {bound['bound_ms']:.4f} ms "
-        f"({bound['bound_by']}; {ms / bound['bound_ms']:.2f}x)")
-    return {"shape": list(state[0].shape), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "sweeps": sweeps,
-            "column_sweeps": column_sweeps, "max_abs_err": 0}
+    log(f"[peel] {label}: {list(state[0].shape)} "
+        f"{fused.__name__}({form}), {launches} launch, {sweeps} sweeps, {column_sweeps} "
+        f"column-sweeps; decided {decided[0]} -> {decided[1]}, dead {dead[0]} -> {dead[1]} of "
+        f"{B}; bit-exact; kernel {ms:.4f} ms, split pair (torch ops + peel.cu) {pair_ms:.4f} "
+        f"ms ({pair_ms / ms:.2f}x), plain pair {plain_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; {ms / bound['bound_ms']:.2f}x)")
+    return {"shape": list(state[0].shape), "decision": form, "launches_per_call": launches,
+            "ms": ms, "pair_ms": pair_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "sweeps": sweeps, "column_sweeps": column_sweeps,
+            "max_abs_err": 0}
 
 
 def phase_peel(plan, det, gplan, gdet):
-    """``[peel]``: the peel kernel (``csrc/peel.cu``) against its plain loop
-    on the card, bit-exact, on the peel calls of the window paths captured
-    on the card from window 0 of the seed-2024 samples: the GDG ensemble's
-    ``peel_t`` (step 4's, a 512-shot bucket x 22 branches) and the GDG
-    shortening's ``peel`` (512 shots), the shortened ``OSDWindow``'s
-    ``peel`` (its first post-BP bucket); and on a built batch where the stop
-    rule decides the result: a path graph of ``PEEL_PATH_N`` VNs, one
-    column live and forced from both ends (ceil((n-2)/2) forcing sweeps),
-    the others dead and forced from one end, which the batch must stop at
-    the live column's last sweep, in both layouts."""
+    """``[peel]``: the decide-and-peel kernel (``csrc/peel.cu``) against the
+    plain pair on the card, bit-exact, on the calls of the window paths
+    captured on the card from window 0 of the seed-2024 samples: the GDG
+    ensemble's step-4 aggressive decision (``set_values_and_peel_t``, a
+    512-shot bucket x 22 branches) and guess (``set_index_and_peel_t``),
+    the GDG shortening (``set_values_and_peel``, 512 shots) and the
+    shortened ``OSDWindow``'s (its first post-BP bucket); and on a built
+    batch where the stop rule decides the result: a path graph of
+    ``PEEL_PATH_N`` VNs, one live column decided at both ends
+    (ceil((n-2)/2) forcing sweeps), the others dead and decided at one end,
+    so that they pause after their first sweep and are carried on after the
+    grid barrier to the live column's last sweep, in both layouts."""
     import torch
 
     from slidingwindowdecoder_torch.decoders import gdg, osd_window
@@ -1278,15 +1323,20 @@ def phase_peel(plan, det, gplan, gdet):
     spec = gplan.windows[0]
     synd = torch.as_tensor(gdet[:, spec.row_start:spec.row_end], device="cuda")
     dec = gdg_window_factory(max_iter=8, ensemble_bucket=GDG_BUCKET, device="cuda")(spec)
-    garr, st = _capture_call(gdg, "peel_t", PEEL_GDG_CALL, lambda: dec.core(synd))
-    res["GDG ensemble peel_t"] = _peel_case("GDG ensemble (step 4)", garr, st, True, 50)
-    garr, st = _capture_call(gdg, "peel", 0, lambda: dec.core(synd))
-    res["GDG shortening peel"] = _peel_case("GDG shortening", garr, st, False, 50)
+    garr, args = _capture_call(gdg, "set_values_and_peel_t", PEEL_GDG_CALL,
+                               lambda: dec.core(synd))
+    res["GDG ensemble aggressive"] = _peel_case("GDG ensemble aggressive (step 4)", garr, args,
+                                                True, 50)
+    garr, args = _capture_call(gdg, "set_index_and_peel_t", PEEL_GDG_CALL,
+                               lambda: dec.core(synd))
+    res["GDG ensemble guess"] = _peel_case("GDG ensemble guess (step 4)", garr, args, True, 50)
+    garr, args = _capture_call(gdg, "set_values_and_peel", 0, lambda: dec.core(synd))
+    res["GDG shortening"] = _peel_case("GDG shortening", garr, args, False, 50)
     spec = plan.windows[0]
     synd = torch.as_tensor(det[:, spec.row_start:spec.row_end], device="cuda")
     dec = window_decoder_factory(True, device="cuda")(spec)
-    garr, st = _capture_call(osd_window, "peel", 0, lambda: dec.core(synd))
-    res["shortened peel"] = _peel_case("shortened OSDWindow", garr, st, False, 50)
+    garr, args = _capture_call(osd_window, "set_values_and_peel", 0, lambda: dec.core(synd))
+    res["shortened"] = _peel_case("shortened OSDWindow", garr, args, False, 50)
 
     n, B = PEEL_PATH_N, PEEL_PATH_COLUMNS
     H = np.zeros((n - 1, n), np.uint8)
@@ -1294,35 +1344,33 @@ def phase_peel(plan, det, gplan, gdet):
     garr = graph_tensors(compile_graph(H), "cuda")
     mask = torch.zeros((B, n), dtype=torch.bool, device="cuda")
     mask[:, 0] = True
-    mask[B // 2, n - 1] = True  # the live column: forced from both ends
+    mask[B // 2, n - 1] = True  # the live column: decided at both ends
     dead = torch.ones(B, dtype=torch.bool, device="cuda")
     dead[B // 2] = False
     synd = torch.zeros((B, n - 1), dtype=torch.uint8, device="cuda")
-    zeros = torch.zeros((B, n), dtype=torch.int8, device="cuda")
     want = -(-(n - 2) // 2) + 1
-    st = decimation.vn_set_values(garr, *decimation.init_decimation_state(garr, synd)[:3], dead,
-                                  mask, zeros)
-    res["stop rule peel"] = _peel_case("stop rule, batch-major", garr, st, False, 20, want)
-    st = decimation.init_decimation_state_t(garr, synd.T.contiguous())
-    st = decimation.vn_set_values_t(garr, *st[:3], dead, mask.T.contiguous(),
-                                    zeros.T.contiguous())
-    res["stop rule peel_t"] = _peel_case("stop rule, transposed", garr, st, True, 20, want)
+    st = (*decimation.init_decimation_state(garr, synd)[:3], dead)
+    res["stop rule"] = _peel_case("stop rule, batch-major", garr, (*st, mask), False, 20, want)
+    st = (*decimation.init_decimation_state_t(garr, synd.T.contiguous())[:3], dead)
+    res["stop rule, transposed"] = _peel_case("stop rule, transposed", garr,
+                                              (*st, mask.T.contiguous()), True, 20, want)
     return res
 
 
 def phase_peel_bpgd(code, synd):
-    """``[peel]`` on BPGD's peel: call ``PEEL_BPGD_CALL`` of ``bpgd.peel``
-    in ``BPGD.core`` (spans mode, max_step 100) on the [[882]] syndromes,
-    captured on the card, against the plain loop there."""
+    """``[peel]`` on BPGD's decision: call ``PEEL_BPGD_CALL`` of
+    ``bpgd.set_index_and_peel`` in ``BPGD.core`` (spans mode, max_step 100)
+    on the [[882]] syndromes, captured on the card, against the plain pair
+    there."""
     import torch
 
     from slidingwindowdecoder_torch.decoders import bpgd
     from slidingwindowdecoder_torch.harness.code_capacity import parity_decoder
 
     dec = parity_decoder(code, CC_P, "bpgd", {"max_step": 100}, device="cuda")
-    garr, st = _capture_call(bpgd, "peel", PEEL_BPGD_CALL,
-                             lambda: dec.core(torch.as_tensor(synd, device="cuda")))
-    return {"BPGD peel": _peel_case("BPGD (step 3)", garr, st, False, 50)}
+    garr, args = _capture_call(bpgd, "set_index_and_peel", PEEL_BPGD_CALL,
+                               lambda: dec.core(torch.as_tensor(synd, device="cuda")))
+    return {"BPGD": _peel_case("BPGD (step 3)", garr, args, False, 50)}
 
 
 # the flagship's bench knobs (bench.py:76-136); the shortened path runs
@@ -1332,9 +1380,10 @@ FLAGSHIP_KNOBS = dict(bp_bucket=1024, osd_bucket=256, phase_a_iters=16,
 
 
 def reset_counts():
-    """Every kernel wrapper's launch and plain-call count to 0, and the peel
-    kernel's device counter of sweeps."""
-    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda, peel_cuda
+    """Every kernel wrapper's launch and plain-call count to 0, the count of
+    ``vn_set_values``' torch ops on the card, and the peel kernel's device
+    counter of sweeps."""
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, decimation, gf2_cuda, peel_cuda
 
     for k in (bp_cuda.cn_update, bp_cuda.bp_span):
         k.launches = k.pinned_launches = k.plain_calls = 0
@@ -1343,7 +1392,9 @@ def reset_counts():
     bp_cuda.bp_span.wide_launches = bp_cuda.bp_span.pinned_wide_launches = 0
     for k in (gf2_cuda.gauss_jordan_key, gf2_cuda.osd_cs_fused):
         k.launches = k.cluster_launches = k.plain_calls = 0
-    peel_cuda.peel_fixpoint.launches = peel_cuda.peel_fixpoint.plain_calls = 0
+    peel = peel_cuda.peel_fixpoint
+    peel.launches = peel.decide_launches = peel.plain_calls = 0
+    decimation.vn_set_values.card_calls = 0
     peel_cuda.sweep_stats("cuda").zero_()
 
 
@@ -1362,9 +1413,10 @@ def read_counts():
     route, ``bp_span_wide`` / ``bp_span_wide_pinned`` its wide route;
     ``bp_span_bf16_ring`` and ``bp_span_pinned_bf16_ring`` count the
     unmasked and the masked launches of either route that took a bf16
-    history ring; ``peel`` counts the calls of the peel kernel (each its
-    two passes)."""
-    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda, peel_cuda
+    history ring; ``peel`` counts the launches of the decide-and-peel
+    kernel, ``peel_decide`` those that applied a decision; the plain
+    ``vn_set_values`` counts its torch ops' calls on the card."""
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, decimation, gf2_cuda, peel_cuda
 
     cn, span, span4 = bp_cuda.cn_update, bp_cuda.bp_span, bp4_cuda.bp4_span
     peel = peel_cuda.peel_fixpoint
@@ -1379,17 +1431,22 @@ def read_counts():
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
                 "osd_cs_fused_cluster": osd.cluster_launches,
-                "bp4_span": span4.launches, "peel": peel.launches}
+                "bp4_span": span4.launches, "peel": peel.launches,
+                "peel_decide": peel.decide_launches}
     plain = {"bp_span": span.plain_calls, "cn_update": cn.plain_calls,
              "gauss_jordan_key": gj.plain_calls, "osd_cs_fused": osd.plain_calls,
-             "bp4_span": span4.plain_calls, "peel": peel.plain_calls}
+             "bp4_span": span4.plain_calls, "peel": peel.plain_calls,
+             "vn_set_values": decimation.vn_set_values.card_calls}
     return launches, plain
 
 
 def check_kernels(name, launches, plain, kernels):
-    """Every kernel in ``kernels`` launched, no other one, no plain call."""
-    ran = {k for k, v in launches.items() if v}
-    if ran != set(kernels) or any(plain.values()):
+    """Every kernel in ``kernels`` launched, no other one, no plain call and
+    no ``vn_set_values`` torch op on the card; every peel launch took its
+    decision (the decoders decide and peel in one launch)."""
+    ran = {k for k, v in launches.items() if v and k != "peel_decide"}
+    if (ran != set(kernels) or any(plain.values())
+            or launches["peel_decide"] != launches["peel"]):
         raise SystemExit(f"{name} did not run on its kernels {kernels}: {launches} {plain}")
 
 
@@ -3404,11 +3461,13 @@ def main() -> int:
          "launches": sum(by_path["osd_cs_fused_cluster"].values()),
          **gj_cluster["osd_cs_fused_cluster"]},
         {"name": "peel", "route": "cuda", "source": peel_src,
-         "replaces": "no Pallas kernel: the XLA lax.while_loop of ops/decimation.py:79 (peel) "
+         "replaces": "no Pallas kernel: the XLA ops/decimation.py:42 (vn_set_values) and :198 "
+                     "(vn_set_values_t), fused under jit with the lax.while_loop of :79 (peel) "
                      "and :231 (peel_t), JAX package",
          "launches": sum(by_path["peel"].values()),
-         **{k: v for k, v in peel["GDG ensemble peel_t"].items()
-            if k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+         "decide_launches": sum(by_path["peel_decide"].values()),
+         **{k: v for k, v in peel["GDG ensemble aggressive"].items()
+            if k in ("ms", "pair_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
          "max_abs_err": 0, "cases": peel},
     ]
     for k in kernels:

@@ -12,10 +12,12 @@ The carry is the JAX package's: slot-major messages [dc, m_pad, B] in the
 message dtype and history [n, 4, B] across the bursts, the decimation
 state batch-major ([B, n] / [B, m]). Each burst is one masked ``bp_run``
 call with a 1-D prior, so on the card one launch of the pinned fused
-kernel ``csrc/bp_span.cu``. The step loops run on the host: one read per
-step of whether every row has halted, and one per peel sweep
-(``ops.decimation.peel``). A halted row is frozen, so the step count a
-bucket runs changes no output.
+kernel ``csrc/bp_span.cu``; each decision with its peel is one
+``ops.decimation.set_index_and_peel`` call (on the card one launch of
+``csrc/peel.cu``). The step loops run on the host: one read per step of
+whether every row has halted (on CPU tensors also one per peel sweep).
+A halted row is frozen, so the step count a bucket runs changes no
+output.
 
 Two forms, as in the JAX package: ``mode="loop"`` walks sorted buckets of
 the pre-BP survivors (``bpgd_loop`` on each), ``mode="spans"`` walks the
@@ -38,7 +40,7 @@ import torch
 
 from ..graphs.tanner import compile_graph, graph_tensors
 from ..ops.bp import bp_init_messages_sm, bp_run, decode_bp, msg_torch_dtype
-from ..ops.decimation import init_decimation_state, peel, vn_set_values
+from ..ops.decimation import init_decimation_state, set_index_and_peel, set_values_and_peel
 from ..utils.device import resolve_device
 from .base import DecodeResult, as_batch, pad_pow2
 from .bposd import _divisor_bucket
@@ -76,11 +78,8 @@ def _bpgd_step(garr, llr, syndrome, c, *, num_iter, alpha, clip, msg_dtype):
     value = (post.gather(1, vn[:, None])[:, 0] <= 0.0).to(torch.int8)
     halted = halted | (active & ~has)
     do_set = active & has
-    B, n = vn_state.shape
-    onehot = (torch.arange(n, device=vn.device)[None, :] == vn[:, None]) & do_set[:, None]
-    state = vn_set_values(garr, vn_state, c["cn"], c["deg"], c["dead"], onehot,
-                          value[:, None].expand(B, n))
-    vn_state, cn_state, cn_degree, dead = peel(garr, *state)
+    vn_state, cn_state, cn_degree, dead = set_index_and_peel(
+        garr, vn_state, c["cn"], c["deg"], c["dead"], vn, value, do_set)
     halted = halted | dead
     # decided values show in the running error, never for rows finished at
     # step entry (a boundary bucket may hold pre-converged rows whose error
@@ -265,9 +264,7 @@ class BPGD:
             rank_pos = torch.empty((b, n), dtype=torch.int32, device=synds.device)
             rank_pos.scatter_(1, order, torch.arange(n, dtype=torch.int32,
                                                      device=synds.device).expand(b, n))
-            state = vn_set_values(self.garr, *state, rank_pos >= self.new_n,
-                                  torch.zeros((b, n), dtype=torch.int8, device=synds.device))
-            state = peel(self.garr, *state)
+            state = set_values_and_peel(self.garr, *state, rank_pos >= self.new_n)
         return state
 
     def core(self, synds):

@@ -19,8 +19,9 @@ bf16: each write rounds the f32 posterior once; every reader takes f32
 images), VN arrays [n, BN], CN arrays [m_pad, BN]
 with inert pad rows. Each decimation step is one masked ``bp_run`` burst
 (on the card one launch of the pinned fused kernel ``csrc/bp_span.cu``),
-the select and aggressive decimation, the guess, two peels (on the card
-each one launch of ``csrc/peel.cu``) and the side-branch message reinit.
+the select, the aggressive decimation and its peel, the guess and its
+peel (on the card each decision with its peel one launch of
+``csrc/peel.cu``) and the side-branch message reinit.
 The JAX package's default "fused" form (``gdg_ensemble``) runs all
 ``D_max`` steps with no host read between the first and the reduce (or,
 with ``early_exit``, reads one flag a step: whether any column is
@@ -71,12 +72,12 @@ from ..ops.bp import (
 )
 from ..ops.decimation import (
     init_decimation_state,
-    peel,
-    peel_t,
+    set_index_and_peel,
+    set_index_and_peel_t,
+    set_values_and_peel,
+    set_values_and_peel_t,
     unsatisfied_counts,
     unsatisfied_counts_t,
-    vn_set_values,
-    vn_set_values_t,
 )
 from ..utils.device import resolve_device
 from .base import DecodeResult, as_batch, pad_pow2
@@ -242,9 +243,8 @@ def _select_and_decimate(
     guess_vn = torch.where(has_neg, vn_neg, vn_any)
     favor = torch.where(has_neg, True, kmin_any[:, 0] <= 0.0).to(torch.int8)
 
-    vn_state, cn_state, cn_degree, dead = vn_set_values(
-        garr, vn_state, cn_state, cn_degree, dead, agg, mA.to(torch.int8))
-    vn_state, cn_state, cn_degree, dead = peel(garr, vn_state, cn_state, cn_degree, dead)
+    vn_state, cn_state, cn_degree, dead = set_values_and_peel(
+        garr, vn_state, cn_state, cn_degree, dead, agg, mA)
     return vn_state, cn_state, cn_degree, dead, guess_vn, favor, has_neg | has_any
 
 
@@ -306,9 +306,7 @@ def _select_and_decimate_t(
     guess_vn = torch.where(has_neg, vn_neg, vn_any)
     favor = torch.where(has_neg, True, kmin_any[0] <= 0.0).to(torch.int8)
 
-    vn_t, cn_t, deg_t, dead = vn_set_values_t(garr, vn_t, cn_t, deg_t, dead, agg,
-                                              mA.to(torch.int8))
-    vn_t, cn_t, deg_t, dead = peel_t(garr, vn_t, cn_t, deg_t, dead)
+    vn_t, cn_t, deg_t, dead = set_values_and_peel_t(garr, vn_t, cn_t, deg_t, dead, agg, mA)
     return vn_t, cn_t, deg_t, dead, guess_vn, favor, has_neg | has_any
 
 
@@ -392,18 +390,14 @@ def _ensemble_step(garr, llr, synd, scan_rank, tt, reinit_any, d: int, carry, *,
     # the decision: the favored value, flipped where this branch flips
     value = favor ^ tt["flipT"][d].to(torch.int8)
     do_set = active & ~halted & ~dead
-    n, BN = vn.shape
-    rows = torch.arange(n, device=vn.device)[:, None]
-    onehot = (rows == guess_vn[None, :]) & do_set[None, :]
-    vn, cn, deg, dead = vn_set_values_t(garr, vn, cn, deg, dead, onehot,
-                                        value[None, :].expand(n, BN))
-    vn, cn, deg, dead = peel_t(garr, vn, cn, deg, dead)
+    vn, cn, deg, dead = set_index_and_peel_t(garr, vn, cn, deg, dead, guess_vn, value, do_set)
     halted = halted | dead
 
     # side branches restart their messages from the priors at their flip
     if reinit_any:
         re = tt["reinitT"][d] & do_set
-        mv = torch.where(re[None, None, :], bp_init_messages_sm(garr, llr, BN, msg_dtype), mv)
+        mv = torch.where(re[None, None, :],
+                         bp_init_messages_sm(garr, llr, vn.shape[1], msg_dtype), mv)
 
     # decided values show in the running error
     error = torch.where(vn != -1, vn, error)
@@ -689,7 +683,6 @@ def gdg_serial(
     G = max_guess
     dev = syndrome.device
     rows = torch.arange(B, device=dev)
-    vn_cols = torch.arange(n, device=dev)
     # the queues hold a trash slot G: a row that does not push writes there
     q_vn = torch.zeros((B, G + 1, n), dtype=torch.int8, device=dev)
     q_cn = torch.zeros((B, G + 1, m), dtype=torch.int8, device=dev)
@@ -710,10 +703,8 @@ def gdg_serial(
         return used + push.to(torch.int32)
 
     def decide_and_peel(vn_state, cn_state, cn_degree, dead, do_set, guess_vn, value):
-        onehot = (vn_cols[None, :] == guess_vn[:, None]) & do_set[:, None]
-        state = vn_set_values(garr, vn_state, cn_state, cn_degree, dead, onehot,
-                              value[:, None].expand(B, n))
-        return peel(garr, *state)
+        return set_index_and_peel(garr, vn_state, cn_state, cn_degree, dead, guess_vn, value,
+                                  do_set)
 
     def select(history, error, state, active, A: float, A_sum: float, c_allowed):
         def fill(x):
@@ -940,10 +931,7 @@ class GDG:
         rank_pos.scatter_(1, order, torch.arange(n, dtype=torch.int32,
                                                  device=synds.device).expand(b, n))
         if self.new_n < n:
-            drop = rank_pos >= self.new_n
-            state = vn_set_values(self.garr, *state, drop,
-                                  torch.zeros((b, n), dtype=torch.int8, device=synds.device))
-            state = peel(self.garr, *state)
+            state = set_values_and_peel(self.garr, *state, rank_pos >= self.new_n)
         return (*state, rank_pos)
 
     def core(self, synds):

@@ -22,7 +22,7 @@ import torch
 
 from ..graphs.tanner import compile_graph, graph_tensors
 from ..ops.bp import bp_init_messages_sm, bp_run, history_sum
-from ..ops.decimation import init_decimation_state, peel, vn_set_values
+from ..ops.decimation import init_decimation_state, set_values_and_peel
 from ..ops.gf2_solve import gf2_rank_packed, osd_decode
 from ..utils.device import resolve_device
 from .base import DecodeResult, decode_padded
@@ -41,9 +41,7 @@ def shorten(garr, synd, hist, new_n: int):
     drop = torch.zeros((b, n), dtype=torch.bool, device=dev)
     drop.scatter_(1, order[:, new_n:], True)
     state = init_decimation_state(garr, synd)
-    state = vn_set_values(garr, *state, drop, torch.zeros((b, n), dtype=torch.int8,
-                                                           device=dev))
-    vn, cn, _, dead = peel(garr, *state)
+    vn, cn, _, dead = set_values_and_peel(garr, *state, drop)
     return vn, cn, dead
 
 

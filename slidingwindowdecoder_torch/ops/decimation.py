@@ -16,13 +16,19 @@ State is batched ([B, n] / [B, m]) with values:
 
 All decisions of a sweep apply at once and conflicts set ``dead``; a dead
 branch's state is never used. Every op is integer arithmetic, so the
-results are bit-identical to the JAX package's. The JAX fixpoint loop
-(``lax.while_loop``) becomes, on the card, the hand-written kernel
-``csrc/peel.cu`` (``ops.peel_cuda``), which runs it with no host read; its
-plain version, run on CPU tensors, is a host loop that reads one scalar,
-whether another sweep is needed, once per sweep. The ``_t`` forms take
-their gathers slot by slot or in one packed pass where the JAX forms
-write whole per-edge arrays twice; the integers are the same.
+results are bit-identical to the JAX package's. The decoders decide and
+then peel (the JAX package's ``vn_set_values`` followed by its fixpoint
+loop ``lax.while_loop``, which XLA fuses): ``set_values_and_peel(_t)``
+takes the decision as a mask with values, ``set_index_and_peel(_t)`` as
+one VN index, value and do-set flag a column, and ``peel(_t)`` takes none.
+On the card each is one launch of the hand-written kernel ``csrc/peel.cu``
+(``ops.peel_cuda``), with no host read; their plain versions, run on CPU
+tensors, are ``vn_set_values(_t)`` and a host loop that reads one scalar,
+whether another sweep is needed, once per sweep. ``vn_set_values.card_calls``
+counts the calls of ``vn_set_values(_t)``'s torch ops on a card's tensors,
+which no decoding path makes. The ``_t`` forms take their gathers slot by
+slot or in one packed pass where the JAX forms write whole per-edge arrays
+twice; the integers are the same.
 
 The transposed (batch-minor) ``_t`` forms are those of the GDG ensemble:
 VN arrays [n, B], CN arrays [m_pad, B] whose pad rows are inert (state -1,
@@ -50,9 +56,15 @@ def init_decimation_state(garr, syndrome):
     return vn_state, cn_state, cn_degree, dead
 
 
+def _count_card_call(x):
+    if x.device.type != "cpu":
+        vn_set_values.card_calls += 1
+
+
 def vn_set_values(garr, vn_state, cn_state, cn_degree, dead, set_mask, values):
     """Decide a set of VNs at once (``values``: [B, n] 0/1, applied where
     ``set_mask``). Returns updated (vn_state, cn_state, cn_degree, dead)."""
+    _count_card_call(vn_state)
     values = values.to(torch.int8)
 
     # conflicts on already-decided VNs
@@ -78,6 +90,9 @@ def vn_set_values(garr, vn_state, cn_state, cn_degree, dead, set_mask, values):
     dead = dead | contradiction.any(dim=-1)
     cn_state = new_parity.masked_fill(hit_zero & (new_parity == 0), -1)
     return vn_state, cn_state, new_degree, dead
+
+
+vn_set_values.card_calls = 0
 
 
 def _sweep(garr, vn_state, cn_state, cn_degree, dead):
@@ -106,10 +121,30 @@ def peel(garr, vn_state, cn_state, cn_degree, dead, max_sweeps: int | None = Non
     One sweep, then another while a live shot forced a VN in the last one,
     at most ``max_sweeps`` in all (None: to the fixpoint; each productive
     sweep decides at least one VN, so the loop ends). On CUDA tensors one
-    call of ``csrc/peel.cu`` (``ops.peel_cuda.peel_fixpoint``, no host
-    read); on CPU tensors the plain loop ``_peel_loop``.
+    launch of ``csrc/peel.cu`` with no decision (``ops.peel_cuda.
+    peel_fixpoint``, no host read); on CPU tensors the plain loop
+    ``_peel_loop``.
     """
     return _peel(garr, (vn_state, cn_state, cn_degree, dead), False, max_sweeps)
+
+
+def set_values_and_peel(garr, vn_state, cn_state, cn_degree, dead, set_mask, values=None,
+                        max_sweeps: int | None = None):
+    """``vn_set_values`` (``values`` None: all 0) and then ``peel``, the
+    pair the JAX decoders run: on CUDA tensors one launch of
+    ``csrc/peel.cu``; on CPU tensors the plain pair."""
+    return _peel(garr, (vn_state, cn_state, cn_degree, dead), False, max_sweeps,
+                 set_mask=set_mask, values=values)
+
+
+def set_index_and_peel(garr, vn_state, cn_state, cn_degree, dead, index, value, do_set,
+                       max_sweeps: int | None = None):
+    """``set_values_and_peel`` of one VN a row: row b sets VN ``index[b]``
+    to ``value[b]`` where ``do_set[b]`` (the JAX decoders' one-hot ``(VN
+    == index) & do_set`` with ``value`` broadcast; an index outside [0, n)
+    sets nothing). ``index``, ``value``, ``do_set``: [B]."""
+    return _peel(garr, (vn_state, cn_state, cn_degree, dead), False, max_sweeps,
+                 index=index, value=value, do_set=do_set)
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +194,7 @@ def vn_set_values_t(garr, vn_t, cn_t, deg_t, dead, set_mask_t, values_t):
     integers, one pass over the edges instead of two."""
     if garr["dc"] > 63:
         raise ValueError(f"check degree {garr['dc']} > 63: the packed count overflows")
+    _count_card_call(vn_t)
     values_t = values_t.to(torch.int8)
     already = set_mask_t & (vn_t != -1)
     conflict = already & (vn_t != values_t)
@@ -210,14 +246,51 @@ def peel_t(garr, vn_t, cn_t, deg_t, dead, max_sweeps: int | None = None):
     return _peel(garr, (vn_t, cn_t, deg_t, dead), True, max_sweeps)
 
 
-def _peel(garr, state, transposed: bool, max_sweeps):
-    """``peel`` / ``peel_t``: the kernel on a card's tensors (it raises on
-    any device but the CPU and a card), the plain loop on CPU tensors."""
+def set_values_and_peel_t(garr, vn_t, cn_t, deg_t, dead, set_mask, values=None,
+                          max_sweeps: int | None = None):
+    """Transposed ``set_values_and_peel``: ``vn_set_values_t`` (``set_mask``
+    and ``values`` [n, B]; None: all 0) and then ``peel_t``."""
+    return _peel(garr, (vn_t, cn_t, deg_t, dead), True, max_sweeps,
+                 set_mask=set_mask, values=values)
+
+
+def set_index_and_peel_t(garr, vn_t, cn_t, deg_t, dead, index, value, do_set,
+                         max_sweeps: int | None = None):
+    """Transposed ``set_index_and_peel``: column b sets VN ``index[b]`` to
+    ``value[b]`` where ``do_set[b]``, then ``peel_t``."""
+    return _peel(garr, (vn_t, cn_t, deg_t, dead), True, max_sweeps,
+                 index=index, value=value, do_set=do_set)
+
+
+def _peel(garr, state, transposed: bool, max_sweeps, **decision):
+    """The decision (a mask with values, an index with value and do-set,
+    or none) and the peel: the kernel on a card's tensors (it raises on any
+    device but the CPU and a card), the plain pair on CPU tensors."""
     if state[0].device.type != "cpu":
         return peel_cuda.peel_fixpoint(garr, *state, transposed=transposed,
-                                       max_sweeps=max_sweeps)
+                                       max_sweeps=max_sweeps, **decision)
     peel_cuda.peel_fixpoint.plain_calls += 1
+    if decision:
+        state = _plain_decision(garr, state, transposed, **decision)
     return _peel_loop(garr, *state, max_sweeps, transposed=transposed)
+
+
+def _plain_decision(garr, state, transposed: bool, set_mask=None, values=None, index=None,
+                    value=None, do_set=None):
+    """The plain version of the kernel's decision: ``vn_set_values(_t)`` of
+    the mask (values None: 0), or of the one-hot of ``index``."""
+    vn = state[0]
+    if index is not None:
+        vns = torch.arange(garr["n"], device=vn.device)
+        if transposed:
+            set_mask = (vns[:, None] == index[None, :]) & do_set[None, :]
+            values = value[None, :].expand(vn.shape)
+        else:
+            set_mask = (vns[None, :] == index[:, None]) & do_set[:, None]
+            values = value[:, None].expand(vn.shape)
+    elif values is None:
+        values = torch.zeros_like(vn)
+    return (vn_set_values_t if transposed else vn_set_values)(garr, *state, set_mask, values)
 
 
 def _peel_loop(garr, vn, cn, deg, dead, max_sweeps=None, *, transposed: bool = False):

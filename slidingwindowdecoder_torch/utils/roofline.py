@@ -24,10 +24,11 @@ writes the history ring at every iteration that records history. Only the
 ring's writes grow with the iterations; the operations grow with every
 shot-iteration run (``span_bound``, ``bp_iteration_model``). The fused BP4
 kernel (``csrc/bp4_span.cu``) is bound the same way (``bp4_span_bound``):
-its messages stay in shared memory for the call. The peel kernel
-(``csrc/peel.cu``) keeps each column's decimation state in shared memory
-for all its sweeps, so its traffic is one read and one write of the state
-(``peel_bound``).
+its messages stay in shared memory for the call. The decide-and-peel
+kernel (``csrc/peel.cu``) keeps each column's decimation state in shared
+memory for its decision and all its sweeps, so its traffic is one read and
+one write of the state (``peel_bound``) and one read of the decision
+(``decide_peel_bound``).
 """
 
 from __future__ import annotations
@@ -171,6 +172,32 @@ def peel_bound(*, n: int, m: int, B: int, dc: int, dv: int, column_sweeps: int) 
     """
     ops = column_sweeps * 2 * m
     nbytes = 2 * B * (n + 5 * m + 1) + 4 * (m * dc + n * dv)
+    ops_ms = ops / H100["int32_ops_per_s"] * 1e3
+    bytes_ms = nbytes / H100["hbm_bytes_per_s"] * 1e3
+    return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def decide_peel_bound(*, n: int, m: int, B: int, dc: int, dv: int, column_sweeps: int,
+                      decision: str | None) -> dict:
+    """The bound of one decide-and-peel call (``csrc/peel.cu``): ``peel_bound``'s
+    bytes and operations, plus the decision read once and tested: "mask"
+    (the mask in the VN layout, n bytes a column, and one operation a VN),
+    "mask+values" (the values' n bytes too), "index" (a VN index, a value
+    and a do-set flag: 10 bytes a column) or None (the plain peel).
+
+    Returns {"ops", "bytes", "ops_ms", "bytes_ms", "bound_ms", "bound_by"}.
+    """
+    b = peel_bound(n=n, m=m, B=B, dc=dc, dv=dv, column_sweeps=column_sweeps)
+    ops, nbytes = b["ops"], b["bytes"]
+    if decision == "index":  # int64 index, value and do-set bytes
+        nbytes += B * 10
+    elif decision in ("mask", "mask+values"):
+        ops += B * n
+        nbytes += B * n * (2 if decision == "mask+values" else 1)
+    elif decision is not None:
+        raise ValueError(f"unknown decision {decision!r}")
     ops_ms = ops / H100["int32_ops_per_s"] * 1e3
     bytes_ms = nbytes / H100["hbm_bytes_per_s"] * 1e3
     return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,

@@ -593,7 +593,9 @@ def _cc_inputs(p, shots, seed):
 
 
 def _launches():
-    from slidingwindowdecoder_torch.ops import bp_cuda, gf2_cuda
+    """Launch counts, and ``vn_set_values``' torch ops on the card (which
+    every decimating path now leaves to the decide-and-peel kernel)."""
+    from slidingwindowdecoder_torch.ops import bp_cuda, decimation, gf2_cuda
 
     span, cn = bp_cuda.bp_span, bp_cuda.cn_update
     return {"bp_span": span.launches, "bp_span_pinned": span.pinned_launches,
@@ -601,7 +603,8 @@ def _launches():
             "gauss_jordan_key": gf2_cuda.gauss_jordan_key.launches,
             "osd_cs_fused": gf2_cuda.osd_cs_fused.launches,
             "cluster": gf2_cuda.gauss_jordan_key.cluster_launches
-            + gf2_cuda.osd_cs_fused.cluster_launches}
+            + gf2_cuda.osd_cs_fused.cluster_launches,
+            "vn_set_values": decimation.vn_set_values.card_calls}
 
 
 @pytest.mark.parametrize("mode", ["loop", "spans"])
@@ -641,7 +644,8 @@ def test_gdg_spans_card_matches_cpu(card):
     rc = GDG(code.hx, probs, device=card, **kw).decode_batch(synds)
     ran = {k: v - before[k] for k, v in _launches().items()}
     assert ran["bp_span"] == 1 and ran["bp_span_pinned"] > 0
-    assert not (ran["cn_update"] or ran["gauss_jordan_key"] or ran["osd_cs_fused"])
+    assert not (ran["cn_update"] or ran["gauss_jordan_key"] or ran["osd_cs_fused"]
+                or ran["vn_set_values"])
     rp = GDG(code.hx, probs, device="cpu", **kw).decode_batch(synds)
     for k in ("error", "converged", "iterations", "min_pm"):
         np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)
@@ -662,7 +666,8 @@ def test_gdg_serial_card_matches_cpu(card):
     rc = GDG(code.hx, probs, device=card, **kw).decode_batch(synds)
     ran = {k: v - before[k] for k, v in _launches().items()}
     assert ran["bp_span"] == 1 and ran["bp_span_pinned"] > 0
-    assert not (ran["cn_update"] or ran["gauss_jordan_key"] or ran["osd_cs_fused"])
+    assert not (ran["cn_update"] or ran["gauss_jordan_key"] or ran["osd_cs_fused"]
+                or ran["vn_set_values"])
     rp = GDG(code.hx, probs, device="cpu", **kw).decode_batch(synds)
     assert (rp.iterations > kw["max_iter"]).sum() >= 16
     for k in ("error", "converged", "iterations", "min_pm"):
@@ -888,3 +893,161 @@ def test_gdg_fused_card_matches_cpu_without_a_sync(card):
     rp = GDG(code.hx, probs, device="cpu", **kw).decode_batch(synds)
     for k in ("error", "converged", "iterations", "min_pm"):
         np.testing.assert_array_equal(getattr(rc, k), getattr(rp, k), err_msg=k)
+
+
+def _decide_case(rng, H, B, transposed, dev, form):
+    """(garr, state, decision) on ``dev``: a state in mid-decimation (the
+    ``_peel_states`` kind, a third of the VNs decided, a fifth of the
+    columns dead) and a decision of ``form``: "mask" (half the VNs, decided
+    ones included, random values: conflicts and contradictions), "zeros"
+    (the mask with values None) or "index" (one VN a column, decided or
+    not, some out of range, do-set off on some)."""
+    garr, st = _peel_states(rng, H, B, transposed, dev)
+    m, n = H.shape
+    vn = st[0].T if transposed else st[0]
+    if form == "index":
+        index = torch.as_tensor(rng.integers(0, n + 2, B), device=dev)
+        value = torch.as_tensor(rng.integers(0, 2, B).astype(np.int8), device=dev)
+        do_set = torch.as_tensor(rng.random(B) < 0.8, device=dev)
+        return garr, st, dict(index=index, value=value, do_set=do_set)
+    mask = torch.as_tensor(rng.random(tuple(vn.shape)) < 0.5, device=dev)
+    vals = torch.as_tensor(rng.integers(0, 2, tuple(vn.shape)).astype(np.int8), device=dev)
+    if transposed:
+        mask, vals = mask.T.contiguous(), vals.T.contiguous()
+    return garr, st, dict(set_mask=mask, values=None if form == "zeros" else vals)
+
+
+def _decide_plain(garr, st, transposed, max_sweeps, decision):
+    """The plain pair on the same device: ``vn_set_values(_t)`` of the
+    decision, then the plain peel loop."""
+    from slidingwindowdecoder_torch.ops import decimation as dec
+
+    st = dec._plain_decision(garr, st, transposed, **decision)
+    return dec._peel_loop(garr, *st, max_sweeps, transposed=transposed)
+
+
+@pytest.mark.parametrize("B", [301, 320])
+@pytest.mark.parametrize("max_sweeps", [None, 2])
+@pytest.mark.parametrize("form", ["mask", "zeros", "index"])
+@pytest.mark.parametrize("transposed", [False, True], ids=["batch_major", "transposed"])
+def test_decide_and_peel_kernel_matches_plain(card, transposed, form, max_sweeps, B):
+    """``csrc/peel.cu``'s decide-and-peel launch against the plain pair on
+    the same inputs on the card, bit for bit, in both layouts and both
+    decision forms, on a [[72]] window PCM with 301 columns (not a
+    multiple of a block's columns, nor of 4: the transposed tile's
+    byte-wise loads) and 320 (its 4-column word loads): one launch a
+    call, with a decision, and no torch op of ``vn_set_values`` on the
+    card."""
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.ops import decimation as dec
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    _, _, _, plan = build_bb_window_experiment(72, 0.01, 3, 2, 1)
+    rng = np.random.default_rng(23)
+    garr, st, decision = _decide_case(rng, plan.windows[0].mat, B, transposed, card, form)
+    fn = {(False, True): dec.set_values_and_peel, (True, True): dec.set_values_and_peel_t,
+          (False, False): dec.set_index_and_peel, (True, False): dec.set_index_and_peel_t}[
+        transposed, form != "index"]
+    fp = peel_cuda.peel_fixpoint
+    before = fp.launches, fp.decide_launches, fp.plain_calls, dec.vn_set_values.card_calls
+    out = fn(garr, *st, **decision, max_sweeps=max_sweeps)
+    assert (fp.launches, fp.decide_launches, fp.plain_calls,
+            dec.vn_set_values.card_calls) == (before[0] + 1, before[1] + 1, *before[2:])
+    ref = _decide_plain(garr, st, transposed, max_sweeps, decision)
+    for name, a, b in zip(("vn", "cn", "deg", "dead"), out, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert out[3].sum() > st[3].sum()
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["batch_major", "transposed"])
+def test_decide_and_peel_carries_paused_columns(card, transposed):
+    """The one-launch stop rule: 4096 copies of a path graph of 64 VNs,
+    the decision in the launch. One live column is decided at both ends
+    (31 forcing sweeps); every other column is dead and decided at one end,
+    so it pauses after its first sweep and the grid's warps must carry it
+    on to the live column's last sweep (32 in all) after the barrier; as
+    the plain pair does, and twice in a row (the scratch is left zeroed)."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops import decimation as dec
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    n, B = 64, 4096
+    H = np.zeros((n - 1, n), np.uint8)
+    H[np.arange(n - 1), np.arange(n - 1)] = H[np.arange(n - 1), np.arange(1, n)] = 1
+    garr = graph_tensors(compile_graph(H), card)
+    mask = torch.zeros((B, n), dtype=torch.bool, device=card)
+    mask[:, 0] = True
+    mask[B // 2, n - 1] = True
+    dead = torch.ones(B, dtype=torch.bool, device=card)
+    dead[B // 2] = False
+    synd = torch.zeros((B, n - 1), dtype=torch.uint8, device=card)
+    if transposed:
+        st = (*dec.init_decimation_state_t(garr, synd.T.contiguous())[:3], dead)
+        fn, mask = dec.set_values_and_peel_t, mask.T.contiguous()
+    else:
+        st = (*dec.init_decimation_state(garr, synd)[:3], dead)
+        fn = dec.set_values_and_peel
+    ref = _decide_plain(garr, st, transposed, None, dict(set_mask=mask))
+    for _ in range(2):
+        s0 = peel_cuda.sweep_stats(card).clone()
+        out = fn(garr, *st, mask)
+        sweeps, column_sweeps = (peel_cuda.sweep_stats(card) - s0).tolist()
+        assert sweeps == 32 and column_sweeps == 32 * B
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    vn = (out[0].T if transposed else out[0]).cpu().numpy()
+    np.testing.assert_array_equal(vn[0], [0] * 33 + [-1] * 31)
+    assert (vn[B // 2] == 0).all()
+
+
+def test_decide_and_peel_empty_batch(card):
+    """B = 0: empty outputs of the right shapes and dtypes, no launch."""
+    from slidingwindowdecoder_torch.harness.circuit_level import build_bb_window_experiment
+    from slidingwindowdecoder_torch.ops import decimation as dec
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    _, _, _, plan = build_bb_window_experiment(72, 0.01, 3, 2, 1)
+    garr, st = _peel_states(np.random.default_rng(3), plan.windows[0].mat, 0, True, card)
+    before = peel_cuda.peel_fixpoint.launches
+    z = torch.zeros(0, dtype=torch.int64, device=card)
+    out = dec.set_index_and_peel_t(garr, *st, z, z.to(torch.int8), z.bool())
+    assert peel_cuda.peel_fixpoint.launches == before
+    for a, b in zip(out, st):
+        assert a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+
+
+def test_decide_and_peel_refuses_cpu_and_oversized_graphs(card):
+    """The wrapper launches the kernel or raises: on CPU tensors, and on a
+    graph one column of whose state exceeds shared memory."""
+    from slidingwindowdecoder_torch.ops import peel_cuda
+
+    def state(n, m, B, dev):
+        return (torch.full((B, n), -1, dtype=torch.int8, device=dev),
+                torch.zeros((B, m), dtype=torch.int8, device=dev),
+                torch.zeros((B, m), dtype=torch.int32, device=dev),
+                torch.zeros(B, dtype=torch.bool, device=dev))
+
+    garr = {"n": 6, "m": 3, "m_pad": 8, "dc": 2, "dv": 1}
+    with pytest.raises(ValueError, match="unsupported device"):
+        peel_cuda.peel_fixpoint(garr, *state(6, 3, 4, "cpu"), transposed=False)
+    big = {"n": 100_000, "m": 50_000, "m_pad": 50_008, "dc": 4, "dv": 2}
+    with pytest.raises(ValueError, match="exceeds shared memory"):
+        peel_cuda.peel_fixpoint(big, *state(100_000, 50_000, 2, card), transposed=False,
+                                set_mask=torch.zeros((2, 100_000), dtype=torch.bool,
+                                                     device=card))
+
+
+def test_peel_smem_layout_matches_kernel(card):
+    """The wrapper's shared-memory size of a column equals the kernel's
+    ``make_layout``, at the paths' shapes and odd ones."""
+    import ctypes
+
+    from slidingwindowdecoder_torch.ops import peel_cuda
+    from slidingwindowdecoder_torch.utils import cuda_build
+
+    lib = cuda_build.load(peel_cuda.SOURCE)
+    fn = lib.peel_smem_per_column
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for n, rows in ((1656, 224), (1728, 224), (882, 441), (4896, 608), (64, 63), (7, 3)):
+        assert fn(n, rows) == peel_cuda.smem_per_column(n, rows)

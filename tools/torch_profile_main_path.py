@@ -21,15 +21,16 @@ share.
 
 ``bposd``: BP+OSD-CS-10 with the bench knobs and bf16 messages; stages
 phase A, phase B, OSD. ``osd_window``: the shortened ``OSDWindow`` decode
-(pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, the peels (one
-``csrc/peel.cu`` call each), post-BP buckets, OSD. Both at p=0.004 over
+(pre-BP 8, post-BP 200, OSD-CS-10, f32); stages pre-BP, the shortening's
+decide-and-peel (one ``csrc/peel.cu`` launch each), post-BP buckets, OSD. Both at p=0.004 over
 16384 shots. ``gdg``: the ``sliding_window_gdg`` decoder (pre-BP 8, the
 GDG defaults, f32) at p=0.005 over 8192 shots, its ensemble in the form
 ``--gdg-mode`` names ("fused", the default: every step of a bucket, no
 host read between; "host_loop": a flag read after each step); stages
-pre-BP, shortening, ensemble set-up, BP bursts, select and aggressive
-decimation, the guess's ``vn_set_values_t``, the transposed peels (one
-``csrc/peel.cu`` call each), reduce.
+pre-BP, shortening, ensemble set-up, BP bursts, the select (num_flip, the
+C/D/A masks, the guess's argmins), the decide-and-peel calls (the
+aggressive set's and the guess's, one ``csrc/peel.cu`` launch each),
+reduce.
 ``gdg_spans``: the same decoder with ``ensemble_mode="spans"`` (row buckets
 of 2048 at most, lane dormancy); its stages add the compaction's gathers.
 ``gdg_288_41``: the gdg-288-41 parity row's decoder ([[288,12,18]], 18
@@ -43,9 +44,9 @@ steps), so no device time or busy share.
 ``BPGD.core`` call on 65536 syndromes (the first batch that
 ``data_qubit_noise_decoding`` draws from seed 2024 at that batch size):
 no pre-BP, 12 masked iterations a step at ``gd_factor`` 0.8, max_step
-100, spans mode; stages the bursts, the decision's ``vn_set_values``, the
-peels (one ``csrc/peel.cu`` call each) and the rest (the argmax, the step's
-finished read, the compaction). ``global``: ``global_decoder``'s decoder
+100, spans mode; stages the bursts, the decide-and-peel calls (one
+``csrc/peel.cu`` launch each, the decision in it) and the rest (the
+argmax, the step's finished read, the compaction). ``global``: ``global_decoder``'s decoder
 (BP+OSD-CS-10 with the bench knobs and bf16 messages) on the whole [[144]]
 DEM (936x8784) at p=0.004, 16384 shots in two 8192-shot ``core`` calls as
 ``global_decoder`` chunks them; stages as ``bposd`` (BP runs the wide
@@ -95,6 +96,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SEED = 2024
 OSD_STAGE = "osd_decode (fused GJ + CS kernel)"
 BURST_STAGE = "ensemble bursts (masked bp_run, one bp_span_pinned launch each)"
+DECIDE_STAGE = "decide and peel (one peel.cu launch each, the decision in it)"
 PROFILED_GDG_SHOTS = 1024
 # the gdg-288-41 row (tools/torch_validate_circuit_level.py): experiment
 # (N, p, rounds, W, F), shots (one ensemble bucket a window) and GDG knobs
@@ -153,7 +155,7 @@ def main() -> int:
     from slidingwindowdecoder_torch.harness.code_capacity import parity_code, parity_decoder
     from slidingwindowdecoder_torch.harness import depolarizing
     from slidingwindowdecoder_torch.harness.depolarizing import sample_depolarizing
-    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, gf2_cuda, peel_cuda
+    from slidingwindowdecoder_torch.ops import bp4_cuda, bp_cuda, decimation, gf2_cuda, peel_cuda
     from slidingwindowdecoder_torch.windows.pipeline import decode_sliding_window
 
     gdg_paths = ("gdg", "gdg_spans", "gdg_288_41")
@@ -200,8 +202,7 @@ def main() -> int:
         ranged = BURST_STAGE
         patches = [
             (BPGD, "_shorten_state", lambda *a: "shortening (nothing to drop: new_n = n)"),
-            (bpgd, "vn_set_values", lambda *a: "vn_set_values (the decision)"),
-            (bpgd, "peel", lambda *a: "peel (one peel.cu call each)"),
+            (bpgd, "set_index_and_peel", lambda *a: DECIDE_STAGE),
             (bpgd, "bp_run", lambda *a, **k: BURST_STAGE),
         ]
     elif args.path in gdg_paths:
@@ -213,12 +214,12 @@ def main() -> int:
         patches = [
             (gdg, "_take_cols", lambda *a: "compaction and activation gathers"),
             (gdg, "decode_bp", lambda *a, **k: "pre-BP (whole batch, unmasked)"),
-            (GDG, "_shorten_state", lambda *a: "shortening (sort, vn_set_values, peel)"),
+            (GDG, "_shorten_state", lambda *a: "shortening (sort, decide and peel)"),
             (gdg, "_ensemble_init", lambda *a, **k: "ensemble set-up (tiling)"),
             (gdg, "_select_and_decimate_t",
-             lambda *a, **k: "select and aggressive decimation (num_flip, C/D/A, guess)"),
-            (gdg, "vn_set_values_t", lambda *a: "vn_set_values_t (aggressive set, guess)"),
-            (gdg, "peel_t", lambda *a, **k: "peel_t (one peel.cu call each)"),
+             lambda *a, **k: "select (num_flip, C/D/A masks, guess argmins)"),
+            (gdg, "set_values_and_peel_t", lambda *a, **k: DECIDE_STAGE),
+            (gdg, "set_index_and_peel_t", lambda *a, **k: DECIDE_STAGE),
             (gdg, "_ensemble_reduce", lambda *a: "reduce"),
             (gdg, "bp_run", lambda *a, **k: BURST_STAGE),
         ]
@@ -241,7 +242,7 @@ def main() -> int:
             (osd_window, "bp_run", lambda garr, mv, prior, synds, *_, **__: (
                 "pre-BP (full batch)" if synds.shape[0] == shots
                 else "post-BP (buckets)")),
-            (osd_window, "peel", lambda *a: "peel (one peel.cu call each)"),
+            (osd_window, "set_values_and_peel", lambda *a: DECIDE_STAGE),
             (osd_window, "osd_decode", lambda *a, **k: OSD_STAGE),
         ]
 
@@ -268,6 +269,7 @@ def main() -> int:
     peel = peel_cuda.peel_fixpoint
     for k in (cn, span, gj, osd, span4, peel):
         k.launches = 0
+    peel.decide_launches = decimation.vn_set_values.card_calls = 0
     cn.pinned_launches = span.pinned_launches = gj.cluster_launches = osd.cluster_launches = 0
     span.bf16_ring_launches = span.pinned_bf16_ring_launches = 0
     span.wide_launches = span.pinned_wide_launches = 0
@@ -284,7 +286,9 @@ def main() -> int:
                 "gauss_jordan_key": gj.launches, "osd_cs_fused": osd.launches,
                 "gauss_jordan_key_cluster": gj.cluster_launches,
                 "osd_cs_fused_cluster": osd.cluster_launches,
-                "bp4_span": span4.launches, "peel": peel.launches}
+                "bp4_span": span4.launches, "peel": peel.launches,
+                "peel_decide": peel.decide_launches,
+                "vn_set_values_on_the_card": decimation.vn_set_values.card_calls}
     n_sweeps, n_column_sweeps = sweep_stats.tolist()
 
     # per-stage wall time: wrap the decoder's stages with synchronizing
