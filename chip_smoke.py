@@ -401,6 +401,49 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def span_copy(args):
+    """``args`` of a ``bp_span`` call with fresh copies of the tensors it
+    writes in place (ring, error, done, iterations, and the messages where
+    the caller owns their storage), each in its caller's layout. Broadcast
+    messages (fresh ones, a view of the prior) stay the caller's view, so
+    the copy the wrapper makes of them is part of a timed call, as on the
+    paths."""
+    from slidingwindowdecoder_torch.ops.bp import is_column_major
+
+    a = list(args)
+    for i in (6, 7, 8, 9):
+        a[i] = a[i].clone()
+    mv = args[1]
+    if mv.is_contiguous() or is_column_major(mv):
+        a[1] = mv.clone()  # keeps its strides
+    return tuple(a)
+
+
+def fresh_time_ms(args, fn, reps: int) -> float:
+    """Mean device time of ``fn(span_copy(args))`` over ``reps`` calls, each
+    on fresh copies made outside the timed events (the fused kernel writes
+    its inputs in place; the wrapper's copy of broadcast messages is
+    inside them), after a warm-up; a sleep on the card (~1 ms)
+    before each start event keeps the host's enqueue of the launch out of
+    the time."""
+    import torch
+
+    fn(span_copy(args))
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        a = span_copy(args)
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(a)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -939,12 +982,59 @@ def _span_diff(label, out, ref):
     return err
 
 
+# each [bp_span] case's time in the kernel's copying form (every column
+# loaded and stored, new outputs, messages shot-fastest), as this script
+# measured it on an "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md's kernel
+# table), logged beside this run's in-place one
+COPYING_FORM_MS = {
+    'masked f32 B=512': 2.1404,
+    'unmasked bf16 B=1024': 0.9841,
+    'GDG burst masked f32 B=11264': 2.0818,
+    'BPGD burst masked f32 B=2048': 0.3472,
+    '144-w4 288x2376 float32 B=16384, 24 iterations': 11.5141,
+    '144-w4 288x2376 float32 B=512, 48 iterations': 0.8325,
+    '144-w4 288x2376 float32 B=512, 128 iterations': 2.0348,
+    '144-w4 288x2448 float32 B=16384, 24 iterations': 11.8775,
+    '144-w4 288x2448 float32 B=512, 48 iterations': 0.8312,
+    '144-w4 288x2448 float32 B=512, 128 iterations': 2.111,
+    '144-w5 360x3096 float32 B=16384, 24 iterations': 15.0428,
+    '144-w5 360x3096 float32 B=512, 48 iterations': 1.0128,
+    '144-w5 360x3096 float32 B=512, 128 iterations': 2.4759,
+    '144-w5 360x3168 float32 B=16384, 24 iterations': 15.3858,
+    '144-w5 360x3168 float32 B=512, 48 iterations': 1.0227,
+    '144-w5 360x3168 float32 B=512, 128 iterations': 2.5234,
+    '288-w4 576x4752 float32 B=16384, 24 iterations': 28.5484,
+    '288-w4 576x4752 float32 B=512, 48 iterations': 1.6549,
+    '288-w4 576x4752 float32 B=512, 48 iterations, wide route forced': 1.8584,
+    '288-w4 576x4752 float32 B=512, 128 iterations': 4.1447,
+    '288-w4 576x4896 float32 B=16384, 24 iterations': 31.5255,
+    '288-w4 576x4896 float32 B=512, 48 iterations': 1.9681,
+    '288-w4 576x4896 float32 B=512, 128 iterations': 4.9111,
+    'global bposd 936x8784 bfloat16 B=8192, 16 iterations': 19.7628,
+    'global bposd 936x8784 bfloat16 B=1024, 48 iterations': 5.747,
+    'global bposd 936x8784 bfloat16 B=1024, 136 iterations': 18.8581,
+    'global shortened 936x8784 float32 pinned B=8192, 8 iterations': 19.9861,
+    'global shortened 936x8784 float32 pinned B=512, 200 iterations': 5.3647,
+    'gdg_wide pre-BP 576x4752 bfloat16 B=512, 16 iterations': 1.1308,
+    'gdg_wide pre-BP 576x4896 bfloat16 B=512, 16 iterations': 1.1944,
+    'GDG burst 216x1656 masked bf16 B=1408': 0.4381,
+    'GDG burst 216x1728 masked bf16 B=1408': 0.4678,
+    'GDG burst 576x4752 masked bf16 B=1504': 1.6012,
+    'GDG burst 576x4896 masked bf16 B=1504': 1.5565,
+    'pre-BP unmasked bf16 B=8192, 8 iterations, bf16 ring': 1.7288,
+}
+
+
 def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = None,
                ring_times: bool = True, route: str | None = None):
-    """One ``bp_span`` input on the card (on the table route ``span_route``
-    names, or on ``route``) against the plain loop on the CPU
-    (``_span_diff``; over the first ``cpu_shots`` shots where given: BP is
-    per shot), then its time, the per-op CUDA loop's time (its CN stage
+    """One ``bp_span`` input on the card, on the table route ``span_route``
+    names (or on ``route``), against the plain loop on the CPU (``_span_diff``;
+    over the first ``cpu_shots`` shots where given: BP is per shot). The
+    shared-table route runs in place, as the decoders call it (a copy of the
+    inputs each launch), against
+    ``bp_loop(keep_done=True)``, and must leave the columns done at entry
+    untouched; the wide route runs its copying form. Then its time (beside
+    the copying form's, ``COPYING_FORM_MS``), the per-op CUDA loop's time (its CN stage
     kernel A) and the bound (the ring's writes counted at its element
     size); with ``ring_times`` also its time with the history ring written
     at every iteration and at none; with a bf16 ring also its time and
@@ -957,13 +1047,14 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     garr, mv = args[0], args[1]
     masked = kw["masked"]
     B, n, dc, m_pad, dv = mv.shape[2], garr["n"], garr["dc"], garr["m_pad"], garr["dv"]
-    # the card's calls (the CPU's run bp_span's plain loop)
-    span = bp_cuda.bp_span if route is None else functools.partial(bp_cuda._launch_span, route)
     route = route or bp_cuda.span_route(garr, B, mv.dtype)
-    counter = f"{'pinned_' if masked else ''}{'wide_' if route == bp_cuda.WIDE else ''}launches"
+    shared = route == bp_cuda.SHARED
+    counter = f"{'pinned_' if masked else ''}{'wide_' if not shared else ''}launches"
+    def span(*a, **k):  # the card's calls (the CPU's run bp_span's plain loop)
+        return bp_cuda._launch_span(route, *a, **k, inplace=shared)
 
-    def inputs(dev, k=None):  # the history ring is written in place: a copy each
-        a = [t.to(dev) if torch.is_tensor(t) else t for t in args[1:]]
+    def inputs(dev, k=None):  # a copy each: the ring, and in place the rest, are written
+        a = [t.to(dev, copy=True) if torch.is_tensor(t) else t for t in args[1:]]
         if k is not None:  # the first k shots
             mv_, prior, parity, synd_t, vn, hist, error, done, iters = a
             a = [x if x is None else x.contiguous() for x in (
@@ -974,20 +1065,32 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
         return (cpu_garr if dev == "cpu" else garr, *a)
 
     card_args = inputs("cuda")
+    mine = span_copy(card_args)
     before = getattr(bp_cuda.bp_span, counter)
-    out = [x.cpu() for x in span(*card_args, **kw)]
+    out = [x.cpu() for x in span(*mine, **kw)]
     torch.cuda.synchronize()
     if getattr(bp_cuda.bp_span, counter) != before + 1:
         raise SystemExit(f"[bp_span] {label}: the kernel was not launched once")
+    done0 = args[8].cpu()
+    if shared:  # in place: the columns done at entry keep every byte
+        kept = [(out[0][:, :, done0], card_args[1][:, :, done0.to(mv.device)].cpu()),
+                (out[2][done0], card_args[7][done0.to(mv.device)].cpu()),
+                (out[4][done0], card_args[9][done0.to(mv.device)].cpu())]
+        if not all(torch.equal(x, y) for x, y in kept):
+            raise SystemExit(f"[bp_span] {label}: the in-place launch wrote a column done at "
+                             f"entry")
     t0 = time.perf_counter()
-    ref = bp_cuda.bp_span(*inputs("cpu", cpu_shots), **kw)  # CPU: the plain loop
+    ref = bp_cuda.bp_span(*inputs("cpu", cpu_shots), **kw, inplace=shared)  # the plain loop
     cpu_s = time.perf_counter() - t0
     k = B if cpu_shots is None else cpu_shots
     head = [out[0][:, :, :k], out[1][:, :, :k], *(x[:k] for x in out[2:5]),
             *(x[:, :k] for x in out[5:])]
     err = _span_diff(label if k == B else f"{label}, first {k} shots", head, ref)
 
-    ms = cuda_time_ms(lambda: span(*card_args, **kw), reps)
+    if shared:
+        ms = fresh_time_ms(card_args, lambda a: span(*a, **kw), reps)
+    else:
+        ms = cuda_time_ms(lambda: span(*card_args, **kw), reps)
     plain_ms = cuda_time_ms(lambda: bp_loop(*card_args, **kw), 2)  # per-op loop
     ran = out[4] - args[9].cpu()  # iterations each shot ran in this call
     shot_iters, longest = int(ran.sum()), int(ran.max())
@@ -1010,16 +1113,25 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     smem = shot_iters * (edges * (6 * t + 2) + n * dv * (t + 2) + n * (4 + t) + 6 * m_pad)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     S = bp_cuda.shots_per_block(garr, B, mv.dtype, sms, route)
+    shape = (f"{S} columns x {bp_cuda.MAX_THREADS // S * S} threads per block, "
+             f"{-(-B // S)} blocks, {bp_cuda.span_smem_bytes(garr, mv.dtype, S, route)} B "
+             f"shared{', in place' if shared else ''}")
+    was = COPYING_FORM_MS.get(label)
     log(f"[bp_span] {label} ({route} route): {live} of {B} rows not done at entry, {shot_iters} "
         f"shot-iterations, longest {longest}; kernel "
-        f"{ms:.4f} ms ({ms / max(longest, 1):.5f} ms per iteration, {S} shots x "
-        f"{bp_cuda.MAX_THREADS // S * S} threads per block, {-(-B // S)} blocks, "
-        f"{bp_cuda.span_smem_bytes(garr, mv.dtype, S, route)} B shared), per-op loop {plain_ms:.4f} "
+        f"{ms:.4f} ms (copying form: {was if was is not None else 'no case'}; "
+        f"{ms / max(longest, 1):.5f} ms per iteration, {shape}), per-op loop {plain_ms:.4f} "
         f"ms, bound {max(ops_ms, bytes_ms):.5f} ms (ops {ops} -> {ops_ms:.5f} ms, bytes "
         f"{nbytes} -> {bytes_ms:.5f} ms), shared memory {smem / ms / 1e9:.1f} TB/s; CPU "
         f"plain {cpu_s:.1f}s")
+
+    def timed(a, **k):
+        if shared:
+            return fresh_time_ms(a, lambda x: span(*x, **k), reps)
+        return cuda_time_ms(lambda: span(*a, **k), reps)
+
     for hist_from in (0, kw["num_iter"]) if ring_times else ():  # always, or never
-        hist_ms = cuda_time_ms(lambda: span(*card_args, **{**kw, "hist_from": hist_from}), reps)
+        hist_ms = timed(card_args, **{**kw, "hist_from": hist_from})
         log(f"[bp_span] {label}: history from iteration {hist_from} -> {hist_ms:.4f} ms")
     res = {"table_route": route, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "max_abs_err": err,
@@ -1029,7 +1141,7 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
         f32_args = (*card_args[:6], card_args[6].float(), *card_args[7:])
         turns = {"bf16": [ms], "f32": []}
         for ring, a in (("f32", f32_args), ("bf16", card_args), ("f32", f32_args)):
-            turns[ring].append(cuda_time_ms(lambda: span(*a, **kw), reps))
+            turns[ring].append(timed(a, **kw))
         ms, f32_ms = (sum(turns[r]) / 2 for r in ("bf16", "f32"))
         f32_bytes_ms = (nbytes + 2 * hist_writes) / HBM_BYTES_PER_S * 1e3
         res.update(ms=ms, f32_ring_ms=f32_ms, f32_ring_bound_ms=max(ops_ms, f32_bytes_ms))
@@ -1040,23 +1152,30 @@ def _span_case(label, args, kw, cpu_garr, reps: int, cpu_shots: int | None = Non
     return res
 
 
-def phase_bp_span(plan, det):
-    """The fused kernel against the plain loop at every shape the paths
-    give it, on the window-0 syndromes of the seed-2024 samples (16384
-    shots). The two whole-batch calls (pre-BP: 8 masked f32 iterations;
-    phase A: 16 unmasked bf16 iterations) run on the card and their first
-    ``SLICE_SHOTS`` shots on the CPU (BP is per shot). Their outputs feed
-    the paths' long spans: the first 512 pre-BP survivors shortened as
-    ``OSDWindow`` does, then 200 masked f32 iterations; the first 1024
-    phase-A survivors, then a 48-iteration phase-B span, both with the
-    tail history, each timed beside the per-op loop."""
+def flagship_buckets(plan, det, check: bool = True):
+    """The flagship windows' two long spans, built on the card from the
+    window-0 syndromes of the seed-2024 samples (16384 shots): the two
+    whole-batch calls (pre-BP: 8 masked f32 iterations; phase A: 16
+    unmasked bf16 iterations) run on the card (with ``check``, their first
+    ``SLICE_SHOTS`` shots also on the CPU, BP being per shot, held
+    bit-exact); their outputs feed the first 512 pre-BP survivors shortened
+    as ``OSDWindow`` does, then 200 masked f32 iterations (the post-BP
+    bucket), and the first 1024 phase-A survivors, then a 48-iteration
+    phase-B span, both with the tail history. Returns (cpu graph, {label:
+    (args, kw)} of the two buckets, {kernel: max_abs_err of the whole-batch
+    checks})."""
     import torch
 
     from slidingwindowdecoder_torch.decoders import OSDWindow
     from slidingwindowdecoder_torch.decoders.osd_window import shorten
     from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
     from slidingwindowdecoder_torch.ops import bp_cuda
-    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, bp_run, span_inputs
+    from slidingwindowdecoder_torch.ops.bp import (
+        bp_init_messages_sm,
+        bp_run,
+        span_inputs,
+        take_columns,
+    )
 
     spec = plan.windows[0]
     cpu_garr = graph_tensors(compile_graph(spec.mat), "cpu")
@@ -1074,21 +1193,24 @@ def phase_bp_span(plan, det):
 
     def whole_batch(label, masked, **kw):
         """``bp_run`` from fresh messages over all shots: one launch on the
-        card, the first ``SLICE_SHOTS`` shots by the plain loop on the CPU.
-        Returns the card's outputs and max_abs_err on the slice."""
+        card, with ``check`` the first ``SLICE_SHOTS`` shots by the plain
+        loop on the CPU. Returns the card's outputs and max_abs_err on the
+        slice (0 without ``check``)."""
         counter = "pinned_launches" if masked else "launches"
 
         def run(g, s):
             dev, prior = s.device, llr.to(s.device)
             mv0 = bp_init_messages_sm(g, prior, s.shape[0], kw.get("msg_dtype", "float32"))
             return bp_run(g, mv0, prior, s, *state(s.shape[0], dev), freeze_messages=False,
-                          io_layout="slot_major", masked=masked, **kw)
+                          io_layout="slot_major", masked=masked, inplace=True, **kw)
 
         before = getattr(bp_cuda.bp_span, counter)
         out = run(garr, synd)
         torch.cuda.synchronize()
         if getattr(bp_cuda.bp_span, counter) != before + 1:
             raise SystemExit(f"[bp_span] {label}: the kernel was not launched once")
+        if not check:
+            return out, 0.0
         k = SLICE_SHOTS
         t0 = time.perf_counter()
         ref = run(cpu_garr, synd[:k].cpu())
@@ -1098,49 +1220,135 @@ def phase_bp_span(plan, det):
                          [x.cpu() for x in head], ref)
         return out, err
 
-    res = {}
+    cases = {}
     # a post-BP bucket: pre-BP survivors, shortened and peeled
     (_, hist, _, done, _), pre_err = whole_batch(
         f"pre-BP masked f32 B={B0}, 8 iterations", True, num_iter=8)
     idx = torch.argsort(done.to(torch.int32), stable=True)[:512]
     vn, cn, dead = shorten(garr, synd[idx], hist[:, :, idx], dec.new_n)
     h, _, _, it = state(512)
-    args, kw = span_inputs(
+    cases["post-BP bucket"] = span_inputs(
         garr, bp_init_messages_sm(garr, llr, 512), llr, synd[idx], h,
         torch.where(vn != -1, vn, 0).to(torch.int8), dead, it, num_iter=200,
         freeze_messages=False, history_mode="tail", io_layout="slot_major",
         vn_state=vn, cn_state=cn, masked=True)
     log(f"[bp_span] post-BP bucket: {float((vn != -1).float().mean()):.3f} of the VNs "
         f"decided, {int(dead.sum())} shots dead")
-    res["bp_span_pinned"] = _span_case("masked f32 B=512", args, kw, cpu_garr, 10)
     # a phase-B bucket: phase-A survivors
     (mv, _, err, done, iters), a_err = whole_batch(
         f"phase A unmasked bf16 B={B0}, 16 iterations", False, num_iter=16,
         msg_dtype="bfloat16", history_mode="none")
     idx = torch.argsort(done.to(torch.int32), stable=True)[:1024]
-    args, kw = span_inputs(
-        garr, mv[:, :, idx], llr, synd[idx], state(1024)[0], err[idx], done[idx], iters[idx],
+    cases["phase-B bucket"] = span_inputs(  # gathered as BPOSD gathers its buckets
+        garr, take_columns(mv, idx), llr, synd[idx], state(1024)[0], err[idx], done[idx],
+        iters[idx],
         num_iter=48, msg_dtype="bfloat16", freeze_messages=False, history_mode="tail",
         io_layout="slot_major")
+    return cpu_garr, cases, {"bp_span_pinned": pre_err, "bp_span": a_err}
+
+
+def phase_bp_span(plan, det):
+    """The fused kernel against the plain loop at every shape the paths
+    give it, on the flagship windows' calls (``flagship_buckets``: the
+    whole-batch calls on the first ``SLICE_SHOTS`` shots, the post-BP and
+    phase-B buckets in full), each bucket timed beside the per-op loop;
+    then the shared-table route's edge cases (``_span_edges``)."""
+    cpu_garr, cases, errs = flagship_buckets(plan, det)
+    args, kw = cases["post-BP bucket"]
+    res = {"bp_span_pinned": _span_case("masked f32 B=512", args, kw, cpu_garr, 10)}
+    args, kw = cases["phase-B bucket"]
     res["bp_span"] = _span_case("unmasked bf16 B=1024", args, kw, cpu_garr, 10)
-    for name, e in (("bp_span_pinned", pre_err), ("bp_span", a_err)):
+    for name, e in errs.items():
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
+    for name, edges in _span_edges(cpu_garr, cases).items():
+        res[name]["edge_cases"] = edges
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                       *(r["max_abs_err"] for r in edges.values()))
     return res
+
+
+def _span_edges(cpu_garr, cases):
+    """The shared-table route's edges, on the flagship buckets' inputs, in
+    place against the plain loop on the CPU (``_span_case``): every column
+    of the post-BP bucket done at entry (one launch that changes no byte of
+    its inputs, ``synd_hat`` the targets); its first column alone (B = 1);
+    the phase-B bucket's first 301 columns (three a block: the last block
+    holds one); and one phase-B column that runs all 48
+    iterations among 63 that converge at the first (zero syndromes, fresh
+    messages). Returns {kernel: {case: result}}."""
+    import torch
+
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, column_major, take_columns
+
+    out = {"bp_span_pinned": {}, "bp_span": {}}
+    args, kw = cases["post-BP bucket"]
+    garr, B = args[0], args[1].shape[2]
+    a = list(args)
+    a[8] = torch.ones_like(args[8])
+    a = span_copy(a)
+    kw_h = {**kw, "return_synd": True}
+    entry = [t.clone() for t in (a[1], a[6], a[7], a[8], a[9])]
+    before = bp_cuda.bp_span.pinned_launches
+    got = bp_cuda.bp_span(*a, **kw_h, inplace=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got[:5], entry))
+    if bp_cuda.bp_span.pinned_launches != before + 1 or not same:
+        raise SystemExit("[bp_span] every column done at entry: not one launch, or an input "
+                         "changed")
+    if not torch.equal(got[5], (args[4] & 1).to(torch.int8)):
+        raise SystemExit("[bp_span] every column done at entry: synd_hat is not the target")
+    ms = fresh_time_ms(a, lambda x: bp_cuda.bp_span(*x, **kw_h, inplace=True), 10)
+    log(f"[bp_span] every column of B={B} done at entry: one launch, no input byte changed, "
+        f"synd_hat the targets; {ms:.4f} ms")
+    out["bp_span_pinned"]["all done at entry"] = {"ms": ms, "max_abs_err": 0.0}
+
+    def first(a, k):
+        mv_, prior, parity, synd_t, vn, hist, error, done, iters = a[1:]
+        return (a[0], take_columns(mv_, torch.arange(k, device=mv_.device)), prior,
+                parity[:, :k], synd_t[:, :k], None if vn is None else vn[:k],
+                hist[:, :, :k].contiguous(), error[:k], done[:k], iters[:k])
+
+    out["bp_span_pinned"]["B=1"] = _span_case("post-BP bucket, its first column alone",
+                                              first(args, 1), kw, cpu_garr, 20)
+    pargs, pkw = cases["phase-B bucket"]
+    out["bp_span"]["B=301"] = _span_case(
+        "phase-B bucket, its first 301 columns", first(pargs, 301), pkw, cpu_garr, 10)
+    # a column that runs every iteration: found by a launch on a copy
+    probe = bp_cuda.bp_span(*span_copy(pargs), **pkw, inplace=True)
+    ran = probe[4] - pargs[9]
+    slow = int(torch.nonzero((ran == pkw["num_iter"]) & ~probe[3])[0, 0])
+    mv_, prior, parity, synd_t, vn, hist, error, done, iters = pargs[1:]
+    k, dev = 63, mv_.device
+    fresh = bp_init_messages_sm(garr, prior, k, "bfloat16")
+    zeros = torch.zeros((parity.shape[0], k), dtype=torch.int32, device=dev)
+    one = torch.tensor([slow], device=dev)
+    sargs = (garr, column_major(torch.cat([take_columns(mv_, one), fresh], dim=2)), prior,
+             torch.cat([parity[:, one], zeros], dim=1), torch.cat([synd_t[:, one], zeros], dim=1),
+             None, torch.zeros((hist.shape[0], 4, k + 1), dtype=hist.dtype, device=dev),
+             torch.cat([error[one], torch.zeros((k, error.shape[1]), dtype=error.dtype,
+                                                device=dev)]),
+             torch.zeros(k + 1, dtype=torch.bool, device=dev),
+             torch.cat([iters[one], torch.zeros(k, dtype=iters.dtype, device=dev)]))
+    check = bp_cuda.bp_span(*span_copy(sargs), **pkw, inplace=True)
+    ran = (check[4] - sargs[9]).cpu()
+    if int(ran[0]) != pkw["num_iter"] or bool((ran[1:] != 1).any()):
+        raise SystemExit(f"[bp_span] one slow column: iterations {ran.tolist()}")
+    out["bp_span"]["one slow column"] = _span_case(
+        f"one column of {pkw['num_iter']} iterations among {k} of one", sargs, pkw, cpu_garr, 20)
+    return out
 
 
 class _Captured(Exception):
     """Ends a decode once the call of interest has been captured."""
 
 
-def phase_bp_span_gdg(plan, det, bucket: int):
+def capture_gdg_burst(plan, det, bucket: int):
     """The GDG ensemble's BP burst: the arguments of the masked ``bp_run``
     of step 4 of the first ensemble bucket of window 0 (the step after the
     tree-side branches restarted their messages at depth 3), captured from
-    a decode on the card, then ``bp_span_pinned`` on them against the plain
-    loop on the CPU (``_span_case``), ``synd_hat`` included. Also times the
-    call's layout conversions (``span_inputs``: the transposes of the
-    [n, B] int8 states, the int32 syndrome and sign seed, the ring's
-    copy)."""
+    a decode on the card. Returns (decoder, the captured ``bp_run``
+    arguments and keywords, ``span_inputs``' (args, kw) of them, cpu graph)."""
     import torch
 
     from slidingwindowdecoder_torch.decoders import gdg
@@ -1155,7 +1363,7 @@ def phase_bp_span_gdg(plan, det, bucket: int):
     calls, orig = [], gdg.bp_run
 
     def capture(*a, **k):
-        calls.append((a, k))
+        calls.append((tuple(_clone(x) for x in a), k))
         if len(calls) == 5:
             raise _Captured
         return orig(*a, **k)
@@ -1171,9 +1379,20 @@ def phase_bp_span_gdg(plan, det, bucket: int):
         raise SystemExit("[bp_span] GDG: the first bucket's ensemble ended before step 4")
     a, k = calls[4]
     k = {key: v for key, v in k.items()
-         if key not in ("return_synd", "hist_update", "state_layout", "hist_dtype")}
+         if key not in ("return_synd", "hist_update", "state_layout", "hist_dtype", "inplace")}
     args, kw = span_inputs(*a, **k, transposed=True)
     kw["return_synd"] = True
+    return dec, a, k, args, kw, cpu_garr
+
+
+def phase_bp_span_gdg(plan, det, bucket: int):
+    """``capture_gdg_burst``'s burst on ``bp_span_pinned`` against the plain
+    loop on the CPU (``_span_case``), ``synd_hat`` included. Also times the
+    call's layout conversions (``span_inputs`` in the in-place form the
+    ensemble passes: the int32 syndrome and sign seed)."""
+    from slidingwindowdecoder_torch.ops.bp import span_inputs
+
+    dec, a, k, args, kw, cpu_garr = capture_gdg_burst(plan, det, bucket)
     BN = args[1].shape[2]
     active = int((~args[8]).sum())
     log(f"[bp_span] GDG burst: {BN} columns ({BN // dec.NB} shots x {dec.NB} branches), "
@@ -1181,9 +1400,10 @@ def phase_bp_span_gdg(plan, det, bucket: int):
         f"{int(dec.tables['reinit'][:, 3].sum())} branches of each shot "
         f"restarted their messages at depth 3")
     res = _span_case(f"GDG burst masked f32 B={BN}", args, kw, cpu_garr, 20)
-    res["prep_ms"] = cuda_time_ms(lambda: span_inputs(*a, **k, transposed=True), 20)
+    res["prep_ms"] = cuda_time_ms(lambda: span_inputs(*a, **k, transposed=True, inplace=True),
+                                  20)
     log(f"[bp_span] GDG burst: layout conversions at the call {res['prep_ms']:.4f} ms "
-        f"beside the kernel's {res['ms']:.4f} ms")
+        f"beside the kernel's {res['ms']:.4f} ms (copying form: 0.2283 beside 2.0818)")
     return res
 
 
@@ -2074,13 +2294,12 @@ def cc_samples(code):
     return ((err @ code.hx.T.astype(np.float32)) % 2).astype(np.uint8)
 
 
-def phase_bp_span_bpgd(code, synd):
+def capture_bpgd_burst(code, synd):
     """The BPGD burst at its real shape: the arguments of the fourth masked
     ``bp_run`` of ``BPGD.core`` (spans mode, max_step 100) on the [[882]]
     syndromes (step 3 of the first bucket of ``row_bucket`` rows; 12
     iterations, slot-major carry, batch-major states), captured on the
-    card, then ``bp_span_pinned`` on them against the plain loop on the
-    CPU (``_span_case``)."""
+    card. Returns ``span_inputs``' (args, kw) and the cpu graph."""
     import torch
 
     from slidingwindowdecoder_torch.decoders import bpgd
@@ -2092,7 +2311,7 @@ def phase_bp_span_bpgd(code, synd):
     calls, orig = [], bpgd.bp_run
 
     def capture(*a, **k):
-        calls.append((a, k))
+        calls.append((tuple(_clone(x) for x in a), k))
         if len(calls) == 4:
             raise _Captured
         return orig(*a, **k)
@@ -2107,12 +2326,19 @@ def phase_bp_span_bpgd(code, synd):
     if len(calls) < 4:
         raise SystemExit("[bp_span] BPGD: the first bucket halted before step 3")
     a, k = calls[3]
-    args, kw = span_inputs(*a, **{key: v for key, v in k.items() if key != "hist_update"})
+    args, kw = span_inputs(*a, **{key: v for key, v in k.items()
+                                  if key not in ("hist_update", "inplace")})
+    return args, kw, graph_tensors(compile_graph(code.hx), "cpu")
+
+
+def phase_bp_span_bpgd(code, synd):
+    """``capture_bpgd_burst``'s burst on ``bp_span_pinned`` against the
+    plain loop on the CPU (``_span_case``)."""
+    args, kw, cpu_garr = capture_bpgd_burst(code, synd)
     B = args[1].shape[2]
     log(f"[bp_span] BPGD burst: {B} rows ({int((~args[8]).sum())} active), "
         f"{float((args[5] != -1).float().mean()):.4f} of the VNs decided")
-    return _span_case(f"BPGD burst masked f32 B={B}", args, kw,
-                      graph_tensors(compile_graph(code.hx), "cpu"), 20)
+    return _span_case(f"BPGD burst masked f32 B={B}", args, kw, cpu_garr, 20)
 
 
 def phase_cc_host(code):

@@ -7,9 +7,10 @@
 // `ops/bp.py:bp_loop` in this package (the per-op loop, whose CN stage is
 // `csrc/cn_update.cu` on the card).
 //
-// Design. One block owns S consecutive shots. It loads their [dc, m_pad]
-// message slices once, runs up to `num_iter` iterations with every
-// intermediate in shared memory, and stores once. Per iteration and shot:
+// Design. One block owns S consecutive columns (shots, or GDG branches). It
+// loads their [dc, m_pad] message slices once, runs up to `num_iter`
+// iterations with every intermediate in shared memory, and stores once.
+// Per iteration and column:
 //   CN stage    the check-node update of `cn_update.cu`, in place (mv -> mc);
 //   VN stage    posterior = prior + (mc[slot 0] + mc[slot 1] + ... ), f32,
 //               slot by slot in the order of `vn_from_cn`, a degree-padding
@@ -25,31 +26,51 @@
 //   bookkeeping iters += 1, done |= (every row matches).
 // When the caller passes `synd_hat`, the edge stage also keeps each check's
 // decoded parity (bit 1 of the syndrome byte, whose bit 0 is the target),
-// and the store writes it for every shot that ran, the target for a shot
-// done at entry (the JAX `bp_run(return_synd=True)`).
-// A shot that is done is skipped from then on, so its messages, errors and
-// rounded posterior keep the values of its last active iteration. The
+// and the store writes it for every column that ran, the target for a
+// column done at entry (the JAX `bp_run(return_synd=True)`).
+// A column that is done is skipped from then on, so its messages, errors
+// and rounded posterior keep the values of its last active iteration. The
 // error is written once, at the end, from that posterior. A block leaves
-// the loop as soon as all its shots are done: the test reads shared flags
+// the loop as soon as all its columns are done: the test reads shared flags
 // after a barrier, so it is uniform across the block and no thread waits at
 // a barrier alone. Nothing waits on the host.
+//
+// Two forms of a call. Copying (`skip_done` 0, the JAX package's functional
+// contract): every column in range is loaded (pinned at its decided VNs'
+// edges and invalid slots in masked mode, as the JAX loop pins every column
+// at entry) and stored to the outputs. In place (`skip_done` 1, for the
+// decoders that rebind their carry): the outputs are the inputs, and a
+// column done at entry is neither read nor written, but for its target
+// syndrome in `synd_hat`; a block whose columns are all done at entry
+// leaves before it copies the tables. Messages, errors and VN states are
+// addressed through the caller's strides, so the GDG carry's [n, B] states
+// need no transpose, and the decoders keep their messages column-major
+// (`ops/bp.py:column_major`: each column's dc*m_pad messages contiguous,
+// loaded and stored in full sectors).
 //
 // Exactness. The arithmetic is the plain version's: f32 from exact images
 // of the stored values, every constant pre-rounded to the storage dtype by
 // the caller, one rounding at each store, __fadd_rn/__fsub_rn/__fmul_rn so
 // that no product is contracted into an add. Invalid check slots are the
 // tail of each check row (`compile_graph` fills rows from slot 0), so a row
-// walks its first `deg` slots only; at the store an invalid slot of a shot
-// that ran gets the plain version's value (post[n - 1] - 0 unmasked, pin
-// masked).
+// walks its first `deg` slots only; at the store an invalid slot of a
+// column that ran gets the plain version's value (post[n - 1] - 0
+// unmasked, pin masked).
 //
-// Bound. Per shot-iteration the block does ~25 operations per valid edge
-// (counted in chip_smoke.py) out of shared memory; device memory sees one
-// read and one write of the message block per call and the history ring's
-// writes, so the operation count bounds it. What the design pays instead:
-// each thread walks one check row's slots in turn (a chain of dependent
-// shared-memory accesses), four barriers per iteration, and a block runs
-// until its slowest shot is done, its other shots' threads idle meanwhile.
+// Bound: `utils/roofline.py:span_bound`, the larger of the operations of
+// the shot-iterations run (~25 a valid edge at the float32 rate) and the
+// bytes of the columns not done at entry (their message blocks read and
+// written once, syndromes, sign seeds, states, errors, the ring's writes).
+// What the design pays beyond it: each thread walks one check row's slots
+// in turn (a chain of dependent shared-memory accesses), four barriers an
+// iteration, the tables copied into every block that has a live column,
+// and a block runs until its slowest column is done, its other columns'
+// threads idle meanwhile. A persistent grid that refilled the slots of
+// finished columns from a queue and split check rows over lanes was built
+// and measured against this design in turns: equal on the GDG burst,
+// ~24 % slower on the buckets whose columns are all live, faster only on
+// the BPGD burst (PERF.md). `tools/torch_probe_bp_span.py` times each stage
+// of a block-iteration in a `-DBP_SPAN_CLOCKS` build.
 //
 // Shared memory (layout below): S x [(dc*m_pad + 1) messages, n rounded
 // posteriors in the message dtype, n decimation states, 2 x m_pad sign and
@@ -75,6 +96,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -97,6 +120,53 @@ __device__ __forceinline__ float clipped(float x, float clip, float thresh) {
 }
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+#ifdef BP_SPAN_CLOCKS
+// Stage timers of the probe build (tools/torch_probe_bp_span.py): the
+// cycles between consecutive block barriers, as thread 0 sees them, added
+// to the stage that ran between them; each warp's cycles spent waiting at
+// barriers; warps, block-iterations and blocks (those that left at once,
+// all their columns done at entry, counted apart). The clock reads carry a
+// memory clobber, so that they stay on their side of the barrier.
+constexpr int kClk = 12;
+constexpr int kClkBlocks = 4096;  // blocks whose own record is kept
+__device__ unsigned long long g_clocks[kClk];
+// per block: start and end (globaltimer, ns), cycles, block-iterations, live columns
+__device__ unsigned long long g_block[kClkBlocks][5];
+__device__ __forceinline__ long long clk_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : : "memory");
+  return t;
+}
+__device__ __forceinline__ unsigned long long ns_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) : : "memory");
+  return t;
+}
+#define CLK_DECL long long clk_last = clk_now(), clk_wait = 0, clk_first = clk_last; \
+    long long clk[7] = {0, 0, 0, 0, 0, 0, 0}; \
+    unsigned long long clk_iters = 0, clk_t0 = ns_now()
+#define SYNC(k) do { const long long w_ = clk_now(); __syncthreads(); const long long t_ = clk_now(); \
+    clk_wait += t_ - w_; clk[k] += t_ - clk_last; clk_last = t_; } while (0)
+#define CLK_ITER() do { if (threadIdx.x == 0) { atomicAdd(&g_clocks[8], 1ull); ++clk_iters; } } while (0)
+#define CLK_END(cols) do { const unsigned long long cols_ = (cols); \
+    if ((threadIdx.x & 31) == 0) { atomicAdd(&g_clocks[7], (unsigned long long)clk_wait); \
+      atomicAdd(&g_clocks[10], 1ull); } \
+    if (threadIdx.x == 0) { clk[6] += clk_now() - clk_last; \
+      for (int k_ = 0; k_ < 7; ++k_) atomicAdd(&g_clocks[k_], (unsigned long long)clk[k_]); \
+      atomicAdd(&g_clocks[9], 1ull); \
+      if (blockIdx.x < kClkBlocks) { \
+        g_block[blockIdx.x][0] = clk_t0; g_block[blockIdx.x][1] = ns_now(); \
+        g_block[blockIdx.x][2] = (unsigned long long)(clk_now() - clk_first); \
+        g_block[blockIdx.x][3] = clk_iters; g_block[blockIdx.x][4] = cols_; } } } while (0)
+#define CLK_IDLE() do { if (threadIdx.x == 0) atomicAdd(&g_clocks[11], 1ull); } while (0)
+#else
+#define CLK_DECL
+#define SYNC(k) __syncthreads()
+#define CLK_ITER()
+#define CLK_END(cols)
+#define CLK_IDLE()
+#endif
 
 // Byte offsets of the shared-memory arrays of one block. `ops/bp_cuda.py:
 // span_smem_bytes` computes the same total.
@@ -127,24 +197,28 @@ __host__ __device__ inline Layout make_layout(size_t tsize, int n, int m_pad, in
 struct Args {
   const void* mv_in;            // [dc, m_pad, B], element strides below
   long long st_s, st_i, st_b;
-  void* mv_out;                 // [dc, m_pad, B] contiguous
+  void* mv_out;                 // [dc, m_pad, B] at its own strides (may be mv_in)
+  long long so_s, so_i, so_b;
   const float* prior;           // [n]
   const int32_t* parity;        // [m_pad, B] CN sign seed
   const int32_t* synd;          // [m_pad, B] syndrome (pad rows 0)
-  const int8_t* vn_state;       // [B, n] -1/0/1, or null: all undecided
+  const int8_t* vn_state;       // (b, v) at b * st_vb + v * st_vv, or null: all undecided
+  long long st_vb, st_vv;
   void* hist;                   // [n, 4, B] of HT, written from hist_from on
-  const int8_t* err_in;         // [B, n]
+  const int8_t* err_in;         // (b, v) at b * st_eb + v * st_ev, as err_out (may alias)
   int8_t* err_out;
+  long long st_eb, st_ev;
   const uint8_t* done_in;       // [B] bool
-  uint8_t* done_out;
+  uint8_t* done_out;            // (may be done_in)
   const int32_t* iters_in;      // [B]
-  int32_t* iters_out;
+  int32_t* iters_out;           // (may be iters_in)
   const void* cn_vn;            // [dc*m_pad] VN per slot (clipped to n-1)
   const void* vfc;              // [n*dv] slot per VN edge, dc*m_pad = fill
   const void* deg;              // [m_pad] valid slots per check row
                                 // (int16, or uint16 on the global-table route)
   int8_t* synd_hat;             // [m_pad, B] decoded syndrome, or null
   int n, m_pad, dc, dv, S, num_iter, hist_from;
+  int skip_done;                // in place: columns done at entry neither read nor written
   long long B;
   float alpha, clip, big, thresh, pin;
 };
@@ -176,6 +250,7 @@ template <> struct Tables<true> {
 template <typename T, bool MASKED, typename HT, bool GT>
 __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  CLK_DECL;
   const int S = a.S, n = a.n, m_pad = a.m_pad, dc = a.dc, dv = a.dv;
   const int edges = dc * m_pad;
   const long long B = a.B;
@@ -202,19 +277,30 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   int* ran_s = iters_s + S;
   int* mism = ran_s + S;
 
-  // blockDim.x is a multiple of S: each thread keeps one shot and walks the
-  // rows (checks, VNs, edges) r0, r0 + step, ...
+  // blockDim.x is a multiple of S: each thread keeps one column and walks
+  // the rows (checks, VNs, edges) r0, r0 + step, ...
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int shot = tid % S, r0 = tid / S, step = nthr / S;
   const long long b0 = (long long)blockIdx.x * S;
   const int nshots = (int)((B - b0) < S ? (B - b0) : S);
   const long long b = b0 + shot;
-  const bool live = shot < nshots;
+  // a live column is loaded, iterated and stored; in place, one done at
+  // entry is not (read before any output is written: outputs may alias)
+  const bool live = shot < nshots && !(a.skip_done && a.done_in[b]);
+  const bool col_live = tid < nshots && !(a.skip_done && a.done_in[b0 + tid]);
+  if (a.synd_hat && shot < nshots && !live) {
+    for (int r = r0; r < m_pad; r += step)
+      a.synd_hat[(long long)r * B + b] = (int8_t)(a.synd[(long long)r * B + b] & 1);
+  }
+  if (!__syncthreads_or(live)) {  // block-uniform
+    CLK_IDLE();
+    return;
+  }
 
   const float alpha = a.alpha, clip = a.clip, big = a.big, thresh = a.thresh;
   const T pin = from_f<T>(a.pin), neg_pin = from_f<T>(-a.pin);
 
-  // 1. tables and per-shot state
+  // 1. tables and per-column state
   if constexpr (!GT) {
     const int16_t *cv = (const int16_t*)a.cn_vn, *vf = (const int16_t*)a.vfc,
                   *dg = (const int16_t*)a.deg;
@@ -229,17 +315,17 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
   }
   if (MASKED) {
     for (int v = r0; v < n; v += step)
-      vst[v * S + shot] = (live && a.vn_state) ? a.vn_state[b * n + v] : (int8_t)-1;
+      vst[v * S + shot] = (live && a.vn_state) ? a.vn_state[b * a.st_vb + v * a.st_vv]
+                                               : (int8_t)-1;
   }
   if (tid < S) {
-    const bool l = tid < nshots;
-    done_s[tid] = l ? (int)a.done_in[b0 + tid] : 1;  // a missing shot is done
-    iters_s[tid] = l ? a.iters_in[b0 + tid] : 0;
+    done_s[tid] = col_live ? (int)a.done_in[b0 + tid] : 1;  // a missing column is done
+    iters_s[tid] = col_live ? a.iters_in[b0 + tid] : 0;
     ran_s[tid] = 0;
     mism[tid] = 0;
     msg[edges * S + tid] = from_f<T>(0.f);  // the fill row
   }
-  __syncthreads();
+  SYNC(0);
 
   // 2. messages; in masked mode the edges of decided VNs and the invalid
   // slots are pinned once, here
@@ -252,13 +338,15 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
       msg[e * S + shot] = x;
     }
   }
+  SYNC(1);
 
   const int ss = m_pad * S;  // distance between two slots of one check
   for (int it = 0; it < a.num_iter; ++it) {
-    __syncthreads();
+    if (it > 0) SYNC(5);
     bool all_done = true;
     for (int k = 0; k < S; ++k) all_done &= done_s[k] != 0;
     if (all_done) break;  // block-uniform: every thread read the same flags
+    CLK_ITER();
     const bool active = !done_s[shot];
 
     // CN stage, in place: mv -> mc on the valid slots
@@ -289,7 +377,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
         }
       }
     }
-    __syncthreads();
+    SYNC(2);
 
     // VN stage: posterior, its rounded (and pinned) copy, history
     if (active) {
@@ -313,7 +401,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
         if (hist_on && undecided) hist[(long long)v * 4 * B] = from_f<HT>(p);
       }
     }
-    __syncthreads();
+    SYNC(3);
 
     // edge stage: new messages and the syndrome check
     if (active) {
@@ -336,7 +424,7 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
       }
       if (bad) mism[shot] = 1;
     }
-    __syncthreads();
+    SYNC(4);
 
     if (tid < S) {
       if (!done_s[tid]) {
@@ -347,35 +435,35 @@ __global__ void __launch_bounds__(kMaxThreads) bp_span_kernel(const Args a) {
       mism[tid] = 0;
     }
   }
-  __syncthreads();
+  SYNC(5);
 
-  // 3. store
+  // 3. store the live columns: messages, errors (a column's own thread
+  // group walks its VNs), synd_hat, done and iterations
   T* mv_out = (T*)a.mv_out;
   if (live) {
     const bool ran = ran_s[shot] != 0;
-    const T last = post[(n - 1) * S + shot];  // read only if the shot ran
+    const T last = post[(n - 1) * S + shot];  // read only if the column ran
     for (int e = r0; e < edges; e += step) {
       const int s = e / m_pad, r = e - s * m_pad;
       T x = msg[e * S + shot];
       if (!MASKED && ran && s >= tab.dg(r)) x = last;
-      mv_out[(long long)e * B + b] = x;
+      mv_out[s * a.so_s + r * a.so_i + b * a.so_b] = x;
+    }
+    for (int v = r0; v < n; v += step) {
+      const long long o = b * a.st_eb + v * a.st_ev;
+      a.err_out[o] = ran ? (int8_t)(to_f(post[v * S + shot]) <= 0.f) : a.err_in[o];
+    }
+    if (a.synd_hat) {
+      const int bit = ran ? 1 : 0;
+      for (int r = r0; r < m_pad; r += step)
+        a.synd_hat[(long long)r * B + b] = (int8_t)((syn[r * S + shot] >> bit) & 1);
     }
   }
-  // errors [B, n]: consecutive threads on consecutive VNs of one shot
-  for (int k = tid; k < nshots * n; k += nthr) {
-    const int sh = k / n, v = k - sh * n;
-    const long long o = (b0 + sh) * n + v;
-    a.err_out[o] = ran_s[sh] ? (int8_t)(to_f(post[v * S + sh]) <= 0.f) : a.err_in[o];
-  }
-  if (a.synd_hat && live) {
-    const int bit = ran_s[shot] ? 1 : 0;
-    for (int r = r0; r < m_pad; r += step)
-      a.synd_hat[(long long)r * B + b] = (int8_t)((syn[r * S + shot] >> bit) & 1);
-  }
-  if (tid < nshots) {
+  if (col_live) {
     a.done_out[b0 + tid] = (uint8_t)(done_s[tid] != 0);
     a.iters_out[b0 + tid] = iters_s[tid];
   }
+  CLK_END((unsigned long long)__syncthreads_count(col_live));
 }
 
 template <typename T, bool MASKED, typename HT, bool GT>
@@ -386,59 +474,26 @@ int launch(const Args& a, int threads, void* stream) {
   if (a.S < 1 || threads < a.S || threads % a.S || threads > kMaxThreads ||
       L.total > kMaxSmem || (long long)a.dc * a.m_pad + 1 > idx_max || a.n > idx_max)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bp_span_kernel<T, MASKED, HT, GT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+  // the most dynamic shared memory, allowed once per device
+  static std::mutex mu;
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!allowed[dev]) {
+      err = cudaFuncSetAttribute(bp_span_kernel<T, MASKED, HT, GT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+      if (err != cudaSuccess) return (int)err;
+      allowed[dev] = true;
+    }
+  }
   const long long blocks = (a.B + a.S - 1) / a.S;
   bp_span_kernel<T, MASKED, HT, GT>
       <<<(unsigned)blocks, threads, L.total, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-Args make_args(const void* mv_in, long long st_s, long long st_i, long long st_b,
-               void* mv_out, const void* prior, const void* parity, const void* synd,
-               const void* vn_state, void* hist, const void* err_in, void* err_out,
-               const void* done_in, void* done_out, const void* iters_in,
-               void* iters_out, const void* cn_vn, const void* vfc, const void* deg,
-               void* synd_hat, int n, int m_pad, int dc, int dv, long long B, int S,
-               int num_iter, int hist_from, float alpha, float clip, float big,
-               float thresh, float pin) {
-  Args a;
-  a.mv_in = mv_in;
-  a.st_s = st_s;
-  a.st_i = st_i;
-  a.st_b = st_b;
-  a.mv_out = mv_out;
-  a.prior = (const float*)prior;
-  a.parity = (const int32_t*)parity;
-  a.synd = (const int32_t*)synd;
-  a.vn_state = (const int8_t*)vn_state;
-  a.hist = hist;
-  a.err_in = (const int8_t*)err_in;
-  a.err_out = (int8_t*)err_out;
-  a.done_in = (const uint8_t*)done_in;
-  a.done_out = (uint8_t*)done_out;
-  a.iters_in = (const int32_t*)iters_in;
-  a.iters_out = (int32_t*)iters_out;
-  a.cn_vn = cn_vn;
-  a.vfc = vfc;
-  a.deg = deg;
-  a.synd_hat = (int8_t*)synd_hat;
-  a.n = n;
-  a.m_pad = m_pad;
-  a.dc = dc;
-  a.dv = dv;
-  a.S = S;
-  a.num_iter = num_iter;
-  a.hist_from = hist_from;
-  a.B = B;
-  a.alpha = alpha;
-  a.clip = clip;
-  a.big = big;
-  a.thresh = thresh;
-  a.pin = pin;
-  return a;
 }
 
 }  // namespace
@@ -448,22 +503,37 @@ extern "C" {
 // One entry point per (table route, message dtype, mode, ring dtype). alpha,
 // clip, big, thresh and pin arrive already rounded to the message dtype; the
 // unmasked entry points ignore thresh, pin and vn_state. synd_hat may be
-// null. The `bp_span_wide_*` entry points take uint16 tables.
-#define BP_SPAN_ENTRY(NAME, T, MASKED, HT, GT)                                      \
-  int NAME(const void* mv_in, long long st_s, long long st_i, long long st_b,       \
-           void* mv_out, const void* prior, const void* parity, const void* synd,   \
-           const void* vn_state, void* hist, const void* err_in, void* err_out,     \
-           const void* done_in, void* done_out, const void* iters_in,               \
-           void* iters_out, const void* cn_vn, const void* vfc, const void* deg,    \
-           void* synd_hat, int n, int m_pad, int dc, int dv, long long B, int S,    \
-           int threads, int num_iter, int hist_from, float alpha, float clip,       \
-           float big, float thresh, float pin, void* stream) {                      \
-    const Args a = make_args(mv_in, st_s, st_i, st_b, mv_out, prior, parity, synd,  \
-                             vn_state, hist, err_in, err_out, done_in, done_out,    \
-                             iters_in, iters_out, cn_vn, vfc, deg, synd_hat, n,     \
-                             m_pad, dc, dv, B, S, num_iter, hist_from, alpha, clip, \
-                             big, thresh, pin);                                     \
-    return launch<T, MASKED, HT, GT>(a, threads, stream);                           \
+// null. The `bp_span_wide_*` entry points take uint16 tables. Messages are
+// read at strides (st_s, st_i, st_b) and written at (so_s, so_i, so_b), the
+// VN states read at (st_vb, st_vv), the errors read and written at (st_eb,
+// st_ev); each output may be its input (in place). With `skip_done` the
+// columns done at entry are neither read nor written.
+#define BP_SPAN_ENTRY(NAME, T, MASKED, HT, GT)                                            \
+  int NAME(const void* mv_in, long long st_s, long long st_i, long long st_b,             \
+           void* mv_out, long long so_s, long long so_i, long long so_b,                  \
+           const void* prior, const void* parity, const void* synd, const void* vn_state, \
+           long long st_vb, long long st_vv, void* hist, const void* err_in,              \
+           void* err_out, long long st_eb, long long st_ev, const void* done_in,          \
+           void* done_out, const void* iters_in, void* iters_out, const void* cn_vn,      \
+           const void* vfc, const void* deg, void* synd_hat, int n, int m_pad, int dc,    \
+           int dv, long long B, int S, int threads, int num_iter, int hist_from,          \
+           int skip_done, float alpha, float clip, float big, float thresh, float pin,    \
+           void* stream) {                                                                \
+    Args a;                                                                               \
+    a.mv_in = mv_in; a.st_s = st_s; a.st_i = st_i; a.st_b = st_b;                         \
+    a.mv_out = mv_out; a.so_s = so_s; a.so_i = so_i; a.so_b = so_b;                       \
+    a.prior = (const float*)prior; a.parity = (const int32_t*)parity;                     \
+    a.synd = (const int32_t*)synd; a.vn_state = (const int8_t*)vn_state;                  \
+    a.st_vb = st_vb; a.st_vv = st_vv; a.hist = hist;                                      \
+    a.err_in = (const int8_t*)err_in; a.err_out = (int8_t*)err_out;                       \
+    a.st_eb = st_eb; a.st_ev = st_ev;                                                     \
+    a.done_in = (const uint8_t*)done_in; a.done_out = (uint8_t*)done_out;                 \
+    a.iters_in = (const int32_t*)iters_in; a.iters_out = (int32_t*)iters_out;             \
+    a.cn_vn = cn_vn; a.vfc = vfc; a.deg = deg; a.synd_hat = (int8_t*)synd_hat;            \
+    a.n = n; a.m_pad = m_pad; a.dc = dc; a.dv = dv; a.S = S; a.num_iter = num_iter;       \
+    a.hist_from = hist_from; a.skip_done = skip_done; a.B = B; a.alpha = alpha;           \
+    a.clip = clip; a.big = big; a.thresh = thresh; a.pin = pin;                           \
+    return launch<T, MASKED, HT, GT>(a, threads, stream);                                 \
   }
 
 BP_SPAN_ENTRY(bp_span_f32, float, false, float, false)
@@ -492,6 +562,34 @@ long long bp_span_smem_bytes(int elem_size, int n, int m_pad, int dc, int dv, in
 long long bp_span_wide_smem_bytes(int elem_size, int n, int m_pad, int dc, int dv, int S) {
   return (long long)make_layout((size_t)elem_size, n, m_pad, dc, dv, S, true).total;
 }
+
+#ifdef BP_SPAN_CLOCKS
+const char* bp_span_clock_names() {
+  return "tables and state,message load,cn,vn,edge,bookkeeping,store,barrier wait,"
+         "block-iterations,blocks,warps,blocks left at once";
+}
+
+// Copy the probe build's counters into out[kClk] and zero them.
+int bp_span_take_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_clocks, sizeof(g_clocks));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[kClk] = {};
+  return (int)cudaMemcpyToSymbol(g_clocks, zero, sizeof(g_clocks));
+}
+
+// Copy the first `blocks` blocks' records (start ns, end ns, cycles,
+// block-iterations, live columns) into out[blocks][5]; a block that left
+// at once leaves its record as it was (zero after bp_span_clear_blocks).
+int bp_span_take_blocks(unsigned long long* out, int blocks) {
+  if (blocks > kClkBlocks) blocks = kClkBlocks;
+  return (int)cudaMemcpyFromSymbol(out, g_block, sizeof(unsigned long long) * 5 * blocks);
+}
+
+int bp_span_clear_blocks() {
+  static const unsigned long long zero[kClkBlocks][5] = {};
+  return (int)cudaMemcpyToSymbol(g_block, zero, sizeof(g_block));
+}
+#endif
 
 const char* swd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

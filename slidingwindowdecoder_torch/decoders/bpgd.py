@@ -39,7 +39,14 @@ import numpy as np
 import torch
 
 from ..graphs.tanner import compile_graph, graph_tensors
-from ..ops.bp import bp_init_messages_sm, bp_run, decode_bp, msg_torch_dtype
+from ..ops.bp import (
+    bp_init_messages_sm,
+    bp_run,
+    column_major,
+    decode_bp,
+    msg_torch_dtype,
+    take_columns,
+)
 from ..ops.decimation import init_decimation_state, set_index_and_peel, set_values_and_peel
 from ..utils.device import resolve_device
 from .base import DecodeResult, as_batch, pad_pow2
@@ -55,11 +62,12 @@ def _bpgd_step(garr, llr, syndrome, c, *, num_iter, alpha, clip, msg_dtype):
     finished row is a no-op."""
     halted_in = c["halted"]  # rows finished before this step stay frozen
     active = ~halted_in
+    # the carry is rebound to the outputs: the burst updates it in place
     mv, history, error, bp_done, iters = bp_run(
         garr, c["mv"], llr, syndrome, c["history"], c["error"], ~active, c["iters"],
         num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
         io_layout="slot_major", hist_update="slice", vn_state=c["vn"],
-        cn_state=c["cn"], masked=True,
+        cn_state=c["cn"], masked=True, inplace=True,
     )
     newly = bp_done & active
     converged = c["converged"] | newly
@@ -106,8 +114,9 @@ def _init_carry(garr, llr, vn_state, cn_state, cn_degree, dead, msg_dtype):
     B, n = vn_state.shape
     dev = vn_state.device
     return dict(
-        # materialized: the walk of ``bpgd_spans`` writes into it
-        mv=bp_init_messages_sm(garr, llr, B, msg_dtype).contiguous(),
+        # materialized (the walk of ``bpgd_spans`` writes into it), each
+        # column's messages contiguous (the fused kernel reads them whole)
+        mv=column_major(bp_init_messages_sm(garr, llr, B, msg_dtype)),
         history=torch.zeros((n, 4, B), dtype=torch.float32, device=dev),
         error=torch.zeros((B, n), dtype=torch.int8, device=dev),
         vn=vn_state, cn=cn_state, deg=cn_degree, dead=dead, halted=dead.clone(),
@@ -172,7 +181,7 @@ def bpgd_spans(garr, llr, syndrome, vn_state, cn_state, cn_degree, dead, *,
         for b in range(-(-n_todo // bucket)):
             idx = order[b * bucket:(b + 1) * bucket]
             # messages and history are slot-major: rows on the last axis
-            sub = {k: (v[..., idx] if k in ("mv", "history") else v[idx])
+            sub = {k: (take_columns(v, idx) if k in ("mv", "history") else v[idx])
                    for k, v in c.items()}
             sub = _run_steps(garr, llr, syndrome[idx], sub, sp, **kw)
             for k, v in sub.items():

@@ -30,7 +30,14 @@ import numpy as np
 import torch
 
 from ..graphs.tanner import compile_graph, graph_tensors
-from ..ops.bp import bp_init_messages_sm, bp_run, history_sum
+from ..ops.bp import (
+    bp_init_messages_sm,
+    bp_run,
+    column_major,
+    history_sum,
+    is_column_major,
+    take_columns,
+)
 from ..ops.gf2_solve import (
     analyze_patterns,
     gf2_rank_packed,
@@ -189,11 +196,13 @@ class BPOSD:
         # BPOSD never decimates, so the unmasked path applies. Converged
         # shots' messages are never consumed downstream (history drives OSD;
         # errors are frozen by the active mask), so the freeze is skipped.
+        # Every caller passes fresh state or a bucket's gathered copy and
+        # rebinds it, so BP updates it in place.
         return bp_run(
             self.garr, mv, self._llr_dev, synds, history, error, done, iters,
             num_iter=num_iter, alpha=self.alpha, clip=self.clip,
             msg_dtype=self.msg_dtype, freeze_messages=False,
-            history_mode=history_mode, io_layout="slot_major",
+            history_mode=history_mode, io_layout="slot_major", inplace=True,
         )
 
     def _reliability(self, history, total_iters: int):
@@ -226,7 +235,10 @@ class BPOSD:
         )
 
         if it_b > 0:
-            mv = mv.contiguous()  # phase A may have run no iteration
+            # written in place below: no broadcast view (phase A may have
+            # run no iteration), each column's messages contiguous
+            if not is_column_major(mv):
+                mv = column_major(mv)
             bucket = _divisor_bucket(B, self.bp_bucket)
             synd_weight = synds.sum(dim=1, dtype=torch.int32)
             for si, sp in enumerate(self.phase_b_spans):
@@ -238,7 +250,7 @@ class BPOSD:
                 for b in range(-(-n_todo // bucket)):
                     idx = order[b * bucket:(b + 1) * bucket]
                     mv_c, hist_c, err_c, done_c, it_c = self._run_bp(
-                        mv[:, :, idx], synds[idx], history[:, :, idx],
+                        take_columns(mv, idx), synds[idx], history[:, :, idx],
                         error[idx], done[idx], iters[idx], sp,
                         history_mode=hmode,
                     )

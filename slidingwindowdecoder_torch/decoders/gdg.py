@@ -65,10 +65,12 @@ from ..ops.bp import (
     bp_init_messages,
     bp_init_messages_sm,
     bp_run,
+    column_major,
     decode_bp,
     fresh_bp_state,
     hist_torch_dtype,
     msg_torch_dtype,
+    take_columns,
 )
 from ..ops.decimation import (
     init_decimation_state,
@@ -332,8 +334,9 @@ def _ensemble_init(garr, llr, syndrome, scan_rank, vn_state0, cn_state0, cn_degr
 
     dead = dead0.repeat_interleave(NB)
     carry = {
-        # a broadcast view: bp_span reads it through its strides
-        "mv": bp_init_messages_sm(garr, llr, BN, msg_dtype),
+        # each column's messages contiguous: the fused kernel reads and
+        # writes them whole, in place
+        "mv": column_major(bp_init_messages_sm(garr, llr, BN, msg_dtype)),
         "history": torch.zeros((n, 4, BN), dtype=hist_torch_dtype(hist_dtype), device=dev),
         "error": torch.zeros((n, BN), dtype=torch.int8, device=dev),
         "vn": tile_t(vn_state0.T.to(torch.int8)),
@@ -365,13 +368,15 @@ def _ensemble_step(garr, llr, synd, scan_rank, tt, reinit_any, d: int, carry, *,
         active = active & (d >= start_row)
 
     # masked BP burst; tail history: only the burst's last 4 iterations
-    # write the ring, which the select reads for rows still active
+    # write the ring, which the select reads for rows still active. The
+    # carry is rebound to the outputs below, so the burst updates it in
+    # place (on the card a halted column is neither read nor written).
     mv, history, error, bp_done, iters, synd_hat = bp_run(
         garr, c["mv"], llr, synd, c["history"], c["error"], ~active, c["iters"],
         num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
         return_synd=True, io_layout="slot_major", history_mode="tail",
         hist_update="slice", state_layout="transposed", vn_state=c["vn"],
-        cn_state=c["cn"], masked=True, hist_dtype=hist_dtype,
+        cn_state=c["cn"], masked=True, hist_dtype=hist_dtype, inplace=True,
     )
     newly_conv = bp_done & active
     conv_error = torch.where(newly_conv[None, :], error, c["conv_error"])
@@ -461,8 +466,8 @@ def default_spans(D_max: int, budgets, span: int = 4, activations=()) -> tuple:
 
 def _take_cols(carry, idx):
     """Columns ``idx`` of every entry of a batch-minor carry (rows on the
-    last axis)."""
-    return {k: v[..., idx] for k, v in carry.items()}
+    last axis); the messages stay column-major (``take_columns``)."""
+    return {k: take_columns(v, idx) for k, v in carry.items()}
 
 
 def gdg_ensemble_spans(
@@ -537,8 +542,6 @@ def gdg_ensemble_spans(
     kw = dict(num_iter=num_iter, alpha=alpha, clip=clip, low_error_mode=low_error_mode,
               msg_dtype=msg_dtype, hist_dtype=hist_dtype)
     bucket = BN if row_bucket is None else _divisor_bucket(BN, row_bucket)
-    if bucket < BN:  # the walk writes into the carry: no broadcast view
-        carry["mv"] = carry["mv"].contiguous()
     last_wake = -1 if start_np is None else int(start_np.max())
 
     d0 = 0
@@ -715,6 +718,8 @@ def gdg_serial(
             fill(A_sum), c_allowed, low_error_mode=low_error_mode, scan_rank=scan_rank)
 
     def bp(mv, history, error, done, iters, vn_state, cn_state):
+        # the copying form: the batch-major messages and ring are converted
+        # to the kernel's layouts at the call anyway
         return bp_run(garr, mv, llr, syndrome, history, error, done, iters,
                       num_iter=num_iter, alpha=alpha, clip=clip, msg_dtype=msg_dtype,
                       vn_state=vn_state, cn_state=cn_state, masked=True)

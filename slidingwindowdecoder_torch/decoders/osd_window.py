@@ -130,15 +130,17 @@ class OSDWindow:
         # Messages are discarded and only non-converged shots' histories
         # feed OSD, so the converged-shot freeze and the pre-tail history
         # writes are skipped (as in the JAX package). Dead shots enter done.
+        # The state is fresh and rebound, so BP updates it in place; ``done``
+        # is a copy of ``dead_c``, which is read after the call.
         mv_c = bp_init_messages_sm(garr, self._llr_dev, b)
         hist2 = torch.zeros((n, 4, b), dtype=torch.float32, device=dev)
         err_c = torch.where(vn_c != -1, vn_c, torch.zeros((), dtype=torch.int8, device=dev))
         it_c = torch.zeros((b,), dtype=torch.int32, device=dev)
         _, hist2, err_c, done_c, it_c = bp_run(
-            garr, mv_c, self._llr_dev, synd_c, hist2, err_c, dead_c, it_c,
+            garr, mv_c, self._llr_dev, synd_c, hist2, err_c, dead_c.clone(), it_c,
             num_iter=self.post_max_iter, alpha=self.alpha, clip=self.clip,
             freeze_messages=False, history_mode="tail", io_layout="slot_major",
-            vn_state=vn_c, cn_state=cn_c, masked=True,
+            vn_state=vn_c, cn_state=cn_c, masked=True, inplace=True,
         )
         # dead shots keep the (partially decimated) BP decision
         post_conv = done_c & ~dead_c
@@ -157,7 +159,8 @@ class OSDWindow:
         synds = synds.to(torch.uint8)
 
         # (1) pre-BP on the full graph, masked with nothing decided. Its
-        # messages are discarded, so converged shots need no freeze.
+        # messages are discarded, so converged shots need no freeze; the
+        # state is fresh, so BP updates it in place.
         mv = bp_init_messages_sm(garr, self._llr_dev, B)
         history = torch.zeros((n, 4, B), dtype=torch.float32, device=dev)
         error = torch.zeros((B, n), dtype=torch.int8, device=dev)
@@ -166,7 +169,7 @@ class OSDWindow:
         _, history, error, done, iters = bp_run(
             garr, mv, self._llr_dev, synds, history, error, done, iters,
             num_iter=self.pre_max_iter, alpha=self.alpha, clip=self.clip,
-            freeze_messages=False, io_layout="slot_major", masked=True,
+            freeze_messages=False, io_layout="slot_major", masked=True, inplace=True,
         )
 
         # --- walk 1: shorten + post-BP over pre-BP survivors ---------------

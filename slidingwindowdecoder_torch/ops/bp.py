@@ -97,6 +97,30 @@ def bp_init_messages_sm(garr, prior_llr, batch: int, msg_dtype="float32"):
     return base[:, :, None].expand(dc, m_pad, batch)
 
 
+def is_column_major(mv) -> bool:
+    """Whether slot-major messages [dc, m_pad, B] are stored column by
+    column (each column's dc*m_pad messages contiguous, the layout the
+    fused kernel's shared-table route reads and writes whole)."""
+    return mv.permute(2, 0, 1).is_contiguous()
+
+
+def column_major(mv):
+    """A copy of slot-major messages [dc, m_pad, B] (a broadcast view is
+    fine) stored column by column (``is_column_major``)."""
+    dc, m_pad, B = mv.shape
+    out = torch.empty((B, dc, m_pad), dtype=mv.dtype, device=mv.device).permute(1, 2, 0)
+    return out.copy_(mv)
+
+
+def take_columns(x, idx):
+    """Columns ``idx`` of a [..., B] tensor, as ``x[..., idx]``, kept
+    column-major where ``x`` is (``x[..., idx]`` would store the result
+    column-minor)."""
+    if x.ndim == 3 and is_column_major(x):
+        return x.permute(2, 0, 1)[idx].permute(1, 2, 0)
+    return x[..., idx]
+
+
 def _cn_update_sm(mv, edge_valid, parity, *, alpha, clip, pinned=False):
     """Check-node update, slot-major — the plain version of the CUDA kernel
     in ``ops.bp_cuda`` and the port of the JAX ``_cn_update_sm``.
@@ -164,6 +188,7 @@ def bp_loop(
     posterior_matmul: bool = False,
     return_synd: bool = False,
     early_exit: bool = True,
+    keep_done: bool = False,
 ):
     """Up to ``num_iter`` BP iterations as torch ops around the CN stage
     ``ops.bp_cuda.cn_update``: the plain version of the fused kernel
@@ -187,9 +212,12 @@ def bp_loop(
 
     The iterations run on the shots not done at entry only (one host read
     of which they are): a shot done at entry keeps every input, its
-    messages pinned at entry in masked mode, as in the kernel. Its
+    messages pinned at entry in masked mode, as the JAX loop's (its
     messages then differ from the JAX loop's with ``freeze_messages=False``
-    only, where the docstring of ``bp_run`` allows it.
+    only, where the docstring of ``bp_run`` allows it). ``keep_done=True``
+    is the in-place form's contract (``bp_run(inplace=True)``, where the
+    fused kernel neither reads nor writes a shot done at entry): such a
+    shot keeps its messages unpinned too.
     """
     mdt = mv_sm.dtype
     dev = synd_t.device
@@ -202,8 +230,10 @@ def bp_loop(
                 if vn_state is None else vn_state.T)
         # pin the edges of decided VNs and the invalid slots once, at entry
         vs_edge = vn_t[garr["cn_vn_clip"]].reshape(dc, m_pad, B)
-        mv_sm = torch.where((vs_edge != -1) | ~sv, torch.tensor(PIN, dtype=mdt, device=dev),
-                            mv_sm)
+        pinned = (vs_edge != -1) | ~sv
+        if keep_done:
+            pinned = pinned & ~done
+        mv_sm = torch.where(pinned, torch.tensor(PIN, dtype=mdt, device=dev), mv_sm)
     live = (~done).nonzero()[:, 0]
     kw = dict(num_iter=num_iter, hist_from=hist_from, alpha=alpha, clip=clip,
               masked=masked, freeze_messages=freeze_messages,
@@ -225,7 +255,9 @@ def bp_loop(
         done[live], iters[live] = sub[3], sub[4]
         sodd = synd_t == 1
         sodd[:, live] = sub[5]
-    out = (mv_sm, hist_t, err_t.T, done, iters)
+    # the error leaves [B, n] contiguous, as the kernel writes it: a float
+    # sum over it downstream (a decoder's min_pm) then runs in one order
+    out = (mv_sm, hist_t, err_t.T.contiguous(), done, iters)
     return out + (sodd.to(torch.int8),) if return_synd else out
 
 
@@ -329,6 +361,7 @@ def bp_run(
     hist_update: str = "masked",
     hist_dtype: str = "float32",
     early_exit: bool = True,
+    inplace: bool = False,
 ):
     """Run up to ``num_iter`` BP iterations with per-shot convergence
     freeze (the JAX ``bp_run``).
@@ -344,7 +377,7 @@ def bp_run(
     (valid when downstream ignores them): their final messages may differ
     from a frozen run's, and no other output does. The plain loop checks
     the all-done exit on the host every ``EXIT_CHECK_EVERY`` iterations;
-    the fused kernel freezes every done shot and exits per block.
+    the fused kernel freezes every done shot and skips it from then on.
     ``early_exit=False`` (the JAX fixed-trip form) runs ``bp_loop`` for all
     ``num_iter`` trips with no all-done read (on the card around the
     ``cn_update`` kernel, not the fused one). The per-shot freeze masks
@@ -394,6 +427,15 @@ def bp_run(
     bfloat16 each write stores the f32 posterior rounded once (the JAX
     ``bp_run`` takes the ring's dtype from its ``history`` array).
 
+    ``inplace=True`` is the internal form for callers that rebind their
+    carry to the outputs and read none of the inputs after the call: the
+    ring is not copied first, and the messages (slot-major and
+    contiguous), ``error``, ``done``, ``iters`` and (slot-major) the ring
+    are written in place and returned. A row done at entry keeps every
+    input, its messages unpinned in masked mode (the default form, the JAX
+    package's functional contract, returns them pinned at entry); on the
+    card such a row is neither read nor written.
+
     Returns ``(mv, history, error, done, iters)`` in the input layouts,
     then ``synd_hat`` if ``return_synd``.
     """
@@ -412,7 +454,7 @@ def bp_run(
         freeze_messages=freeze_messages, history_mode=history_mode,
         posterior_matmul=posterior_matmul, io_layout=io_layout,
         vn_state=vn_state, cn_state=cn_state, masked=masked,
-        transposed=transposed,
+        transposed=transposed, inplace=inplace,
     )
     mv_sm, prior = args[1], args[2]
     if not early_exit:
@@ -421,7 +463,10 @@ def bp_run(
         fused = mv_sm.device.type == "cpu" or (
             prior.ndim == 1 and not posterior_matmul
             and span_route(garr, mv_sm.shape[2], mv_sm.dtype) is not None)
-        out = (bp_span if fused else bp_loop)(*args, **kw, return_synd=return_synd)
+        if fused:
+            out = bp_span(*args, **kw, return_synd=return_synd, inplace=inplace)
+        else:
+            out = bp_loop(*args, **kw, return_synd=return_synd)
     mv_sm, hist_t, err_out, done, iters = out[:5]
     if transposed:
         err_out = err_out.T
@@ -457,13 +502,18 @@ def span_inputs(
     cn_state=None,
     masked: bool = False,
     transposed: bool = False,
+    inplace: bool = False,
 ):
     """``bp_run``'s arguments as the positional and keyword arguments of
     ``bp_loop`` and ``ops.bp_cuda.bp_span``: slot-major messages in the
     message dtype, the CN sign seed and the syndrome as [m_pad, B] int32,
     a private contiguous copy of the history ring (unless
-    ``history_mode="none"``) and ``hist_from``. ``transposed``: the states
-    arrive in ``bp_run``'s ``state_layout="transposed"``."""
+    ``history_mode="none"``, or ``inplace`` with the caller's ring already
+    slot-major and contiguous: then the ring itself) and ``hist_from``.
+    ``transposed``: the states arrive in ``bp_run``'s
+    ``state_layout="transposed"``, and leave as views ([B, n] of the
+    caller's [n, B] error and VN state: ``bp_span`` reads them through
+    their strides)."""
     mdt = msg_torch_dtype(msg_dtype)
     dev = syndrome.device
     B = syndrome.shape[-1] if transposed else syndrome.shape[0]
@@ -509,7 +559,8 @@ def span_inputs(
         hist_t = history.permute(1, 2, 0)
     else:
         raise ValueError(f"unknown io_layout {io_layout!r}")
-    if history_mode != "none":  # the ring is written in place
+    # the ring is written in place: a copy, unless the caller's own will do
+    if history_mode != "none" and not (inplace and hist_t.is_contiguous()):
         hist_t = hist_t.clone(memory_format=torch.contiguous_format)
 
     args = (garr, mv_sm, prior, parity, synd_t, vn, hist_t, error, done, iters)

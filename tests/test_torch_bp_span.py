@@ -299,10 +299,15 @@ def test_wide_graph_plain_loop_matches_jax(rng, masked):
 
 def test_smem_layout_at_window1():
     """The shared-memory totals written down in ``csrc/bp_span.cu``'s
-    notes and PERF.md: 205,648 B for 4 f32 shots, 214,416 B for 8 bf16."""
+    notes and PERF.md: 205,648 B for 4 f32 shots, 214,416 B for 8 bf16;
+    the most a block holds at the flagship shapes (4 and 8), and the
+    columns a block takes of a 300-column call on 132 SMs (3)."""
     garr = graph_tensors(compile_graph(_graphs144()["window1"]), "cpu")
     assert bp_cuda.span_smem_bytes(garr, torch.float32, 4) == 205_648
     assert bp_cuda.span_smem_bytes(garr, torch.bfloat16, 8) == 214_416
+    assert bp_cuda.max_shots_per_block(garr, torch.float32) == 4
+    assert bp_cuda.max_shots_per_block(garr, torch.bfloat16) == 8
+    assert bp_cuda.shots_per_block(garr, 300, torch.float32, 132) == 3
 
 
 @pytest.mark.parametrize("graph", ["window0", "window1"])
@@ -353,3 +358,129 @@ def test_cpu_runs_the_plain_loop(rng, monkeypatch, masked):
     before = counts()
     _run_port(g, prior, synds, vn, cn, done, "float32", num_iter=6)
     assert counts() == (before[0] + 1, *before[1:])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_inplace_form_equals_copying_form(rng, masked):
+    """``bp_span(inplace=True)`` through the plain path on a batch with rows
+    done at entry: the outputs of the copying form (error, done,
+    iterations, ring, ``synd_hat`` and the messages of every row not done
+    at entry); the done rows' messages their inputs, which the copying
+    form returns pinned at entry in masked mode; and the outputs are the
+    caller's tensors (messages, ring, error, done, iterations), the
+    caller's inputs left alone by the copying form but for the ring."""
+    B = 96
+    g, prior, synds, vn, cn, done = _inputs(rng, masked, B)
+    done = done | (rng.random(B) < 0.15)
+    garr = graph_tensors(g, "cpu")
+    n = g.n
+    err0 = np.zeros((B, n), np.int8) if vn is None else np.where(vn != -1, vn, 0).astype(np.int8)
+
+    def call(inplace):
+        args, kw = tbp.span_inputs(
+            garr, tbp.bp_init_messages_sm(garr, prior, B).contiguous(), prior,
+            torch.from_numpy(synds), torch.zeros((n, 4, B)), torch.from_numpy(err0.copy()),
+            torch.from_numpy(done.copy()), torch.zeros(B, dtype=torch.int32), num_iter=20,
+            history_mode="full", io_layout="slot_major", masked=masked, inplace=inplace,
+            vn_state=None if vn is None else torch.from_numpy(vn),
+            cn_state=None if cn is None else torch.from_numpy(cn))
+        mine = [a.clone() for a in (args[1], args[7], args[8], args[9])]
+        out = bp_cuda.bp_span(*args, **kw, return_synd=True, inplace=inplace)
+        return args, mine, out
+
+    args_c, entry_c, out_c = call(False)
+    args_i, entry_i, out_i = call(True)
+    d = torch.from_numpy(done)
+    assert 0 < int((out_c[3] & ~d).sum()) < int((~d).sum())  # some converge, some not
+    for k in range(1, 6):
+        assert torch.equal(out_i[k], out_c[k]), k
+    assert torch.equal(out_i[0][:, :, ~d], out_c[0][:, :, ~d])
+    assert torch.equal(out_i[0][:, :, d], entry_i[0][:, :, d])
+    if masked:
+        assert not torch.equal(out_c[0][:, :, d], entry_c[0][:, :, d])
+    for got, theirs in zip((out_i[0], out_i[1], out_i[2], out_i[3], out_i[4]),
+                           (args_i[1], args_i[6], args_i[7], args_i[8], args_i[9])):
+        assert got.data_ptr() == theirs.data_ptr()
+    for theirs, before in zip((args_c[1], args_c[7], args_c[8], args_c[9]), entry_c):
+        assert torch.equal(theirs, before)
+    assert out_c[1].data_ptr() == args_c[6].data_ptr()  # the ring copy, written in place
+
+
+def test_inplace_transposed_state_is_the_callers(rng):
+    """``bp_run(inplace=True)`` with GDG's transposed carry: the [n, B]
+    error it returns is the caller's tensor, and so are the slot-major
+    messages, ring, done and iterations; the results equal the copying
+    form's."""
+    B = 64
+    g, prior, synds, vn, cn, dead = _inputs(rng, True, B)
+    garr = graph_tensors(g, "cpu")
+    m, n, m_pad = g.m, g.n, g.m_pad
+    synd_t = torch.zeros((m_pad, B), dtype=torch.int8)
+    synd_t[:m] = torch.from_numpy(synds.T.astype(np.int8))
+    cn_t = torch.full((m_pad, B), -1, dtype=torch.int8)
+    cn_t[:m] = torch.from_numpy(cn.T)
+    err_t = torch.from_numpy(np.where(vn != -1, vn, 0).astype(np.int8).T.copy())
+    kw = dict(num_iter=6, return_synd=True, io_layout="slot_major", history_mode="tail",
+              hist_update="slice", state_layout="transposed", masked=True,
+              vn_state=torch.from_numpy(vn.T.copy()), cn_state=cn_t)
+
+    def call(inplace):
+        state = (tbp.bp_init_messages_sm(garr, prior, B).contiguous(), torch.zeros((n, 4, B)),
+                 err_t.clone(), torch.from_numpy(dead.copy()), torch.zeros(B, dtype=torch.int32))
+        mv, hist, err, done, iters = state
+        out = tbp.bp_run(garr, mv, prior, synd_t, hist, err, done, iters, **kw, inplace=inplace)
+        return state, out
+
+    _, out_c = call(False)
+    state, out_i = call(True)
+    for a, b in zip(out_i[1:], out_c[1:]):
+        assert torch.equal(a, b)
+    for got, theirs in zip(out_i[:5], state):
+        assert got.data_ptr() == theirs.data_ptr()
+    assert out_i[2].shape == (n, B)
+
+
+@pytest.mark.parametrize("decoder", ["gdg", "bpgd", "osd_window", "bposd"])
+def test_decoders_inplace_equal_copying(monkeypatch, decoder):
+    """Each decoder that passes ``bp_run(inplace=True)`` decodes a few bb72
+    code-capacity shots on the CPU exactly as it does with the copying form
+    forced (the same errors, convergence, iterations and metrics)."""
+    from slidingwindowdecoder_torch.codes import bb_code_by_n
+    from slidingwindowdecoder_torch.decoders import BPGD, BPOSD, GDG, OSDWindow
+    from slidingwindowdecoder_torch.decoders import bpgd as mod_bpgd
+    from slidingwindowdecoder_torch.decoders import bposd as mod_bposd
+    from slidingwindowdecoder_torch.decoders import gdg as mod_gdg
+    from slidingwindowdecoder_torch.decoders import osd_window as mod_osd_window
+
+    code, _, _ = bb_code_by_n(72)
+    r = np.random.default_rng(41)
+    probs = 0.06 * (0.75 + 0.5 * r.random(code.N))
+    synds = ((r.random((24, code.N)) < probs).astype(np.uint8) @ code.hx.T) % 2
+    make, module = {
+        "gdg": (lambda: GDG(code.hx, probs, max_iter=24, max_iter_per_step=6, max_step=12,
+                            max_tree_depth=2, max_side_depth=4, max_tree_branch_step=6,
+                            max_side_branch_step=6, ensemble_bucket=8, device="cpu"),
+                mod_gdg),
+        "bpgd": (lambda: BPGD(code.hx, probs, max_iter=24, max_step=20, device="cpu"),
+                 mod_bpgd),
+        "osd_window": (lambda: OSDWindow(code.hx, probs, pre_max_iter=6, post_max_iter=20,
+                                         osd_method="osd_cs", osd_order=2, bucket=8,
+                                         device="cpu"), mod_osd_window),
+        "bposd": (lambda: BPOSD(code.hx, probs, max_iter=30, phase_a_iters=6,
+                                phase_b_spans=(8, 16), bp_bucket=8, osd_method="osd_cs",
+                                osd_order=2, device="cpu"), mod_bposd),
+    }[decoder]
+    calls = {"inplace": 0}
+    real = module.bp_run
+
+    def counted(*a, **k):
+        calls["inplace"] += bool(k.get("inplace"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, "bp_run", counted)
+    got = make().decode_batch(synds)
+    assert calls["inplace"] > 0
+    monkeypatch.setattr(module, "bp_run", lambda *a, **k: real(*a, **{**k, "inplace": False}))
+    want = make().decode_batch(synds)
+    for k in ("error", "converged", "iterations", "min_pm"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)

@@ -134,7 +134,8 @@ def _bp_span_case(masked, dtype, B, seed, spec=None):
 def test_bp_span_smem_layout_matches_kernel(card, dtype):
     """The gate's shared-memory count (``span_smem_bytes``) equals the
     kernel's own layout (``bp_span_smem_bytes``) on the [[72]] and the
-    flagship [[144]] window graphs, at every block size the gate allows."""
+    flagship [[144]] window graphs and the [[288]] W=4 edge window (one f32
+    column), at every block size the gate allows."""
     import ctypes
 
     from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
@@ -145,14 +146,15 @@ def test_bp_span_smem_layout_matches_kernel(card, dtype):
     fn = cuda_build.load(bp_cuda.SPAN_SOURCE).bp_span_smem_bytes
     fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_longlong
-    for code, p, rounds, w in ((72, 0.01, 3, 2), (144, 0.004, 12, 3)):
-        H = build_bb_window_experiment(code, p, rounds, w, 1)[3].windows[1].mat
+    for code, p, rounds, w, which in ((72, 0.01, 3, 2, 1), (144, 0.004, 12, 3, 1),
+                                      (288, 0.005, 6, 4, 0)):
+        H = build_bb_window_experiment(code, p, rounds, w, 1)[3].windows[which].mat
         garr = graph_tensors(compile_graph(H), "cpu")
         shots = bp_cuda.max_shots_per_block(garr, dtype)
         assert shots >= 1
+        args = (dtype.itemsize, garr["n"], garr["m_pad"], garr["dc"], garr["dv"])
         for s in range(1, shots + 1):
-            assert fn(dtype.itemsize, garr["n"], garr["m_pad"], garr["dc"], garr["dv"],
-                      s) == bp_cuda.span_smem_bytes(garr, dtype, s)
+            assert fn(*args, s) == bp_cuda.span_smem_bytes(garr, dtype, s)
 
 
 @pytest.mark.parametrize("freeze", [False, True])
@@ -388,6 +390,151 @@ def test_bp_span_wide_layout_matches_kernel(card):
             for s in range(1, shots + 1):
                 assert fn(dtype.itemsize, garr["n"], garr["m_pad"], garr["dc"], garr["dv"],
                           s) == bp_cuda.span_smem_bytes(garr, dtype, s, bp_cuda.WIDE)
+
+
+def _span_args(H, prior, synds, err0, done0, kw, dev, ring=torch.float32, seed=0):
+    """``span_inputs``' (args, kw) of a ``_bp_span_case`` on ``dev``, the
+    ring written from the first iteration over random entry values."""
+    from slidingwindowdecoder_torch.graphs.tanner import compile_graph, graph_tensors
+    from slidingwindowdecoder_torch.ops.bp import bp_init_messages_sm, span_inputs
+
+    B, n = synds.shape[0], H.shape[1]
+    garr = graph_tensors(compile_graph(H), dev)
+    ring0 = (torch.randn((n, 4, B), generator=torch.Generator().manual_seed(seed)) * 8).to(ring)
+    to = (lambda t: t.to(dev) if torch.is_tensor(t) else t)
+    kw = {**kw, "history_mode": "full", "freeze_messages": True}
+    mdt = kw.pop("msg_dtype")
+    return span_inputs(
+        garr, bp_init_messages_sm(garr, prior, B, mdt).contiguous(), prior, synds.to(dev),
+        ring0.to(dev), err0.to(dev, copy=True), done0.to(dev, copy=True),
+        torch.zeros(B, dtype=torch.int32, device=dev), msg_dtype=mdt,
+        **{k: to(v) for k, v in kw.items()}, inplace=True)
+
+
+def _inplace_pair(card, args_c, kw_c, args_k, kw_k, route="shared"):
+    """The kernel in place on the card on ``route`` (its outputs must be
+    the caller's tensors) against ``bp_loop(keep_done=True)`` on the CPU:
+    every output bit-exact, the messages of every column included, and
+    the columns done at entry untouched byte for byte on the card."""
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import bp_loop
+
+    entry = [t.clone() for t in (args_k[1], args_k[6], args_k[7], args_k[8], args_k[9])]
+    done0 = args_k[8].clone()
+    counter = (f"{'pinned_' if kw_k['masked'] else ''}"
+               f"{'wide_' if route == bp_cuda.WIDE else ''}launches")
+    before = getattr(bp_cuda.bp_span, counter)
+    out_k = bp_cuda._launch_span(route, *args_k, **kw_k, inplace=True)
+    torch.cuda.synchronize()
+    assert getattr(bp_cuda.bp_span, counter) == before + 1
+    for got, mine in zip(out_k[:5], (args_k[1], args_k[6], args_k[7], args_k[8], args_k[9])):
+        assert got.data_ptr() == mine.data_ptr()  # the caller's storage
+    ref = bp_loop(*args_c, **kw_c, keep_done=True)
+    names = ("messages", "ring", "error", "done", "iters", "synd_hat")
+    for name, a, b in zip(names, out_k, ref):
+        a = a.cpu()
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b), name
+    d = done0
+    assert torch.equal(out_k[0][:, :, d], entry[0][:, :, d])  # messages
+    assert torch.equal(out_k[1][:, :, d].float(), entry[1][:, :, d].float())  # ring
+    assert torch.equal(out_k[2][d], entry[2][d])  # error
+    assert torch.equal(out_k[4][d], entry[4][d])  # iterations
+    return ref
+
+
+@pytest.mark.parametrize("route", ["shared", "wide"])
+@pytest.mark.parametrize("ring", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bp_span_inplace_matches_plain_loop(card, masked, dtype, ring, route):
+    """Either table route in its in-place form, every entry point (message
+    dtype x mode x ring dtype), B=300 with columns done at entry scattered
+    through the batch: one launch, the caller's tensors returned, every
+    output bit-exact against ``bp_loop(keep_done=True)`` on the CPU
+    (``synd_hat`` too, masked), and the done columns' messages, ring, error
+    and iterations untouched."""
+    B = 300
+    H, prior, synds, err0, done0, kw = _bp_span_case(masked, dtype, B, 23)
+    kw["freeze_messages"] = True
+    args_c, kw_c = _span_args(H, prior, synds, err0, done0, kw, "cpu", ring, 23)
+    args_k, kw_k = _span_args(H, prior, synds, err0, done0, kw, card, ring, 23)
+    kw_c["return_synd"] = kw_k["return_synd"] = masked
+    ref = _inplace_pair(card, args_c, kw_c, args_k, kw_k, route)
+    assert 0 < int((ref[3] & ~done0).sum()) < int((~done0).sum())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bp_span_copying_form_pins_done_columns(card, dtype):
+    """The shared-table route's copying form, masked, with the VN states
+    in the GDG carry's transposed layout (read through their strides),
+    B=300 with columns done at entry: the kernel itself loads the done
+    columns and pins their messages at their decided VNs' edges and invalid
+    slots, as the JAX loop pins every column at entry, so every column's
+    messages (and every other output) equal ``bp_loop``'s on the CPU; the
+    caller's messages are left as they came."""
+    from slidingwindowdecoder_torch.ops import bp_cuda
+    from slidingwindowdecoder_torch.ops.bp import bp_loop
+
+    B = 300
+    H, prior, synds, err0, done0, kw = _bp_span_case(True, dtype, B, 41)
+    kw["vn_state"] = kw["vn_state"].T.contiguous().T  # [B, n] at strides (1, B)
+    args_c, kw_c = _span_args(H, prior, synds, err0, done0, kw, "cpu", seed=41)
+    args_k, kw_k = _span_args(H, prior, synds, err0, done0, kw, card, seed=41)
+    kw_c["return_synd"] = kw_k["return_synd"] = True
+    mv0 = args_k[1].clone()
+    before = bp_cuda.bp_span.pinned_launches
+    out_k = bp_cuda.bp_span(*args_k, **kw_k)
+    torch.cuda.synchronize()
+    assert bp_cuda.bp_span.pinned_launches == before + 1
+    assert torch.equal(args_k[1], mv0) and out_k[0].data_ptr() != args_k[1].data_ptr()
+    ref = bp_loop(*args_c, **kw_c)
+    for name, a, b in zip(("messages", "ring", "error", "done", "iters", "synd_hat"), out_k, ref):
+        a = a.cpu()
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b), name
+    assert int(done0.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["all_done", "one_column", "ragged", "one_slow",
+                                  "mostly_done"])
+def test_bp_span_edge_cases(card, case):
+    """The shared-table route at its edges, in place and against
+    ``bp_loop(keep_done=True)`` on the CPU: every column done at entry (one
+    launch, no input changed byte for byte, ``synd_hat`` the targets); B=1;
+    B=1001 (a ragged last block); one column that runs all ``num_iter``
+    iterations among 63 that converge at the first (one block's other
+    columns idle meanwhile); and 3000 columns, 70 % done at entry (as in a
+    GDG burst: blocks whose columns are all done leave at once, the others
+    hold live columns beside done ones, each done one given its target
+    syndrome)."""
+    B = {"all_done": 200, "one_column": 1, "ragged": 1001, "one_slow": 64,
+         "mostly_done": 3000}[case]
+    H, prior, synds, err0, done0, kw = _bp_span_case(True, "float32", B, 31)
+    if case == "all_done":
+        done0 = torch.ones(B, dtype=torch.bool)
+    elif case == "one_column":
+        done0 = torch.zeros(1, dtype=torch.bool)
+    elif case == "mostly_done":
+        done0 = torch.as_tensor(np.random.default_rng(37).random(B) < 0.7)
+    else:  # zero syndromes converge at once; one random syndrome never does
+        kw = {k: v for k, v in kw.items() if k not in ("vn_state", "cn_state")}
+        kw.update(masked=False)
+        synds = torch.zeros_like(synds)
+        synds[17] = torch.as_tensor(np.random.default_rng(31).integers(0, 2, synds.shape[1]),
+                                    dtype=torch.uint8)
+        err0 = torch.zeros_like(err0)
+        done0 = torch.zeros(B, dtype=torch.bool)
+    args_c, kw_c = _span_args(H, prior, synds, err0, done0, kw, "cpu", seed=31)
+    args_k, kw_k = _span_args(H, prior, synds, err0, done0, kw, card, seed=31)
+    kw_c["return_synd"] = kw_k["return_synd"] = True
+    ref = _inplace_pair(card, args_c, kw_c, args_k, kw_k)
+    if case == "all_done":
+        assert torch.equal(ref[5], args_c[4].to(torch.int8) & 1)
+    if case == "one_slow":
+        it = ref[4]
+        assert int(it[17]) == kw["num_iter"] and not bool(ref[3][17])
+        assert bool((it[torch.arange(B) != 17] == 1).all())
 
 
 def _window144(which: int):
